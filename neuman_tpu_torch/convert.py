@@ -1,10 +1,13 @@
-"""Weights across packages: neuman_tpu param pytree -> torch state_dict.
+"""Weights across packages: neuman_tpu param pytrees <-> torch state_dicts.
 
 The JAX package stores a linear layer as {"w": [in, out], "b": [out]}
 (forward x @ w); torch stores weight [out, in]. `from_jax_params` is the
 inverse of `neuman_tpu.trainers.checkpoint.convert_hybrid_state_dict`, so
-the keys it writes are the reference checkpoint's keys.
+the keys it writes are the reference checkpoint's keys; `to_jax_params` is
+the inverse of `joiner_state_dict`.
 """
+
+import re
 
 import numpy as np
 import torch
@@ -43,3 +46,27 @@ def from_jax_params(params_np):
         nets[f"offset_nets.{i}"] = p
     return {f"{prefix}.{k}": v for prefix, p in nets.items()
             for k, v in joiner_state_dict(p).items()}
+
+
+def to_jax_params(state_dict):
+    """Joiner state_dict (keys `nerf.pts_linears.{i}.weight`, ...; tensors
+    or arrays) -> one NeRF's param tree with numpy leaves; a dict
+    {"coarse": sd, "fine": sd} converts each net."""
+    if set(state_dict) == {"coarse", "fine"}:
+        return {k: to_jax_params(sd) for k, sd in state_dict.items()}
+    numpy = lambda v: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                       else np.asarray(v)).astype(np.float32)
+    params = {}
+    for key, value in state_dict.items():
+        m = re.fullmatch(r"nerf\.(\w+?)(?:\.(\d+))?\.(weight|bias)", key)
+        if m is None:
+            raise KeyError(f"not a NeRF parameter: {key}")
+        name, index, kind = m.groups()
+        leaf = numpy(value).T.copy() if kind == "weight" else numpy(value)
+        slot = params.setdefault(name, [] if index is not None else {})
+        if index is not None:
+            while len(slot) <= int(index):
+                slot.append({})
+            slot = slot[int(index)]
+        slot["w" if kind == "weight" else "b"] = leaf
+    return params

@@ -73,6 +73,14 @@ struct MlpArgs {
   int cp, cd;          // PE / dir-PE block widths in the buffers (padded for bf16)
 };
 
+// b . v as the FMA chain fma(b2, v2, fma(b1, v1, b0 v0)), spelled out so
+// that the compiler cannot reorder it: the operations of the plain PyTorch
+// version (`embedder.rotate_projection`), so both take the sin and cos of
+// the same argument, which reaches ~10^3 at the top band.
+__device__ __forceinline__ float rot_proj(const float* b, const float* v) {
+  return __fmaf_rn(b[2], v[2], __fmaf_rn(b[1], v[1], __fmul_rn(b[0], v[0])));
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -99,7 +107,7 @@ __device__ void pe_fill(T* buf, int ld, int off, int width, PE pe, const float* 
     } else {
       const int f = 3 * pe.n_bands, r = c - base, j = r < f ? r : r - f;
       const float* b = pe.coef + 3 * j;
-      const float a = b[0] * v[0] + b[1] * v[1] + b[2] * v[2];
+      const float a = rot_proj(b, v);
       out = r < f ? sinf(a) : cosf(a);
     }
     store(buf + s * ld + off + c, out);

@@ -54,6 +54,22 @@ def make_embedder(input_dims, max_freq, n_freqs, log_sampling=True,
     raise ValueError(mapping)
 
 
+def rotate_projection(x, bv):
+    """x [..., 3] . bv [F, 3]^T -> [..., F] f32, as the fused multiply-add
+    chain fma(x2, b2, fma(x1, b1, x0 b0)): what a CPU matmul (torch's and
+    XLA's alike) computes for this product, and what the CUDA kernels
+    compute with explicit FMAs. Each FMA is taken exactly in f64 and
+    rounded once to f32. At the top band |x . b| reaches ~10^3, where one
+    ulp of a differently rounded projection moves sin and cos by ~1e-4 and
+    flips ReLU masks downstream, so the kernels and the plain versions
+    must project alike."""
+    f64 = lambda t: t.double()
+    acc = x[..., 0:1] * bv[:, 0]
+    for a in (1, 2):
+        acc = (f64(x[..., a:a + 1]) * f64(bv[:, a]) + f64(acc)).to(x.dtype)
+    return acc
+
+
 def embed(spec: EmbedderSpec, x):
     """x: [..., input_dims] -> [..., out_dim]."""
     if x.shape[-1] != spec.input_dims:
@@ -63,6 +79,6 @@ def embed(spec: EmbedderSpec, x):
         for f in spec.freq_bands:
             parts += [torch.sin(x * f), torch.cos(x * f)]
         return torch.cat(parts, dim=-1)
-    proj = x @ spec.bvals_tensor(x.device).to(x.dtype).T
+    proj = rotate_projection(x, spec.bvals_tensor(x.device).to(x.dtype))
     parts = [x] if spec.include_input else []
     return torch.cat(parts + [torch.sin(proj), torch.cos(proj)], dim=-1)

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from neuman_tpu.utils.synthetic_body import synthetic_body_mesh
+from neuman_tpu_torch.utils.synthetic_body import synthetic_body_mesh
 
 
 @dataclass

@@ -94,19 +94,22 @@ def _kernel_layers(spec, net, per_sample):
     ]
 
 
-def _pack_weights(spec, layers, compute_dtype):
+def _pack_weights(spec, layers, compute_dtype, backward=False):
     """One flat weight buffer in the layout the kernel reads: f32 layers
     transposed to [in, out]; bf16 layers [out, in] with the PE and dir-PE
-    column blocks zero-padded to multiples of 16 (the MMA's k step)."""
+    column blocks zero-padded to multiples of 16 (the MMA's k step).
+    backward=True gives each layer the other way round (f32 [out, in], bf16
+    [in, out] padded likewise), for the backward's input gradients."""
     if compute_dtype == torch.float32:
-        return torch.cat([w.t().reshape(-1) for w, _, _ in layers])
+        return torch.cat([(w if backward else w.t()).reshape(-1) for w, _, _ in layers])
     widths = {"pe": spec.pos_pe.out_dim, "h": spec.nerf.width,
               "dpe": spec.dir_pe.out_dim, "h2": spec.nerf.width // 2}
     parts = []
     for w, _, blocks in layers:
         cols = w.split([widths[b] for b in blocks], dim=1)
         cols = [torch.nn.functional.pad(c, (0, _round16(c.shape[1]) - c.shape[1])) for c in cols]
-        parts.append(torch.cat(cols, dim=1).reshape(-1))
+        padded = torch.cat(cols, dim=1)
+        parts.append((padded.t() if backward else padded).reshape(-1))
     return torch.cat(parts).to(torch.bfloat16)
 
 

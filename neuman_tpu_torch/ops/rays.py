@@ -3,6 +3,7 @@
 import torch
 
 from neuman_tpu_torch.ops.precision import matmul_f32
+from neuman_tpu_torch.utils.constants import PERTURB_EPSILON
 
 
 def image_coords(h, w, device=None):
@@ -26,10 +27,19 @@ def pixels_to_rays(xy, intrinsic, cam2world):
     return origin.expand_as(dirs), dirs
 
 
-def sample_z_vals(near, far, samples_per_ray):
-    """Evenly spaced z values [R, S] between near and far ([R] or [R, 1])."""
+def sample_z_vals(near, far, samples_per_ray, perturb=0.0, generator=None):
+    """z values [R, S] between near and far ([R] or [R, 1]): evenly spaced,
+    or with perturb > 0 one uniform draw from `generator` (a torch.Generator
+    on near's device) inside each stratum, clipped away from its edges."""
     t = torch.linspace(0.0, 1.0, samples_per_ray, device=near.device)
-    return near.reshape(-1, 1) * (1.0 - t) + far.reshape(-1, 1) * t
+    z = near.reshape(-1, 1) * (1.0 - t) + far.reshape(-1, 1) * t
+    if perturb > 0.0:
+        mids = 0.5 * (z[:, 1:] + z[:, :-1])
+        upper = torch.cat([mids, z[:, -1:]], dim=-1)
+        lower = torch.cat([z[:, :1], mids], dim=-1)
+        u = torch.rand(z.shape, generator=generator, device=z.device)
+        z = lower + (upper - lower) * u.clamp(PERTURB_EPSILON, 1 - PERTURB_EPSILON)
+    return z
 
 
 def sample_pdf(bins, weights, n_samples):

@@ -32,13 +32,18 @@ def sort_merge_planar(z_list, sigma_list, rgb_c_list):
     return z, sigma, rgb_c
 
 
-def integrate_planar(sigma, rgb_c, z_vals, dir_norm, white_bkg=True):
+def integrate_planar(sigma, rgb_c, z_vals, dir_norm, white_bkg=True,
+                     raw_noise_std=0.0, generator=None):
     """Volume rendering of raw outputs. sigma, z_vals [R, S]; rgb_c 3x[R, S];
-    dir_norm [R]. Returns (rgb [R, 3], disp [R], acc [R], weights [R, S],
-    depth [R])."""
+    dir_norm [R]. With raw_noise_std > 0 the densities get Gaussian noise
+    drawn from `generator` (on sigma's device). Returns (rgb [R, 3],
+    disp [R], acc [R], weights [R, S], depth [R])."""
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], 1e10)], dim=-1)
     dists = dists * dir_norm[:, None]
+    if raw_noise_std > 0.0:
+        noise = torch.randn(sigma.shape, generator=generator, device=sigma.device)
+        sigma = sigma + noise * raw_noise_std
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1

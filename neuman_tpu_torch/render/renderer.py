@@ -1,6 +1,7 @@
-"""Hybrid human + scene renderer (counterpart of the planar hybrid path of
-neuman_tpu/render/renderer.py: `_bkg_branch_planar`, `_human_branch_planar`,
-`_hybrid_chunk_planar`, `render_hybrid_nerf`).
+"""Renderers (counterpart of the planar paths of neuman_tpu/render/renderer.py:
+`_bkg_branch_planar`, `_human_branch_planar`, `_hybrid_chunk_planar`,
+`render_hybrid_nerf`, and `render_vanilla`, the background-only render the
+background trainer validates with).
 
 `render_hybrid_nerf` renders a frame by the compact dispatch: every ray
 goes through the background path, chunk by chunk; the rays of a chunk that
@@ -16,7 +17,7 @@ the kernels against).
 
 import torch
 
-from neuman_tpu.utils.constants import DEFAULT_GEO_THRESH
+from neuman_tpu_torch.utils.constants import DEFAULT_GEO_THRESH
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops import rays as ray_ops
 from neuman_tpu_torch.ops import volume
@@ -124,6 +125,30 @@ def cap_rays(cap, device):
         ray_ops.image_coords(h, w, device), f32(cap.intrinsic_matrix),
         f32(cap.cam_pose.camera_to_world),
     )
+
+
+@torch.no_grad()
+def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768,
+                   samples_per_ray=64, importance_samples_per_ray=128, white_bkg=True,
+                   compute_dtype=torch.bfloat16, use_kernels=True):
+    """Background-only frame: coarse -> importance -> fine over every pixel
+    of `cap` (as render_hybrid_nerf reads it, near/far from the "bkg"
+    entries), chunk by chunk. spec: the nets' JoinerSpec; coarse_net,
+    fine_net: NeRF modules on `device`. Returns rgb [H, W, 3] on `device`."""
+    origins, dirs = cap_rays(cap, device)
+    total = origins.shape[0]
+    rgb = torch.empty(total, 3, device=device)
+    for i in range(0, total, rays_per_batch):
+        o, d = origins[i:i + rays_per_batch], dirs[i:i + rays_per_batch]
+        n = o.shape[0]
+        near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
+        far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
+        f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
+            spec, coarse_net, fine_net, o, d, near, far, samples_per_ray,
+            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels)
+        rgb[i:i + n] = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)[0]
+    h, w = cap.shape
+    return rgb.reshape(h, w, 3)
 
 
 @torch.no_grad()

@@ -15,6 +15,7 @@ from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops.kernels import meshquery as kmq
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
+from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
 
 torch.set_num_threads(1)
 
@@ -90,6 +91,63 @@ def test_nerf_mlp_never_falls_back_on_card(cuda, monkeypatch):
     kmlp.nerf_mlp(spec, net, *planes, **kw)
     with pytest.raises(ValueError):
         kmlp.nerf_mlp(spec, net, planes[0].t().contiguous().t(), *planes[1:], **kw)
+
+
+def _bwd_case(spec, net, per_sample, r, s, device, dtype):
+    planes, kw = _mlp_inputs(spec, net, per_sample, r, s, device, dtype)
+    g = torch.Generator().manual_seed(3)
+    cot = [torch.randn(r, s, generator=g).to(device) for _ in range(4)]
+    run = lambda fn: fn(spec, net, *planes, cot[0], cot[1:], compute_dtype=dtype, **kw)
+    return run
+
+
+def _flat(out):
+    grads, d_planes, d_dir = out
+    d_dir = list(d_dir) if isinstance(d_dir, list) else [d_dir]
+    return [t for wb in grads for t in wb] + list(d_planes) + d_dir
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["per_ray-posenc", "per_sample-rotate"])
+def test_nerf_mlp_bwd_kernel_matches_plain(cuda, mode, dtype, monkeypatch):
+    """Several tape chunks (whole rays, the last one ragged) and a sample
+    count that is not a tile multiple; two runs are bit-identical."""
+    monkeypatch.setattr(kvjp, "CHUNK_SAMPLES", 240)
+    per_sample = mode.startswith("per_sample")
+    spec, net = _net(mode.split("-")[1], 256, cuda)
+    run = _bwd_case(spec, net, per_sample, 37, 24, cuda, dtype)
+    before = kvjp.nerf_mlp_bwd.launches
+    got = _flat(run(kvjp.nerf_mlp_bwd))
+    assert kvjp.nerf_mlp_bwd.launches == before + 1
+    again = _flat(run(kvjp.nerf_mlp_bwd))
+    ref = _flat(run(kvjp.nerf_mlp_bwd_plain))
+    # f32: sums over the samples in another order. bf16: the same rounding
+    # points, but a value at a rounding boundary may round to the
+    # neighbouring bf16 number on one side, and a ReLU mask further down
+    # may flip with it, which moves one sample's whole term of a dW
+    # element: the bound is on each output's L2 error (as chip_smoke.py)
+    for i, (a, b, c) in enumerate(zip(got, again, ref)):
+        assert torch.equal(a, b), f"output {i} differs between two runs"
+        if dtype == torch.float32:
+            assert (a - c).abs().max() <= 1e-4 * c.abs().max() + 1e-6, f"output {i}"
+        else:
+            assert (a - c).norm() <= 5e-2 * c.norm() + 1e-6, f"output {i}"
+
+
+def test_nerf_mlp_fn_routes_kernel_gradients(cuda):
+    """The weight gradients that autograd routes to the module's parameters
+    through nerf_mlp_fn are the kernel's (dir_part is a leaf here, so the
+    direction columns of the views weight get none)."""
+    spec, net = _net("posenc", 64, cuda)
+    planes, kw = _mlp_inputs(spec, net, False, 16, 32, cuda)
+    net.requires_grad_(True)
+    sigma, rgb = kvjp.nerf_mlp_fn(spec, net, *planes, **kw)
+    (sigma.sum() + sum(c.square().sum() for c in rgb)).backward()
+    cot = [torch.ones_like(sigma)] + [2 * c.detach() for c in rgb]
+    grads, _, _ = kvjp.nerf_mlp_bwd_plain(spec, net, *planes, cot[0], cot[1:], **kw)
+    for (w, b), (gw, gb) in zip(kvjp.net_layers(net), grads):
+        torch.testing.assert_close(w.grad, gw, atol=1e-4 * gw.abs().max().item() + 1e-6, rtol=0)
+        torch.testing.assert_close(b.grad, gb, atol=1e-4 * gb.abs().max().item() + 1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("stride", [1, 4])

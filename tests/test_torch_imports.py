@@ -1,7 +1,9 @@
-"""neuman_tpu_torch imports without jax, flax, imageio, PIL or joblib.
+"""neuman_tpu_torch and chip_smoke.py import nothing of the JAX package.
 
-The machine with the GPU has none of them; `neuman_tpu.cameras` (PIL,
-imageio) and `neuman_tpu.options.config` (jax) are the traps.
+Neither `neuman_tpu` (not even its numpy-only modules: the port keeps its
+own copies) nor jax, flax, imageio, PIL or joblib, which the machine with
+the GPU does not have. `m.split('.')[0]` keeps `neuman_tpu_torch` apart
+from `neuman_tpu`.
 """
 
 import os
@@ -14,7 +16,7 @@ import torch
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "imageio", "PIL", "joblib")
+BLOCKED = ("neuman_tpu", "jax", "jaxlib", "flax", "imageio", "PIL", "joblib")
 MODULES = (
     "neuman_tpu_torch.render.renderer",
     "neuman_tpu_torch.ops.kernels._build",
@@ -24,6 +26,19 @@ MODULES = (
     "neuman_tpu_torch.models.smpl",
     "neuman_tpu_torch.convert",
     "neuman_tpu_torch.options.config",
+    "neuman_tpu_torch.utils.constants",
+    "neuman_tpu_torch.utils.synthetic_body",
+    "neuman_tpu_torch.ops.kernels.nerf_mlp_vjp",
+    "neuman_tpu_torch.ops.rays",
+    "neuman_tpu_torch.ops.volume",
+    "neuman_tpu_torch.datasets.arrays",
+    "neuman_tpu_torch.datasets.sampler",
+    "neuman_tpu_torch.trainers.checkpoint",
+    "neuman_tpu_torch.trainers.logging",
+    "neuman_tpu_torch.trainers.background",
+    "neuman_tpu_torch.train",
+    "neuman_tpu_torch.tools.profile_bkg_step",
+    "chip_smoke",
 )
 
 
