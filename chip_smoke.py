@@ -1,31 +1,48 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (neuman_tpu_torch) once on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases mlp,mesh,...]
 
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc builds the three kernels from neuman_tpu_torch/csrc/ (sm_90a);
-  3. nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
+  2. build: nvcc builds the six kernel libraries from neuman_tpu_torch/csrc/
+     (sm_90a), all started together;
+  3. mlp: nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
      PE 10 + 4 bands), R=1024 x S=64: per-ray posenc and per-sample
      rotate, f32 and bf16;
-  4. ericson_select kernel vs its plain version, N=65,536 ray samples on
-     the body-proxy mesh (V=10,242), k=4, stride 1 and 4;
-  5. the render slice at full width: one 4096-ray hybrid chunk in f32,
-     kernels vs plain, then a 270x480 frame through render_hybrid_nerf at
-     its default bf16 (the render path; launch counts reset just before it)
-     against the plain bf16 frame;
-  6. nerf_mlp_bwd and nerf_mlp kernels vs their plain versions at full
-     width at the train step's shapes, R=4096 x S=128 and S=256 per-ray
-     posenc, S=128 per-sample rotate, f32 and bf16; two backward kernel
-     runs bit-identical;
-  7. the background train slice at the bkg defaults (4096 rays, 128 + 128
-     samples) on a 4-view 270x480 synthetic scene: a step's losses and
+  4. mesh: ericson_select kernel vs its plain version, N=65,536 ray samples
+     on the body-proxy mesh (V=10,242), k=4, stride 1 and 4;
+  5. slice: the render slice at full width: one 4096-ray hybrid chunk in
+     f32, kernels vs plain, then a 270x480 frame through render_hybrid_nerf
+     at its default bf16 (the render path; launch counts reset just before
+     it) against the plain bf16 frame;
+  6. bwd: nerf_mlp_bwd and nerf_mlp kernels vs their plain versions at full
+     width at the background train step's shapes, R=4096 x S=128 and S=256
+     per-ray posenc, S=128 per-sample rotate, f32 and bf16; two backward
+     kernel runs bit-identical;
+  7. train: the background train slice at the bkg defaults (4096 rays, 128
+     + 128 samples) on a 4-view 270x480 synthetic scene: a step's losses and
      gradients with the kernels vs the plain path on one batch, in f32 and
      in bf16; then train_background (the train path; launch counts reset
      just before it) and 20 timed steps in f32 and in bf16; a
-     checkpoint.npz round trip.
+     checkpoint.npz round trip;
+  8. offset, knn: offset_mlp and offset_mlp_bwd vs their plain versions at
+     the human step's shape, R=1536 x S=128 on (x, y, z, t), f32 and bf16,
+     two backward runs bit-identical; bucketed_knn vs its plain version at
+     Nq=49,152 and 196,608 on the V=10,242 proxy, k=4 (scores everywhere,
+     indices outside score ties; recall of the exact nearest vertex
+     printed);
+  9. human: the human train slice at the smpl_and_offset defaults (1536
+     rays, 128 samples, all seven losses, V=10,242 body) on the same
+     synthetic scene: a step's losses and every parameter gradient
+     (canonical net, offset net, poses), kernels vs plain, in f32 and bf16;
+     the nerf_mlp pair at the step's R=6144 x S=128 per-sample shape;
+     train_human for 2 steps with validations (the human train path; launch
+     counts reset just before it) and a checkpoint.npz round trip; 20 timed
+     steps in f32 and in bf16 with each kernel's launches per step.
 Then one JSON line of per-kernel results, and last the device line.
+--phases runs a subset (for work on one kernel); the contract is the run
+with no arguments.
 
 Weights are random (HumanNeRF and background nets from --seed); the body
 is the numpy body-proxy SMPL model posed by LBS. Imports nothing of JAX.
@@ -74,6 +91,31 @@ SLICE_VIEWS, SLICE_HW = 4, (270, 480)
 SLICE_STEPS = 20
 # loss rel error, each gradient's L2 error over its L2 norm
 STEP_TOL = {"float32": (1e-4, 5e-3), "bfloat16": (5e-3, BWD_BF16_L2)}
+
+# phase 8: the human step's offset-net shape, and its KNN query counts
+# (196,608 points in groups of 4, and every point)
+OFFSET_RAYS, OFFSET_SAMPLES = 1536, 128
+KNN_QUERIES = (49152, 196608)
+KNN_K = 4
+# scores: both sides take the same f32 operations; indices may differ only
+# where the two picked vertices' scores agree to this (a tie)
+KNN_SCORE_ATOL = 1e-5
+# phase 9: iteration of the gradient check (the offset scale is 0, and the
+# offset net's gradient with it, before offset_delay = 20,000)
+HUMAN_GRAD_ITERATION = 30000
+HUMAN_STEPS = 20
+# loss rel error; each parameter group's worst gradient L2 error over its L2
+# norm (see phase_human for the reasons)
+HUMAN_STEP_TOL = {
+    "float32": (1e-4, {"poses": 5e-3, "coarse_human_net": 1e-2, "offset_nets": 5e-2}),
+    "bfloat16": (5e-3, {"poses": 5e-2, "coarse_human_net": 5e-2, "offset_nets": 1e-1}),
+}
+# launches of one human train step: nerf_mlp = frozen coarse and fine
+# background + the batched canonical application + the sparsity rays
+HUMAN_LAUNCHES = {"nerf_mlp": 4, "nerf_mlp_bwd": 2, "offset_mlp": 1, "offset_mlp_bwd": 1,
+                  "ericson_select": 3, "bucketed_knn": 3}
+# a vertex score |v|^2 - 2 v.p: 3 multiplies and 3 adds
+KNN_OPS_PER_SCORE = 6
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -159,10 +201,12 @@ def phase_card():
 
 def phase_build():
     """One nvcc per source, all started together."""
-    from neuman_tpu_torch.ops.kernels import _build, meshquery, nerf_mlp, nerf_mlp_vjp
+    from neuman_tpu_torch.ops.kernels import (_build, knn, meshquery, nerf_mlp, nerf_mlp_vjp,
+                                              offset_mlp)
 
     t0 = time.perf_counter()
-    libs = (nerf_mlp._lib, meshquery._lib, nerf_mlp_vjp._lib)
+    libs = (nerf_mlp_vjp._lib, offset_mlp._lib_bwd, nerf_mlp._lib, offset_mlp._lib_fwd,
+            meshquery._lib, knn._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -628,6 +672,384 @@ def phase_train(device, seed):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+def offset_bound(spec, net, n, dtype, backward):
+    """Bound of the offset net's forward (4 input planes, the weights, 3
+    output planes) or recompute backward (+ 3 cotangent planes in; d_axes
+    and every weight gradient out; 3x the forward's multiply-adds)."""
+    ns, cp = spec.nerf, spec.pos_pe.out_dim
+    w = ns.width
+    macs = sum((cp if i == 0 else cp + w if (i - 1) in ns.skips else w) * w
+               for i in range(ns.depth)) + w * ns.output_ch
+    params = sum(p.numel() for p in net.parameters()) * 4
+    nbytes = 4 * n * 4 + params + ns.output_ch * n * 4
+    if backward:
+        nbytes += ns.output_ch * n * 4 + 4 * n * 4 + params
+    return bound_ms(2 * macs * n * (3 if backward else 1), nbytes, dtype)
+
+
+def phase_offset(model, spec, device, seed):
+    """The tolerances of phases 3 and 6, for the same reasons: f32 forward
+    1e-3 absolute, backward 1e-3 of each output's largest value (both sides
+    f32, another order of the sums); bf16 forward 5e-2 of the output scale,
+    backward 5e-2 in L2 of each output (same rounding points, values near a
+    rounding boundary land on either side and flip ReLU masks further down).
+    Two backward runs must be bit-identical."""
+    import torch
+    from neuman_tpu_torch.ops.kernels import offset_mlp as koff
+
+    gen = torch.Generator().manual_seed(seed + 4)
+    ospec, net = spec.offset, model.offset_nets[0].nerf
+    r, s = OFFSET_RAYS, OFFSET_SAMPLES
+    axes = [(torch.rand(r, s, generator=gen) * 3 - 1.5).to(device) for _ in range(3)]
+    axes.append(torch.full((r, s), 0.37, device=device))
+    cot = [torch.randn(r, s, generator=gen).to(device) for _ in range(3)]
+    results, failed = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        fwd_k = lambda: koff.offset_mlp(ospec, net, axes, dtype)
+        fwd_p = lambda: koff.offset_mlp_plain(ospec, net, axes, dtype)
+        out_k, out_p = torch.stack(fwd_k()), torch.stack(fwd_p())
+        torch.cuda.synchronize()
+        f_err, f_scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
+        f_std = out_k.std(dim=1).min().item()  # a net that ignores its input would show 0
+        f_ok = bool(torch.isfinite(out_k).all()) and f_std > 0 and _fwd_ok(f_err, f_scale, name)
+        bwd_k = lambda: koff.offset_mlp_bwd(ospec, net, axes, cot, dtype)
+        bwd_p = lambda: koff.offset_mlp_bwd_plain(ospec, net, axes, cot, dtype)
+        flat = lambda out: [t for wb in out[0] for t in wb] + list(out[1])
+        got, again, ref = flat(bwd_k()), flat(bwd_k()), flat(bwd_p())
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        err = max((a - c).abs().max().item() for a, c in zip(got, ref))
+        rel = max((a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+                  for a, c in zip(got, ref))
+        l2 = max(((a - c).norm() / c.norm().clamp_min(1e-30)).item() for a, c in zip(got, ref))
+        del got, again, ref
+        torch.cuda.empty_cache()
+        times = {k: cuda_ms(f, iters=5, warmup=1) for k, f in
+                 (("fwd", fwd_k), ("fwd_plain", fwd_p), ("bwd", bwd_k), ("bwd_plain", bwd_p))}
+        fb = offset_bound(ospec, net, r * s, name, backward=False)
+        bb = offset_bound(ospec, net, r * s, name, backward=True)
+        ok = (f_ok and identical and finite
+              and (rel <= BWD_F32_REL if name == "f32" else l2 <= BWD_BF16_L2))
+        log("offset_mlp", dtype=name, R=r, S=s, fwd_max_abs_err=f"{f_err:.3e}",
+            fwd_out_scale=f"{f_scale:.3f}", fwd_out_std=f"{f_std:.3e}", fwd_ok=f_ok,
+            fwd_kernel_ms=f"{times['fwd']:.3f}",
+            fwd_plain_ms=f"{times['fwd_plain']:.3f}", fwd_bound_ms=f"{fb[0]:.4f}",
+            bwd_max_abs_err=f"{err:.3e}", bwd_max_rel_err=f"{rel:.3e}", bwd_l2_rel_err=f"{l2:.3e}",
+            bit_identical=identical, bwd_kernel_ms=f"{times['bwd']:.3f}",
+            bwd_plain_ms=f"{times['bwd_plain']:.3f}", bwd_bound_ms=f"{bb[0]:.4f}",
+            bound_by=bb[1], ok=ok)
+        if not ok:
+            failed.append(name)
+        results[name] = {"fwd": (f_err, times["fwd"], times["fwd_plain"], *fb),
+                         "bwd": (err, times["bwd"], times["bwd_plain"], *bb)}
+    if failed:
+        raise RuntimeError(f"offset_mlp or offset_mlp_bwd disagrees with its plain version, or "
+                           f"offset_mlp_bwd between runs: {failed}")
+    return results
+
+
+def phase_knn(verts, seed):
+    """Kernel and plain take each score by the same f32 operations (an
+    explicit FMA chain), so the k scores agree to 1e-5 everywhere (expected:
+    exactly, or one rounding where the plain version's f64 emulation of an
+    FMA rounds twice) and the indices agree except where the two picked
+    vertices' scores tie within that. The recall of the exact nearest
+    vertex (a top-k over all V vertices) is printed, not held: the bucketed
+    KNN is approximate by design, as in the JAX package."""
+    import torch
+    from neuman_tpu_torch.ops import mesh as mesh_ops
+    from neuman_tpu_torch.ops.kernels import knn as kknn
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    results = {}
+    for nq in KNN_QUERIES:
+        pts = _ray_samples(verts, nq // OFFSET_SAMPLES, OFFSET_SAMPLES, gen)
+        run_k = lambda: kknn.bucketed_knn(pts, verts, KNN_K)
+        run_p = lambda: kknn.bucketed_knn_plain(pts, verts, KNN_K)
+        (ki, ks), (pi_, ps) = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = (ks - ps).abs().max().item()
+        diff = ki != pi_
+        ties_only = bool(((ks - ps).abs()[diff] <= KNN_SCORE_ATOL).all())
+        in_range = bool(((ki >= 0) & (ki < verts.shape[0])).all())
+        exact = torch.cat([mesh_ops._query_knn(c, verts, KNN_K)[0] for c in pts.split(16384)])
+        recall1 = (ki[:, 0] == exact[:, 0]).float().mean().item()
+        recall_k = (ki[:, :, None] == exact[:, None, :]).any(1).float().mean().item()
+        del exact
+        k_ms, p_ms = cuda_ms(run_k, iters=5, warmup=1), cuda_ms(run_p, iters=2, warmup=1)
+        v_pad = kknn.bucket_table(verts)[..., 0].numel()
+        b_ms, b_by = bound_ms(KNN_OPS_PER_SCORE * nq * verts.shape[0],
+                              3 * nq * 4 + 3 * verts.shape[0] * 4 + 2 * KNN_K * nq * 4, "f32")
+        ok = err <= KNN_SCORE_ATOL and ties_only and in_range
+        log("bucketed_knn", Nq=nq, V=verts.shape[0], V_pad=v_pad, k=KNN_K,
+            score_max_abs_err=f"{err:.3e}", idx_diff=int(diff.sum()), ties_only=ties_only,
+            recall_nearest=f"{recall1:.4f}", recall_top_k=f"{recall_k:.4f}",
+            kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.3f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by, ok=ok)
+        if not ok:
+            raise RuntimeError(f"bucketed_knn Nq={nq}: kernel disagrees with its plain version")
+        results[nq] = (err, k_ms, p_ms, b_ms, b_by)
+    return results
+
+
+def _human_config(out_dir, seed, **fields):
+    from neuman_tpu_torch.options.config import NeuManConfig, apply_mode_defaults
+
+    cfg = apply_mode_defaults(NeuManConfig(), "smpl_and_offset")
+    cfg.out_dir, cfg.seed, cfg.max_iter, cfg.valid_iter = out_dir, seed, 2, 1000
+    cfg.geo_threshold = 0.25
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    return cfg.finalize()
+
+
+def _kernel_counters():
+    from neuman_tpu_torch.ops.kernels import knn, meshquery, nerf_mlp, nerf_mlp_vjp, offset_mlp
+
+    return {"nerf_mlp": nerf_mlp.nerf_mlp, "nerf_mlp_bwd": nerf_mlp_vjp.nerf_mlp_bwd,
+            "offset_mlp": offset_mlp.offset_mlp, "offset_mlp_bwd": offset_mlp.offset_mlp_bwd,
+            "ericson_select": meshquery.ericson_select, "bucketed_knn": knn.bucketed_knn}
+
+
+def _alive(model):
+    """A random canonical net's density is nearly the same everywhere, so it
+    can be <= 0 everywhere (a dead net, which the step restarts): shift its
+    bias so that the checks and the timed steps see a live net."""
+    import torch
+
+    with torch.no_grad():
+        model.coarse_human_net.nerf.alpha_linear.bias.fill_(0.5)
+
+
+def phase_human_step(body, device, seed):
+    """One human step's losses and gradients, kernels against plain, on a
+    batch that leads with the LPIPS patch, at iteration 30,000, where the
+    offset scale (0 before 20,000) gives the offset net a gradient. The
+    canonical net's density bias is set to 0.5: a random net can be dead.
+    f32: the plain side is autograd of the plain forwards with the plain
+    mesh queries (`PLAIN`), independent of the backward kernels;
+    bf16: the kernels' plain versions in the same autograd Functions
+    (`PLAIN_FUNCTIONS`), rounded where the kernels round.
+
+    Tolerances (HUMAN_STEP_TOL), per parameter group, on the L2 error of
+    each parameter's gradient: the reasons are phase 7's (a weight gradient
+    sums ~1M per-sample terms that largely cancel, in another order; the
+    importance samples, the z-merge order and ReLU masks move with the last
+    bits), and the offset net sits behind one more cancelling sum: its
+    cotangents are the canonical net's d_planes (the PE derivative at bands
+    up to 2^9) times the offset scale. Measured on the H100: 4e-6 for every
+    group on the batch of seed 0 with the patch, and 3.3e-5 (poses), 3.7e-3
+    (canonical net), 2.1e-2 (offset net) on the batch without it, where a
+    few samples' z order or masks differ between the two paths; the line
+    prints, for scale, how far the same plain arithmetic moves when only the
+    backward's sums are ordered otherwise (f32) and how far bf16 rounding
+    moves the plain gradients from f32 (bf16: 6e-2, 4e-2, 0.27 against the
+    kernels' 7e-3, 7e-3, 4e-2). Held: f32 5e-3 / 1e-2 / 5e-2, bf16 5e-2 /
+    5e-2 / 1e-1, losses 1e-4 and 5e-3. A wiring fault is O(1). The poses'
+    gradient comes through the kernels' d_planes and d_dir, the warp's
+    barycentric blend and `vertex_forward`; the face choice carries no
+    gradient and is the same on both sides (the closest-point kernel is
+    bit-equal to plain, the KNN equal outside ties).
+
+    Returns, per dtype, the median ms/step and each kernel's launches in
+    train_human (2 steps and 2 validations) and in the 20 timed steps."""
+    import numpy as np
+    import torch
+    from neuman_tpu_torch import train as ttrain
+    from neuman_tpu_torch.datasets import arrays as darrays
+    from neuman_tpu_torch.models import human_nerf as hn
+    from neuman_tpu_torch.models import lpips as lpips_module
+    from neuman_tpu_torch.trainers import human
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    counters = _kernel_counters()
+    try:
+        scene = darrays.synthetic_human_scene(body, SLICE_VIEWS, *SLICE_HW, seed=seed, device=device)
+        train_views, val_views = [0, 1, 2], [3]
+        poses = np.stack([s["pose"] for s in scene.smpls])
+        betas = np.stack([s["betas"] for s in scene.smpls])
+
+        def trainer_for(cfg, model_seed):
+            spec = hn.build_human_nerf_spec(cfg)
+            model = hn.HumanNeRF(spec, device=device,
+                                 generator=torch.Generator().manual_seed(model_seed),
+                                 poses=poses, betas=betas, alignments=scene.alignments)
+            _alive(model)
+            return human.HumanNeRFTrainer(
+                cfg, model, scene, train_views, val_views, body,
+                lpips_params=lpips_module.init_lpips_params(seed, device), device=device)
+
+        # one step's losses and gradients, kernels vs plain, on one batch
+        for dtype in ("float32", "bfloat16"):
+            cfg = _human_config(out_dir, seed, name="grad", compute_dtype=dtype)
+            trainer = trainer_for(cfg, seed)
+            model = trainer.model
+            for batch_seed in range(seed, seed + 16):  # a batch that leads with the LPIPS patch
+                batch = trainer.draw_batch(generator=torch.Generator(device).manual_seed(batch_seed))
+                if int(batch["patch_counter"]) == 1:
+                    break
+            hit = batch["is_hit"].float().mean().item()
+            named = human.trained_params(model)
+            names, flat = zip(*[(human._full_name(k, n), p) for k, ps in named.items()
+                                for n, p in ps.items()])
+            anneals = human.compute_anneals(cfg, HUMAN_GRAD_ITERATION)
+
+            def loss_grads(ops):
+                fn = human.make_human_loss_fn(model, cfg, trainer.ctx, ops=ops)
+                total, aux = fn(batch, torch.Generator(device).manual_seed(seed + 1), anneals)
+                losses = [aux["losses"][k].detach() for k in human.LOSS_NAMES]
+                return losses, torch.autograd.grad(total, flat), bool(aux["dead"])
+
+            def group_l2(got, ref):
+                l2 = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                      for a, b in zip(got, ref)]
+                worst = {g: max((e, n) for n, e in zip(names, l2) if n.startswith(g))
+                         for g in human.TRAINED}
+                return ({g: float(f"{e:.3e}") for g, (e, _) in worst.items()},
+                        max(worst.values())[1])
+
+            k_loss, k_grad, dead = loss_grads(human.KERNELS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if dtype == "float32":
+                p_loss, p_grad, _ = loss_grads(human.PLAIN)
+                f32_plain = p_grad
+                torch.cuda.synchronize()
+                plain_gib = torch.cuda.max_memory_allocated() / 2**30
+                # for scale: the same plain arithmetic with the backward's
+                # sums in another order (the explicit plain backwards)
+                other = group_l2(loss_grads(human.PLAIN_FUNCTIONS)[1], p_grad)[0]
+                extra = {"plain_functions_vs_plain_l2": json.dumps(other, separators=(",", ":"))}
+            else:
+                p_loss, p_grad, _ = loss_grads(human.PLAIN_FUNCTIONS)
+                torch.cuda.synchronize()
+                plain_gib = torch.cuda.max_memory_allocated() / 2**30
+                # for scale: how far bf16 rounding itself moves the plain gradients
+                shift = group_l2(p_grad, f32_plain)[0]
+                extra = {"plain_bf16_vs_f32_l2": json.dumps(shift, separators=(",", ":"))}
+            loss_err = max((abs(a - b) / abs(b).clamp_min(1e-30)).item()
+                           for a, b in zip(k_loss, p_loss))
+            by_group, worst = group_l2(k_grad, p_grad)
+            nonzero = all(bool(g.abs().max() > 0) for g in k_grad)
+            loss_tol, grad_tol = HUMAN_STEP_TOL[dtype]
+            ok = (not dead and nonzero and loss_err <= loss_tol
+                  and all(by_group[g] <= grad_tol[g] for g in human.TRAINED)
+                  and all(bool(torch.isfinite(g).all()) for g in k_grad)
+                  and all(bool(b != 0) for b in p_loss))
+            log("human_step_grad", rays=cfg.rays_per_batch, S=cfg.samples_per_ray, dtype=dtype,
+                hit_share=f"{hit:.4f}", loss_rel_err=f"{loss_err:.3e}",
+                losses=json.dumps({k: round(v.item(), 6) for k, v in
+                                   zip(human.LOSS_NAMES, k_loss)}, separators=(",", ":")),
+                grad_l2_rel_err=json.dumps(by_group, separators=(",", ":")), worst=worst,
+                **extra, plain_peak_gib=f"{plain_gib:.2f}", ok=ok)
+            if not ok:
+                raise RuntimeError(f"human step {dtype}: kernel losses or gradients disagree "
+                                   f"with the plain path, or a loss or gradient is zero")
+            del trainer, model, k_grad, p_grad, flat, named
+            torch.cuda.empty_cache()
+        del f32_plain
+
+        # the human train path: train_human (2 steps, 2 validations), then
+        # HUMAN_STEPS timed steps, in f32 (the default) and in bf16
+        results = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = _human_config(out_dir, seed, name=dtype, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            trainer = ttrain.train_human(cfg, scene, train_views, val_views, body, device=device)
+            before = {k: fn.launches for k, fn in counters.items()}
+            val_ok = all(math.isfinite(v) for v in trainer.last_val_losses.values())
+            _alive(trainer.model)
+            events, losses = [], []
+            for _ in range(HUMAN_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(trainer.train_step()["total_loss"])
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            after = {k: fn.launches for k, fn in counters.items()}
+            launches = {k: {"train_human": before[k], f"human_{HUMAN_STEPS}_steps": after[k] - before[k]}
+                        for k in counters}
+            per_step = {k: (after[k] - before[k]) / HUMAN_STEPS for k in counters}
+            ms = sorted(s.elapsed_time(e) for s, e in events)
+            median = (ms[(HUMAN_STEPS - 1) // 2] + ms[HUMAN_STEPS // 2]) / 2
+            losses = torch.stack(losses)
+            gib = torch.cuda.max_memory_allocated() / 2**30
+            ok = (val_ok and bool(torch.isfinite(losses).all()) and bool((losses != 0).all())
+                  and per_step == HUMAN_LAUNCHES and all(v > 0 for v in before.values()))
+            log("human_train", dtype=dtype, rays=cfg.rays_per_batch, S=cfg.samples_per_ray,
+                V=body.num_verts, steps=HUMAN_STEPS, ms_per_step=f"{median:.3f}",
+                ms_min=f"{ms[0]:.3f}", ms_max=f"{ms[-1]:.3f}",
+                first_loss=f"{losses[0].item():.5f}", last_loss=f"{losses[-1].item():.5f}",
+                launches_per_step=json.dumps(per_step, separators=(",", ":")),
+                peak_gib=f"{gib:.2f}", launches=json.dumps(launches, separators=(",", ":")), ok=ok)
+            if not ok:
+                raise RuntimeError(f"human train {dtype}: a loss is not finite or is zero, or the "
+                                   f"kernels' launches per step are not {HUMAN_LAUNCHES}")
+            results[dtype] = (median, launches)
+
+        # checkpoint.npz round trip: a resumed trainer holds the same state
+        trainer.save_model()
+        resumed = trainer_for(dataclasses.replace(cfg, resume=True).finalize(), seed + 1)
+        a, b = trainer.state, resumed.state
+        same = (a["iteration"] == b["iteration"]
+                and torch.equal(a["opt_state"]["count"], b["opt_state"]["count"]))
+        for (n, p), (_, q) in zip(trainer.model.state_dict().items(),
+                                  resumed.model.state_dict().items()):
+            same = same and torch.equal(p, q)
+        for m in ("mu", "nu"):
+            for g, ps in a["opt_state"][m].items():
+                for n, v in ps.items():
+                    same = same and torch.equal(v, b["opt_state"][m][g][n])
+        log("human_checkpoint", iteration=b["iteration"], identical=same, ok=same)
+        if not same:
+            raise RuntimeError("checkpoint.npz round trip changed the human trainer's state")
+        return results
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_human_mlp(model, spec, device, seed):
+    """The nerf_mlp pair at the human step's batched canonical application,
+    per-sample rotate R=6144 x S=128 (786,432 samples, 24 tape chunks), and
+    at the sparsity rays' per-ray R=128 x S=128: forward and backward against
+    the plain versions at phase 6's tolerances, in f32."""
+    import torch
+    from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
+    from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
+
+    gen = torch.Generator().manual_seed(seed + 6)
+    jspec, net = spec.human, model.coarse_human_net.nerf
+    for mode, r, s in (("per_sample", 4 * OFFSET_RAYS, OFFSET_SAMPLES), ("per_ray", 128, 128)):
+        planes = [(torch.rand(r, s, generator=gen) * 3 - 1.5).to(device) for _ in range(3)]
+        cot = [torch.randn(r, s, generator=gen).to(device) for _ in range(4)]
+        if mode == "per_sample":
+            d = torch.randn(3, r, s, generator=gen)
+            kw = {"dir_planes": [x.contiguous() for x in (d / d.norm(dim=0, keepdim=True)).to(device)]}
+        else:
+            d = torch.randn(r, 3, generator=gen)
+            kw = {"dir_part": kmlp.dir_projection(jspec, net, (d / d.norm(dim=1, keepdim=True)).to(device))}
+        f_err, f_scale = _fwd_compare(jspec, net, planes, kw, torch.float32)[:2]
+        args = (jspec, net, *planes, cot[0], cot[1:])
+        got = _flat_grads(kvjp.nerf_mlp_bwd(*args, **kw))
+        ref = _flat_grads(kvjp.nerf_mlp_bwd_plain(*args, **kw))
+        torch.cuda.synchronize()
+        rel = max((a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+                  for a, c in zip(got, ref))
+        ok = _fwd_ok(f_err, f_scale, "f32") and rel <= BWD_F32_REL
+        log("human_mlp", mode=mode, pe=jspec.pos_pe.mapping, dtype="f32", R=r, S=s,
+            fwd_max_abs_err=f"{f_err:.3e}", bwd_max_rel_err=f"{rel:.3e}", ok=ok)
+        del got, ref
+        torch.cuda.empty_cache()
+        if not ok:
+            raise RuntimeError(f"nerf_mlp pair at the human step's {mode} shape disagrees with plain")
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -646,10 +1068,23 @@ def build_model(device, seed):
     return spec, model
 
 
+def phase_human(model, spec, body, device, seed):
+    phase_human_mlp(model, spec, device, seed)
+    return phase_human_step(body, device, seed)
+
+
+PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
     args = parser.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        parser.error(f"unknown phase in {phases}")
 
     import torch
 
@@ -668,42 +1103,66 @@ def main(argv=None):
     body = smpl.body_proxy_smpl_model(subdivisions=BODY_SUBDIVISIONS, device=device)
     topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, device)
 
-    mlp = phase_mlp(model, spec, device, args.seed)
-    mesh = phase_mesh(body.v_template, topo, args.seed)
-    launches = phase_slice(model, spec, body, device, args.seed)
-    bwd = phase_bwd(model, spec, device, args.seed)
-    train = phase_train(device, args.seed)
+    run = {
+        "mlp": lambda: phase_mlp(model, spec, device, args.seed),
+        "mesh": lambda: phase_mesh(body.v_template, topo, args.seed),
+        "slice": lambda: phase_slice(model, spec, body, device, args.seed),
+        "bwd": lambda: phase_bwd(model, spec, device, args.seed),
+        "train": lambda: phase_train(device, args.seed),
+        "offset": lambda: phase_offset(model, spec, device, args.seed),
+        "knn": lambda: phase_knn(body.v_template, args.seed),
+        "human": lambda: phase_human(model, spec, body, device, args.seed),
+    }
+    out = {name: run[name]() for name in PHASES if name in phases}
+    device_line = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                          "count": torch.cuda.device_count()}}
+    if set(phases) != set(PHASES):
+        print(json.dumps({**device_line, "phases": phases}), flush=True)
+        return 0
+    mlp, mesh, launches, bwd, train = (out[k] for k in ("mlp", "mesh", "slice", "bwd", "train"))
+    offset, knn, human = out["offset"], out["knn"], out["human"]
 
     # timings: nerf_mlp the render path's bf16 per-ray case (phase 3),
     # ericson_select stride 4 (phase 4), nerf_mlp_bwd the fine pass of the
-    # f32 train step (phase 6). launches: the sum over the main paths, each
-    # counted from 0 in its own run and listed in launches_by_path: one
-    # render frame (phase 5), and the f32 train path (phase 7) split into
-    # train_background (2 steps, 2 validations) and the 20 timed steps.
-    # No single PyTorch call computes any of the three functions.
-    def entry(name, replaces, by_path, max_abs_err, timing):
+    # f32 background step (phase 6), offset_mlp and offset_mlp_bwd the f32
+    # human step's shape and bucketed_knn its 49,152 groups (phase 8).
+    # launches: the sum over the main paths, each counted from 0 in its own
+    # run and listed in launches_by_path: one render frame (phase 5), the
+    # f32 background train path (phase 7) split into train_background (2
+    # steps, 2 validations) and the 20 timed steps, and the f32 human train
+    # path (phase 9) split likewise. No single PyTorch call computes any of
+    # the six functions.
+    def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by = timing
-        return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{name}.cu",
+        return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": max_abs_err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
-    train_launches = train["float32"][1]
+    train_launches, human_launches = train["float32"][1], human["float32"][1]
     kernels = [
-        entry("nerf_mlp", "neuman_tpu/ops/pallas/raymarch.py:105",
-              {"render_frame": launches["nerf_mlp"], **train_launches["nerf_mlp"]},
+        entry("nerf_mlp", "nerf_mlp", "neuman_tpu/ops/pallas/raymarch.py:105",
+              {"render_frame": launches["nerf_mlp"], **train_launches["nerf_mlp"],
+               **human_launches["nerf_mlp"]},
               max(mlp[(m, "bf16")][0] for m in ("per_ray", "per_sample")),
               mlp[("per_ray", "bf16")][1:]),
-        entry("ericson_select", "neuman_tpu/ops/pallas/meshquery.py:314",
-              {"render_frame": launches["ericson_select"]}, max(r[0] for r in mesh.values()),
-              mesh[4][1:]),
-        entry("nerf_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:76",
-              train_launches["nerf_mlp_bwd"], bwd[("per_ray", 256, "f32")][0],
-              bwd[("per_ray", 256, "f32")][1:]),
+        entry("ericson_select", "ericson_select", "neuman_tpu/ops/pallas/meshquery.py:314",
+              {"render_frame": launches["ericson_select"], **human_launches["ericson_select"]},
+              max(r[0] for r in mesh.values()), mesh[4][1:]),
+        entry("nerf_mlp_bwd", "nerf_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:76",
+              {**train_launches["nerf_mlp_bwd"], **human_launches["nerf_mlp_bwd"]},
+              bwd[("per_ray", 256, "f32")][0], bwd[("per_ray", 256, "f32")][1:]),
+        entry("offset_mlp", "offset_mlp", "neuman_tpu/ops/pallas/raymarch_vjp.py:506",
+              human_launches["offset_mlp"], offset["f32"]["fwd"][0], offset["f32"]["fwd"][1:]),
+        entry("offset_mlp_bwd", "offset_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:620",
+              human_launches["offset_mlp_bwd"], offset["f32"]["bwd"][0],
+              offset["f32"]["bwd"][1:]),
+        entry("bucketed_knn", "bucketed_knn", "neuman_tpu/ops/pallas/meshquery.py:427",
+              human_launches["bucketed_knn"], max(r[0] for r in knn.values()),
+              knn[KNN_QUERIES[0]][1:]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps(device_line), flush=True)
     return 0
 
 

@@ -4,7 +4,7 @@ The JAX package stores a linear layer as {"w": [in, out], "b": [out]}
 (forward x @ w); torch stores weight [out, in]. `from_jax_params` is the
 inverse of `neuman_tpu.trainers.checkpoint.convert_hybrid_state_dict`, so
 the keys it writes are the reference checkpoint's keys; `to_jax_params` is
-the inverse of `joiner_state_dict`.
+the inverse of `joiner_state_dict` and of `from_jax_params`.
 """
 
 import re
@@ -34,28 +34,43 @@ def joiner_state_dict(params):
     return sd
 
 
-def from_jax_params(params_np):
-    """HumanNeRF param pytree (numpy leaves) -> HumanNeRF state_dict.
+_SMPL_STATE = ("poses", "betas", "alignments")
+_HYBRID_NETS = ("coarse_bkg_net", "fine_bkg_net", "coarse_human_net")
 
-    Only the networks are converted; the per-frame SMPL entries (`poses`,
-    `betas`, `alignments`) are not part of the module and are skipped.
-    """
-    nets = {name: params_np[name]
-            for name in ("coarse_bkg_net", "fine_bkg_net", "coarse_human_net")}
+
+def from_jax_params(params_np):
+    """HumanNeRF param pytree (numpy leaves) -> HumanNeRF state_dict: the
+    three joiners, the offset nets and, where the tree has them, the
+    per-frame SMPL entries `poses`, `betas`, `alignments`."""
+    nets = {name: params_np[name] for name in _HYBRID_NETS}
     for i, p in enumerate(params_np.get("offset_nets", [])):
         nets[f"offset_nets.{i}"] = p
-    return {f"{prefix}.{k}": v for prefix, p in nets.items()
-            for k, v in joiner_state_dict(p).items()}
+    sd = {f"{prefix}.{k}": v for prefix, p in nets.items()
+          for k, v in joiner_state_dict(p).items()}
+    for name in _SMPL_STATE:
+        if name in params_np:
+            sd[name] = torch.tensor(np.asarray(params_np[name], np.float32))
+    return sd
 
 
 def to_jax_params(state_dict):
     """Joiner state_dict (keys `nerf.pts_linears.{i}.weight`, ...; tensors
     or arrays) -> one NeRF's param tree with numpy leaves; a dict
-    {"coarse": sd, "fine": sd} converts each net."""
+    {"coarse": sd, "fine": sd} converts each net; a HumanNeRF state_dict
+    gives the JAX package's hybrid tree (the inverse of `from_jax_params`)."""
     if set(state_dict) == {"coarse", "fine"}:
         return {k: to_jax_params(sd) for k, sd in state_dict.items()}
     numpy = lambda v: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                        else np.asarray(v)).astype(np.float32)
+    if any(k.startswith("coarse_human_net.") for k in state_dict):
+        sub = lambda prefix: {k[len(prefix):]: v for k, v in state_dict.items()
+                              if k.startswith(prefix)}
+        params = {name: to_jax_params(sub(f"{name}.")) for name in _HYBRID_NETS}
+        n_off = len({k.split(".")[1] for k in state_dict if k.startswith("offset_nets.")})
+        params["offset_nets"] = [to_jax_params(sub(f"offset_nets.{i}.")) for i in range(n_off)]
+        params.update({name: numpy(state_dict[name]) for name in _SMPL_STATE
+                       if name in state_dict})
+        return params
     params = {}
     for key, value in state_dict.items():
         m = re.fullmatch(r"nerf\.(\w+?)(?:\.(\d+))?\.(weight|bias)", key)

@@ -23,7 +23,8 @@
 //
 // 2. dW is a sum over all R*S samples; on the TPU the grid is sequential
 //    and accumulates in place. Blocks here run in parallel, so the sum is
-//    three passes per chunk, all in fixed order: `bwd_chain_kernel` (one
+//    three passes per chunk, all in fixed order (the second and third are in
+//    mlp_dw.cuh, shared with offset_mlp_bwd.cu): `bwd_chain_kernel` (one
 //    block per 64-sample tile: recompute forward, propagate d_h down the
 //    net, write the tape, d_planes and per-sample d_dir); `bwd_dw_kernel`
 //    (dW[o, k] = sum_s d_pre[s, o] h_in[s, k] of every layer as 64x64 output
@@ -44,229 +45,9 @@
 //    are pairs along the sample axis. The tape costs ~20 KB a sample of
 //    traffic in f32 (written once, read ~twice), well under the FMA time.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mlp_dw.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int TN = 64;  // samples per chain block
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int SPW = TN / WARPS;
-constexpr int MAX_LAYERS = 16;
-
-struct PE {
-  int mapping;  // 0 posenc, 1 rotate
-  int include_input;
-  int n_bands;
-  int out_dim;
-  const float* coef;  // posenc: [n_bands] bands; rotate: [3 n_bands, 3] basis
-};
-
-__device__ __forceinline__ float tof(float v) { return v; }
-__device__ __forceinline__ float tof(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T cvt(float v);
-template <> __device__ __forceinline__ float cvt<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 cvt<bf16>(float v) { return __float2bfloat16(v); }
-
-// b . v as the FMA chain fma(b2, v2, fma(b1, v1, b0 v0)), spelled out so
-// that the compiler cannot reorder it: the operations of the plain PyTorch
-// version (`embedder.rotate_projection`), so both take the sin and cos of
-// the same argument, which reaches ~10^3 at the top band.
-__device__ __forceinline__ float rot_proj(const float* b, const float* v) {
-  return __fmaf_rn(b[2], v[2], __fmaf_rn(b[1], v[1], __fmul_rn(b[0], v[0])));
-}
-
-// The tile's PE of (x, y, z) into buf[s][off + c], c < width; columns from
-// pe.out_dim to width are zero. Samples at or past n get zero inputs.
-template <typename T>
-__device__ void pe_fill(T* buf, int ld, int off, int width, PE pe, const float* x,
-                        const float* y, const float* z, int n0, int n) {
-  const int base = pe.include_input ? 3 : 0;
-  for (int idx = threadIdx.x; idx < TN * width; idx += blockDim.x) {
-    const int s = idx / width, c = idx % width, g = n0 + s;
-    float v[3] = {0.f, 0.f, 0.f};
-    if (g < n) { v[0] = x[g]; v[1] = y[g]; v[2] = z[g]; }
-    float out = 0.f;
-    if (c >= pe.out_dim) {
-      out = 0.f;
-    } else if (c < base) {
-      out = v[c];
-    } else if (pe.mapping == 0) {
-      const int r = c - base, band = r / 6, k = r % 6;
-      const float a = v[k % 3] * pe.coef[band];
-      out = k < 3 ? sinf(a) : cosf(a);
-    } else {
-      const int f = 3 * pe.n_bands, r = c - base, j = r < f ? r : r - f;
-      const float* b = pe.coef + 3 * j;
-      const float a = rot_proj(b, v);
-      out = r < f ? sinf(a) : cosf(a);
-    }
-    buf[s * ld + off + c] = cvt<T>(out);
-  }
-}
-
-// d(x, y, z) of one sample from d_pe [out_dim], in f32 (fused.pe_rows_bwd).
-__device__ void pe_bwd(const PE& pe, float x, float y, float z, const float* d, float out[3]) {
-  const float v[3] = {x, y, z};
-  const int base = pe.include_input ? 3 : 0;
-  for (int a = 0; a < 3; ++a) out[a] = pe.include_input ? d[a] : 0.f;
-  if (pe.mapping == 0) {
-    for (int b = 0; b < pe.n_bands; ++b) {
-      const float f = pe.coef[b];
-      for (int a = 0; a < 3; ++a) {
-        const float s = sinf(v[a] * f), c = cosf(v[a] * f);
-        out[a] += f * (c * d[base + 6 * b + a] - s * d[base + 6 * b + 3 + a]);
-      }
-    }
-  } else {
-    const int f = 3 * pe.n_bands;
-    for (int j = 0; j < f; ++j) {
-      const float* b = pe.coef + 3 * j;
-      const float p = rot_proj(b, v);
-      const float dp = cosf(p) * d[base + j] - sinf(p) * d[base + f + j];
-      for (int a = 0; a < 3; ++a) out[a] += b[a] * dp;
-    }
-  }
-}
-
-// ------------------------------------------------ tile products, f32 path
-
-// For the tile: ep(s, o, sum_k src[s][in_off + k] * w[k * out_dim + o]),
-// o < out_dim <= 32 NJ. Warp w owns samples w + 8i, lane l outputs l + 32j.
-template <int NJ, class Ep>
-__device__ void dense_f32(const float* src, int ld, int in_off, int in_dim,
-                          const float* __restrict__ w, int out_dim, Ep& ep) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc[SPW][NJ];
-#pragma unroll
-  for (int i = 0; i < SPW; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const float* row0 = src + warp * ld + in_off;
-#pragma unroll 2
-  for (int k = 0; k < in_dim; ++k) {
-    float wv[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int o = lane + 32 * j;
-      wv[j] = o < out_dim ? __ldg(w + (size_t)k * out_dim + o) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < SPW; ++i) {
-      const float xv = row0[i * WARPS * ld + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] += xv * wv[j];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < SPW; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int o = lane + 32 * j;
-      if (o < out_dim) ep(warp + i * WARPS, o, acc[i][j]);
-    }
-}
-
-template <class Ep>
-__device__ void dense(const float* src, int ld, int in_off, int in_dim, const float* w,
-                      int out_dim, Ep ep) {
-  switch ((out_dim + 31) / 32) {
-#define BWD_DENSE_CASE(NJ) \
-  case NJ: dense_f32<NJ>(src, ld, in_off, in_dim, w, out_dim, ep); break;
-    BWD_DENSE_CASE(1) BWD_DENSE_CASE(2) BWD_DENSE_CASE(3) BWD_DENSE_CASE(4)
-    BWD_DENSE_CASE(5) BWD_DENSE_CASE(6) BWD_DENSE_CASE(7) BWD_DENSE_CASE(8)
-    BWD_DENSE_CASE(9) BWD_DENSE_CASE(10)
-#undef BWD_DENSE_CASE
-  }
-}
-
-// ----------------------------------------------- tile products, bf16 path
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// For the 64 x (32 NT) tile: ep(s, o, sum_k src[s][in_off + k] * w[o][k]),
-// w [out, k] row-major, k a multiple of 16. Warp (wm, wn) = (warp % 2,
-// warp / 2) computes rows 32 wm .. +32 and columns 8 NT wn .. + 8 NT.
-template <int NT, class Ep>
-__device__ void dense_mma(const bf16* src, int ld, int in_off, int k,
-                          const bf16* __restrict__ w, Ep& ep) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * NT * 8;
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const bf16* p = src + (row0 + mi * 16 + g) * ld + in_off + k0 + 2 * t;
-      af[mi][0] = lds32(p);
-      af[mi][1] = lds32(p + 8 * ld);
-      af[mi][2] = lds32(p + 8);
-      af[mi][3] = lds32(p + 8 * ld + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const bf16* q = w + (size_t)(col0 + ni * 8 + g) * k + k0 + 2 * t;
-      const uint32_t bfrag[2] = {ldg32(q), ldg32(q + 8)};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], bfrag);
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const int col = col0 + ni * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int s = row0 + mi * 16 + g + 8 * h;
-        ep(s, col, acc[mi][ni][2 * h]);
-        ep(s, col + 1, acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
-
-// out_dim a multiple of 32, taken 256 columns at a time.
-template <class Ep>
-__device__ void dense(const bf16* src, int ld, int in_off, int k, const bf16* w, int out_dim,
-                      Ep ep) {
-  for (int c0 = 0; c0 < out_dim; c0 += 256) {
-    auto ep_c = [&](int s, int o, float v) { ep(s, c0 + o, v); };
-    const bf16* wc = w + (size_t)c0 * k;
-    switch (min(256, out_dim - c0) / 32) {
-#define BWD_MMA_CASE(NT) \
-  case NT: dense_mma<NT>(src, ld, in_off, k, wc, ep_c); break;
-      BWD_MMA_CASE(1) BWD_MMA_CASE(2) BWD_MMA_CASE(3) BWD_MMA_CASE(4)
-      BWD_MMA_CASE(5) BWD_MMA_CASE(6) BWD_MMA_CASE(7) BWD_MMA_CASE(8)
-#undef BWD_MMA_CASE
-    }
-  }
-}
 
 // ------------------------------------------------------------ chain pass
 
@@ -463,149 +244,6 @@ __global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
   }
 }
 
-// -------------------------------------------------------------- dW pass
-
-struct DwLayer {
-  int a_off, m;                  // A = tape[:, a_off : a_off + m]
-  int b_off1, n1, b_off2, n2;    // B = [tape[:, b_off1 : +n1], tape[:, b_off2 : +n2], 1]
-  int ldc, c_off, bias_off;      // dW[m][n] at c_off + m ldc + n, db[m] at bias_off + m
-  int tiles_n, tile0;            // 64 x 64 output tiles: n-tiles, first tile id
-};
-
-struct DwArgs {
-  const void* tape;
-  int ldt, k, kper;  // rows of the chunk, rows per split
-  int n_layers, total;
-  float* partial;    // [KSPLIT, total]
-  DwLayer L[MAX_LAYERS];
-};
-
-template <typename T>
-__device__ __forceinline__ float b_at(const T* row, const DwLayer& l, int c) {
-  if (c < l.n1) return tof(row[l.b_off1 + c]);
-  if (c < l.n1 + l.n2) return tof(row[l.b_off2 + c - l.n1]);
-  return c == l.n1 + l.n2 ? 1.f : 0.f;
-}
-
-__device__ __forceinline__ void dw_store(const DwArgs& a, const DwLayer& l, int ks, int m,
-                                         int c, float v) {
-  if (m >= l.m) return;
-  float* p = a.partial + (size_t)ks * a.total;
-  if (c < l.n1 + l.n2) p[l.c_off + (size_t)m * l.ldc + c] = v;
-  else if (c == l.n1 + l.n2) p[l.bias_off + m] = v;
-}
-
-__device__ __forceinline__ int find_layer(const DwArgs& a, int tile) {
-  int li = 0;
-  while (li + 1 < a.n_layers && tile >= a.L[li + 1].tile0) ++li;
-  return li;
-}
-
-// f32: 16 x 16 threads, 4 x 4 outputs each, k in steps of 16 through smem
-__global__ void __launch_bounds__(THREADS) bwd_dw_f32_kernel(DwArgs a) {
-  __shared__ float as[16][64];
-  __shared__ float bs[16][64];
-  const int li = find_layer(a, blockIdx.x);
-  const DwLayer l = a.L[li];
-  const int tile = blockIdx.x - l.tile0, m0 = (tile / l.tiles_n) * 64,
-            n0 = (tile % l.tiles_n) * 64, ks = blockIdx.y;
-  const int k_lo = ks * a.kper, k_hi = min(a.k, k_lo + a.kper);
-  const float* tape = static_cast<const float*>(a.tape);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int k0 = k_lo; k0 < k_hi; k0 += 16) {
-    for (int idx = threadIdx.x; idx < 16 * 64; idx += THREADS) {
-      const int kk = idx / 64, c = idx % 64, row = k0 + kk;
-      const float* r = tape + (size_t)row * a.ldt;
-      const bool in = row < k_hi;
-      as[kk][c] = in && m0 + c < l.m ? r[l.a_off + m0 + c] : 0.f;
-      bs[kk][c] = in ? b_at(r, l, n0 + c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) { av[i] = as[kk][ty * 4 + i]; bv[i] = bs[kk][tx * 4 + i]; }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) dw_store(a, l, ks, m0 + ty * 4 + i, n0 + tx * 4 + j, acc[i][j]);
-}
-
-// bf16: 8 warps as 4 (m16) x 2 (4 n8 tiles), k in steps of 32 through smem,
-// stored transposed ([m][k], [n][k]) so each fragment is a pair along k
-constexpr int DW_BK = 32, DW_LDS = DW_BK + 8;
-__global__ void __launch_bounds__(THREADS) bwd_dw_bf16_kernel(DwArgs a) {
-  __shared__ __align__(16) bf16 as[64][DW_LDS];
-  __shared__ __align__(16) bf16 bs[64][DW_LDS];
-  const int li = find_layer(a, blockIdx.x);
-  const DwLayer l = a.L[li];
-  const int tile = blockIdx.x - l.tile0, m0 = (tile / l.tiles_n) * 64,
-            n0 = (tile % l.tiles_n) * 64, ks = blockIdx.y;
-  const int k_lo = ks * a.kper, k_hi = min(a.k, k_lo + a.kper);
-  const bf16* tape = static_cast<const bf16*>(a.tape);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int wm = warp % 4, wn = warp / 4;
-  const bf16 zero = __float2bfloat16(0.f), one = __float2bfloat16(1.f);
-  float acc[4][4] = {};
-  for (int k0 = k_lo; k0 < k_hi; k0 += DW_BK) {
-    for (int idx = threadIdx.x; idx < DW_BK * 64; idx += THREADS) {
-      const int kk = idx / 64, c = idx % 64, row = k0 + kk;
-      const bf16* r = tape + (size_t)row * a.ldt;
-      const bool in = row < k_hi;
-      as[c][kk] = in && m0 + c < l.m ? r[l.a_off + m0 + c] : zero;
-      const int cb = n0 + c;
-      bf16 bv = zero;
-      if (in) {
-        if (cb < l.n1) bv = r[l.b_off1 + cb];
-        else if (cb < l.n1 + l.n2) bv = r[l.b_off2 + cb - l.n1];
-        else if (cb == l.n1 + l.n2) bv = one;
-      }
-      bs[c][kk] = bv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < DW_BK; kk += 16) {
-      uint32_t af[4];
-      const bf16* p = &as[wm * 16 + g][kk + 2 * t];
-      af[0] = lds32(p);
-      af[1] = lds32(p + 8 * DW_LDS);
-      af[2] = lds32(p + 8);
-      af[3] = lds32(p + 8 * DW_LDS + 8);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const bf16* q = &bs[wn * 32 + ni * 8 + g][kk + 2 * t];
-        const uint32_t bfrag[2] = {lds32(q), lds32(q + 8)};
-        mma_bf16(acc[ni], af, bfrag);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int c = n0 + wn * 32 + ni * 8 + 2 * t, m = m0 + wm * 16 + g;
-    dw_store(a, l, ks, m, c, acc[ni][0]);
-    dw_store(a, l, ks, m, c + 1, acc[ni][1]);
-    dw_store(a, l, ks, m + 8, c, acc[ni][2]);
-    dw_store(a, l, ks, m + 8, c + 1, acc[ni][3]);
-  }
-}
-
-// grad[e] += partial[0][e] + ... + partial[ksplit - 1][e], in that order
-__global__ void bwd_reduce_kernel(const float* partial, float* grad, int total, int ksplit) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += partial[(size_t)k * total + e];
-  grad[e] += s;
-}
-
 // per-ray d_dir[r0 + r][o] = sum over the ray's samples of d_pre2, in order
 template <typename T>
 __global__ void bwd_ddir_kernel(const T* tape, int ldt, int t_dpre2, int rays, int spr,
@@ -618,8 +256,6 @@ __global__ void bwd_ddir_kernel(const T* tape, int ldt, int t_dpre2, int rays, i
   for (int j = 0; j < spr; ++j) s += tof(p[(size_t)j * ldt]);
   d_dir[(size_t)(r0 + r) * half + o] = s;
 }
-
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 struct Layout {
   int cp, cd, ldt, t_post, t_feat, t_dpe, t_h2, t_g, t_dpre, t_dfeat, t_dpre2;

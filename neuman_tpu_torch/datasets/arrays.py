@@ -163,12 +163,38 @@ class _Capture:
 
 
 class ArraysScene:
-    """The duck-typed scene that build_scene_arrays and NeRFTrainer read,
+    """The duck-typed scene that build_scene_arrays and the trainers read,
     over staged arrays (synthetic_arrays, say), copied to host numpy:
     build_scene_arrays stages it back to the same arrays, as long as the
-    border class is empty, as it is in synthetic_arrays."""
+    border class is empty, as it is in synthetic_arrays. The human stage
+    also reads the canonical vertices `static_vert` [N][V, 3], `faces`, the
+    scene `scale`, the per-frame SMPL estimates `smpls` ([{"pose", "betas"}])
+    and `alignments` [N, 4, 4], and per capture an optional `densepose` map
+    (`densepose`: one [H, W] part-label map per view)."""
 
-    def __init__(self, arrays):
+    def __init__(self, arrays, static_vert=None, faces=None, scale=1.0, smpls=None,
+                 alignments=None, densepose=None):
         a = {f.name: getattr(arrays, f.name).cpu().numpy() for f in fields(arrays)}
         self.captures = [_Capture(a, i) for i in range(a["images"].shape[0])]
         self.verts = list(a["verts"])
+        self.static_vert, self.faces, self.scale = static_vert, faces, scale
+        self.smpls, self.alignments = smpls, alignments
+        for cap, dp in zip(self.captures, densepose or []):
+            cap.densepose = dp
+
+
+def synthetic_human_scene(body, num_views=4, h=270, w=480, seed=0, device="cuda"):
+    """A synthetic scene for the human stage, the one the JAX package's
+    bench.py trains on: `synthetic_arrays` views whose posed vertices (also
+    the canonical ones) are the SMPL-like `body`'s template + 0.02 x the
+    synthetic noise, poses and betas 0.05 x normal draws from `seed`,
+    identity alignments, scale 1."""
+    arrays = synthetic_arrays(num_views, h, w, num_verts=body.num_verts, seed=seed, device=device)
+    arrays.verts = body.v_template.to(arrays.verts.device)[None] + arrays.verts * 0.02
+    rng = np.random.default_rng(seed)
+    poses = rng.normal(size=(num_views, 72)).astype(np.float32) * 0.05
+    betas = rng.normal(size=(num_views, 10)).astype(np.float32) * 0.05
+    return ArraysScene(
+        arrays, static_vert=list(arrays.verts.cpu().numpy()), faces=body.faces, scale=1.0,
+        smpls=[{"pose": p, "betas": b} for p, b in zip(poses, betas)],
+        alignments=np.tile(np.eye(4, dtype=np.float32)[None], (num_views, 1, 1)))

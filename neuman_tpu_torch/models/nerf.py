@@ -115,9 +115,8 @@ class NeRF(nn.Module):
 
     def forward(self, input_pts, input_views=None):
         """input_pts: [..., input_ch] (already embedded) -> raw outputs
-        [..., 4] as (r, g, b, sigma), or [..., output_ch]. The offset nets'
-        output scaling (spec.scale_type) comes with their forward, in the
-        trainer slice."""
+        [..., 4] as (r, g, b, sigma), or [..., output_ch] (the offset nets'
+        output scaling is `OffsetNet.forward`'s)."""
         h = input_pts
         for i, lin in enumerate(self.pts_linears):
             h = torch.relu(lin(h))
@@ -150,11 +149,30 @@ class Joiner(nn.Module):
 
 
 class OffsetNet(nn.Module):
-    """Embedder on (x, y, z, t) + NeRF with an `output_linear` head. The
-    render path loads it but does not run it (its forward comes with the
-    human trainer)."""
+    """Embedder on (x, y, z, t) + NeRF with an `output_linear` head (the
+    render path loads it but does not run it)."""
 
     def __init__(self, spec: OffsetNetSpec, device=None):
         super().__init__()
         self.spec = spec
         self.nerf = NeRF(spec.nerf, device=device)
+
+    def forward(self, axes, scale, compute_dtype=torch.float32, mlp=None):
+        """Offset planes 3 x [R, S] of the input planes `axes` (x, y, z, t,
+        each [R, S]): the fused MLP and the output scaling of
+        spec.nerf.scale_type with the per-step scalar `scale`, as
+        neuman_tpu's `offset_net_planar`. `mlp` is the fused MLP:
+        `offset_mlp_fn` (the kernel pair on the card) unless a check passes
+        a plain version of it."""
+        if mlp is None:
+            from neuman_tpu_torch.ops.kernels.offset_mlp import offset_mlp_fn as mlp
+
+        raw = mlp(self.spec, self.nerf, axes, compute_dtype)
+        scale_type = self.spec.nerf.scale_type
+        if scale_type == "linear":
+            return [o * scale for o in raw]
+        if scale_type == "tanh":
+            return [torch.tanh(o) * scale for o in raw]
+        if scale_type != "no":
+            raise ValueError(scale_type)
+        return raw

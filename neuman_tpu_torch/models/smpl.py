@@ -1,8 +1,9 @@
 """SMPL linear blend skinning (counterpart of neuman_tpu/models/smpl.py).
 
-Produces what the render path's warp consumes: posed world vertices and
-the per-vertex Da-pose -> scene transforms `Ts` (in the JAX package the
-scene reader computes them, data_io/neuman.py:200-260). Like the
+Produces what the warps consume: posed world vertices and the per-vertex
+Da-pose -> scene transforms `Ts` (in the JAX package the scene reader
+computes them for the render, data_io/neuman.py:200-260; the trainer's
+differentiable `vertex_forward` is in models/human_nerf.py). Like the
 reference, pose blend shapes are computed-and-discarded there, so they
 are skipped here (v_posed == v_shaped).
 """
@@ -123,6 +124,11 @@ def verts_transformations(model, poses, betas):
     """(rest vertices [1, V, 3], per-vertex LBS transforms [1, V, 4, 4])."""
     t_per_vert, v_shaped, _ = lbs(betas, poses, model)
     return v_shaped, t_per_vert
+
+
+def smpl_forward(model, poses, betas):
+    """Posed vertices [B, V, 3] of poses [B, J*3] and betas [B, nb]."""
+    return lbs(betas, poses, model)[2]
 
 
 def da_pose_to_scene(model, pose, betas, scale=1.0, alignment=None):

@@ -7,12 +7,13 @@ library with a plain C interface, which is loaded with ctypes:
          -Xcompiler -fPIC [extra flags] -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library is cached under neuman_tpu_torch/_build/ by a hash of the
-source and the flags, so an edit rebuilds and an unchanged source loads.
+source, the shared headers (csrc/*.cuh) and the flags, so an edit rebuilds and an unchanged source loads.
 `--use_fast_math` is never passed: it swaps sinf for __sinf, whose error
 grows with |x|, and the positional-encoding bands reach 2**9 |x|.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -42,8 +43,11 @@ def load(name, extra_flags=()):
         return _LOADED[name]
     src = os.path.join(CSRC, f"{name}.cu")
     flags = ["-std=c++17", "-O3", *ARCH_FLAGS, *extra_flags]
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    content = b""
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            content += f.read()
+    digest = hashlib.sha256(content + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     t0 = time.perf_counter()
     if not os.path.exists(lib_path):

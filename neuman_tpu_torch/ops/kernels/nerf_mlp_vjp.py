@@ -45,13 +45,15 @@ def net_layers(net):
 
 
 def pe_bwd(pe_spec, x, d_pe):
-    """Gradient of `embed(pe_spec, x)` w.r.t. x [N, 3] for d_pe [N, C], f32."""
-    base = 3 if pe_spec.include_input else 0
-    out = d_pe[:, :3].clone() if pe_spec.include_input else torch.zeros_like(x)
+    """Gradient of `embed(pe_spec, x)` w.r.t. x [N, D] for d_pe [N, C], f32
+    (D = 3, or any D for 'posenc')."""
+    d = x.shape[1]
+    base = d if pe_spec.include_input else 0
+    out = d_pe[:, :d].clone() if pe_spec.include_input else torch.zeros_like(x)
     if pe_spec.mapping == "posenc":
         for b, f in enumerate(pe_spec.freq_bands):
-            d_sin = d_pe[:, base + 6 * b: base + 6 * b + 3]
-            d_cos = d_pe[:, base + 6 * b + 3: base + 6 * b + 6]
+            d_sin = d_pe[:, base + 2 * d * b: base + 2 * d * b + d]
+            d_cos = d_pe[:, base + 2 * d * b + d: base + 2 * d * (b + 1)]
             out = out + f * (torch.cos(x * f) * d_sin - torch.sin(x * f) * d_cos)
         return out
     bv = pe_spec.bvals_tensor(x.device)

@@ -1,12 +1,14 @@
-"""Triangle-mesh queries for the render warp (counterpart of the render
-parts of neuman_tpu/ops/mesh.py).
+"""Triangle-mesh queries for the warps and the signed distance (counterpart
+of neuman_tpu/ops/mesh.py).
 
 Closest point on the body mesh by vertex KNN + Ericson's test on the faces
-incident to the k nearest vertices, then the inverse of the barycentric
-blend of the per-vertex LBS transforms at that point (the warp into
-canonical space). The KNN stays plain torch (one f32 matmul score and an
-exact top-k per query chunk); the candidate phase is the `ericson_select`
-kernel.
+incident to the k nearest vertices, then either the inverse of the
+barycentric blend of the per-vertex LBS transforms at that point (the warp
+into canonical space: plain for the render, differentiable in the vertices
+and the transforms for training) or the pseudonormal sign (the signed
+distance). The candidate phase is the `ericson_select` kernel. The KNN is
+exact for the render (one f32 matmul score and a top-k per query chunk)
+and the `bucketed_knn` kernel for training (knn_impl="bucketed").
 """
 
 from dataclasses import dataclass
@@ -14,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from neuman_tpu_torch.ops.kernels.knn import bucketed_knn, bucketed_knn_plain
 from neuman_tpu_torch.ops.kernels.meshquery import ericson_select, ericson_select_plain
 from neuman_tpu_torch.ops.precision import matmul_f32
 
@@ -101,12 +104,54 @@ def stride_for(samples_per_ray, knn_stride):
     return 1
 
 
-def _query_knn(points, verts, k, knn_stride=1):
-    """Exact k nearest vertices of each group of `knn_stride` consecutive
-    points, represented by its middle point. Returns (knn_idx [Nq, k], stride)."""
+@dataclass
+class QueryTables:
+    """Per-mesh tables of the closest-point and signed-distance queries,
+    for a mesh whose vertices are the same from query to query (the
+    canonical body). Build with `build_query_tables`."""
+
+    vtab9: torch.Tensor  # [V, D*9] corner coordinates of each vertex's incident faces
+    vn_pack: torch.Tensor  # [F, 9] angle-weighted pseudonormals of each face's corners
+
+
+def build_query_tables(verts, topology: MeshTopology):
+    verts = verts.detach()
+    tri = verts[topology.faces].reshape(-1, 9)  # [F, 9]
+    vtab9 = tri[topology.incidence.clamp(min=0)].reshape(verts.shape[0], -1)
+    vn = angle_weighted_vertex_normals(verts, topology.faces)
+    return QueryTables(vtab9=vtab9, vn_pack=vn[topology.faces].reshape(-1, 9))
+
+
+def angle_weighted_vertex_normals(verts, faces):
+    """[V, 3] pseudonormals: the unit face normals summed into their
+    corners with the corner angles as weights (the Baerentzen-Aanaes sign
+    test needs these, not area weights)."""
+    tri = verts[faces]  # [F, 3, 3]
+    e0, e1, e2 = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 1], tri[:, 0] - tri[:, 2]
+    unit = lambda u: u / (torch.linalg.norm(u, dim=-1, keepdim=True) + 1e-20)
+    n_unit = unit(torch.linalg.cross(e0, -e2))
+    angle = lambda u, v: torch.arccos(((unit(u) * unit(v)).sum(-1)).clamp(-1.0, 1.0))
+    vn = torch.zeros_like(verts)
+    for j, a in enumerate((angle(e0, -e2), angle(e1, -e0), angle(e2, -e1))):
+        vn = vn.index_add(0, faces[:, j], n_unit * a[:, None])
+    return unit(vn)
+
+
+def _query_knn(points, verts, k, knn_stride=1, knn_impl="exact", use_kernels=True):
+    """k nearest vertices of each group of `knn_stride` consecutive points,
+    represented by its middle point. knn_impl "exact": a top-k over every
+    vertex; "bucketed": the `bucketed_knn` kernel (its plain version with
+    use_kernels=False), the k nearest of 64 per-bucket winners, which never
+    holds the [Nq, V] scores in device memory. Returns (knn_idx [Nq, k]
+    int64, stride)."""
     n_pts = points.shape[0]
     stride = knn_stride if (knn_stride > 1 and n_pts % knn_stride == 0) else 1
     q = points if stride == 1 else points.reshape(-1, stride, 3)[:, stride // 2]
+    if knn_impl == "bucketed":
+        knn = bucketed_knn if use_kernels else bucketed_knn_plain
+        return knn(q.detach().contiguous(), verts, k)[0].long(), stride
+    if knn_impl != "exact":
+        raise ValueError(f"knn_impl must be 'exact' or 'bucketed', not {knn_impl!r}")
     v2 = (verts * verts).sum(-1)[None, :]
     out = []
     for qc in q.split(KNN_CHUNK):
@@ -116,25 +161,33 @@ def _query_knn(points, verts, k, knn_stride=1):
 
 
 def point_mesh_closest_planar(points, verts, topology: MeshTopology, k=4,
-                              knn_stride=1, use_kernels=True):
+                              knn_stride=1, use_kernels=True, knn_impl="exact", tables=None):
     """points [N, 3], verts [V, 3] -> (d2 [N], f_id [N], closest (x, y, z)).
 
     The candidates of a point are the faces incident to the k nearest
     vertices of its group (C = k * incidence width), laid out
-    coordinate-major for the kernel: rows9 [9C, Nq], cand [C, Nq].
+    coordinate-major for the kernel: rows9 [9C, Nq], cand [C, Nq]. No
+    gradient reaches `verts` (the closest point and the face choice carry
+    none, as in the JAX package); d2 is differentiable in `points`.
     """
     select = ericson_select if use_kernels else ericson_select_plain
-    return select(*candidate_operands(points, verts, topology, k, knn_stride))
+    return select(*candidate_operands(points, verts, topology, k, knn_stride, knn_impl,
+                                      use_kernels, tables))
 
 
-def candidate_operands(points, verts, topology: MeshTopology, k=4, knn_stride=1):
+def candidate_operands(points, verts, topology: MeshTopology, k=4, knn_stride=1,
+                       knn_impl="exact", use_kernels=True, tables=None):
     """The closest-point kernel's operands: (p3 [3, N], rows9 [9C, Nq],
-    cand [C, Nq] int32, stride)."""
+    cand [C, Nq] int32, stride). With `tables` the corner rows come from k
+    row gathers a group (vtab9) in place of C face gathers."""
     verts = verts.detach()
-    knn_idx, stride = _query_knn(points, verts, k, knn_stride)
+    knn_idx, stride = _query_knn(points, verts, k, knn_stride, knn_impl, use_kernels)
     nq = knn_idx.shape[0]
     cand = topology.incidence[knn_idx].reshape(nq, -1)  # [Nq, C]
-    rows = verts[topology.faces[cand.clamp(min=0).reshape(-1)]]  # [Nq*C, 3, 3]
+    if tables is not None:
+        rows = tables.vtab9[knn_idx]  # [Nq, k, D*9]
+    else:
+        rows = verts[topology.faces[cand.clamp(min=0).reshape(-1)]]  # [Nq*C, 3, 3]
     rows9 = rows.reshape(nq, -1, 9).permute(2, 1, 0).reshape(-1, nq).contiguous()
     return points.T.contiguous(), rows9, cand.T.to(torch.int32).contiguous(), stride
 
@@ -195,3 +248,43 @@ def apply_affine_cols(aff, p):
         i10 * p[0] + i11 * p[1] + i12 * p[2] + t1,
         i20 * p[0] + i21 * p[1] + i22 * p[2] + t2,
     )
+
+
+def signed_distance(points, verts, topology: MeshTopology, k=4, knn_stride=1, tables=None,
+                    knn_impl="exact", use_kernels=True):
+    """Signed distance to a watertight mesh, negative inside: the closest
+    point (KNN + Ericson) and the sign of (p - closest) . n, n the
+    barycentric blend of the face's corner pseudonormals; sign(0) = +1.
+    `tables`: QueryTables when `verts` are the same from query to query.
+    Returns (signed_dist [N], f_id [N], closest [N, 3])."""
+    d2, f_id, closest = point_mesh_closest_planar(
+        points, verts, topology, k=k, knn_stride=knn_stride, use_kernels=use_kernels,
+        knn_impl=knn_impl, tables=tables)
+    verts = verts.detach()
+    fv = topology.faces[f_id.long()]  # [N, 3]
+    corners = [tuple(verts[fv[:, j], a] for a in range(3)) for j in range(3)]
+    u, v, w = barycentric_planar(closest, *corners)
+    if tables is not None:
+        vrows = tables.vn_pack[f_id.long()]  # [N, 9]
+    else:
+        vrows = angle_weighted_vertex_normals(verts, topology.faces)[fv].reshape(-1, 9)
+    normal = [u * vrows[:, a] + v * vrows[:, 3 + a] + w * vrows[:, 6 + a] for a in range(3)]
+    side = sum((points[:, a] - closest[a]) * normal[a] for a in range(3))
+    sign = torch.where(side < 0, -1.0, 1.0)
+    sd = sign * torch.sqrt(torch.clamp(d2, min=0.0))
+    return sd, f_id, torch.stack(closest, dim=-1)
+
+
+def warp_points_to_canonical_diff(pts, verts, T, topology: MeshTopology, k=4, knn_stride=1,
+                                  knn_impl="exact", use_kernels=True):
+    """Training-time warp: pts [N, 3] -> (can [N, 3], f_id [N]). The closest
+    point and the face choice carry no gradient; the barycentric blend of
+    the transforms T [V, 4, 4] is differentiable in `verts` and `T` (and so
+    in the SMPL pose through LBS)."""
+    _, f_id, closest = point_mesh_closest_planar(
+        pts, verts, topology, k=k, knn_stride=knn_stride, use_kernels=use_kernels,
+        knn_impl=knn_impl)
+    closest = tuple(c.detach() for c in closest)
+    aff = _blend_inverse_affine(closest, f_id, verts, T, topology)
+    can = apply_affine_cols(aff, (pts[:, 0], pts[:, 1], pts[:, 2]))
+    return torch.stack(can, dim=-1), f_id

@@ -1,14 +1,19 @@
-"""Where the device time of a background train step goes, on the GPU.
+"""Where the device time of a train step goes, on the GPU.
 
-    python -m neuman_tpu_torch.tools.profile_bkg_step [--dtype float32] [--steps 3] [--seed 0]
+    python -m neuman_tpu_torch.tools.profile_bkg_step [--stage bkg] [--dtype float32]
+                                                      [--steps 3] [--seed 0]
 
-Builds a NeRFTrainer at the bkg defaults (4096 rays, 128 + 128 samples,
-the 8x256 nets from --seed) on the synthetic 4-view 270x480 scene of
-`datasets.arrays.synthetic_arrays` (views 0-2 train, 3 validates), runs
-two warm-up `train_step`s, each drawing its batch, then traces
---steps steps with torch.profiler. Prints the card, the wall time per
-step, the device time per kernel (largest first, with its share and its
-calls per step) and the share of the wall time the device was idle.
+--stage bkg builds a NeRFTrainer at the bkg defaults (4096 rays, 128 + 128
+samples, the 8x256 nets from --seed); --stage human a HumanNeRFTrainer at
+the smpl_and_offset defaults (1536 rays, 128 samples, all seven losses,
+LPIPS weights from --seed, geo_threshold 0.25) on the body-proxy SMPL model
+(V=10,242), with the canonical net's density bias at 0.5 so that the net is
+alive. Both train on the synthetic 4-view 270x480 scene of
+`datasets.arrays` (views 0-2 train, 3 validates). Two warm-up `train_step`s,
+each drawing its batch, then --steps steps traced with torch.profiler.
+Prints the card, the wall time per step, the device time per kernel
+(largest first, with its share and its calls per step) and the share of the
+wall time the device was idle.
 """
 
 import argparse
@@ -16,17 +21,49 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from neuman_tpu_torch.datasets import arrays as darrays
+from neuman_tpu_torch.models import human_nerf as hn
+from neuman_tpu_torch.models import lpips as lpips_module
 from neuman_tpu_torch.models import nerf as nerf_module
+from neuman_tpu_torch.models import smpl
 from neuman_tpu_torch.options.config import NeuManConfig, apply_mode_defaults
 from neuman_tpu_torch.train import init_bkg_params
 from neuman_tpu_torch.trainers.background import NeRFTrainer
+from neuman_tpu_torch.trainers.human import HumanNeRFTrainer
+
+
+def bkg_trainer(args, out_dir, device):
+    cfg = apply_mode_defaults(NeuManConfig(), "bkg")
+    cfg.compute_dtype, cfg.seed, cfg.out_dir = args.dtype, args.seed, out_dir
+    spec = nerf_module.build_nerf_specs(cfg)
+    scene = darrays.ArraysScene(darrays.synthetic_arrays(4, 270, 480, seed=args.seed, device="cpu"))
+    return NeRFTrainer(cfg.finalize(), spec, init_bkg_params(spec, args.seed, device), scene,
+                       [0, 1, 2], [3], device=device)
+
+
+def human_trainer(args, out_dir, device):
+    cfg = apply_mode_defaults(NeuManConfig(), "smpl_and_offset")
+    cfg.compute_dtype, cfg.seed, cfg.out_dir, cfg.geo_threshold = args.dtype, args.seed, out_dir, 0.25
+    body = smpl.body_proxy_smpl_model(subdivisions=5, device=device)
+    scene = darrays.synthetic_human_scene(body, seed=args.seed, device="cpu")
+    model = hn.HumanNeRF(
+        hn.build_human_nerf_spec(cfg), device=device,
+        generator=torch.Generator().manual_seed(args.seed),
+        poses=np.stack([s["pose"] for s in scene.smpls]),
+        betas=np.stack([s["betas"] for s in scene.smpls]), alignments=scene.alignments)
+    with torch.no_grad():
+        model.coarse_human_net.nerf.alpha_linear.bias.fill_(0.5)
+    return HumanNeRFTrainer(cfg.finalize(), model, scene, [0, 1, 2], [3], body,
+                            lpips_params=lpips_module.init_lpips_params(args.seed, device),
+                            device=device)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--stage", default="bkg", choices=("bkg", "human"))
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
@@ -38,17 +75,10 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
-
-    cfg = apply_mode_defaults(NeuManConfig(), "bkg")
-    cfg.compute_dtype, cfg.seed = args.dtype, args.seed
-    spec = nerf_module.build_nerf_specs(cfg)
-    arrays = darrays.synthetic_arrays(4, 270, 480, seed=args.seed, device="cpu")
-    scene = darrays.ArraysScene(arrays)
     with tempfile.TemporaryDirectory() as out_dir:
-        cfg.out_dir = out_dir
-        trainer = NeRFTrainer(cfg.finalize(), spec, init_bkg_params(spec, args.seed, device),
-                              scene, [0, 1, 2], [3], device=device)
-        profile(trainer, cfg, args)
+        build = bkg_trainer if args.stage == "bkg" else human_trainer
+        trainer = build(args, out_dir, device)
+        profile(trainer, trainer.opt, args)
 
 
 def profile(trainer, cfg, args):
@@ -66,7 +96,7 @@ def profile(trainer, cfg, args):
                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     kernels.sort(key=lambda e: e.device_time_total, reverse=True)
     device_ms = sum(e.device_time_total for e in kernels) / 1e3 / args.steps
-    print(f"dtype={args.dtype} rays={cfg.rays_per_batch} S={cfg.samples_per_ray} "
+    print(f"stage={args.stage} dtype={args.dtype} rays={cfg.rays_per_batch} S={cfg.samples_per_ray} "
           f"I={cfg.importance_samples_per_ray} wall_ms_per_step={wall_ms:.3f} "
           f"device_ms_per_step={device_ms:.3f} idle_share={1 - device_ms / wall_ms:.4f} "
           f"kernels={len(kernels)}")

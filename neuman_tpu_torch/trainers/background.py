@@ -55,18 +55,20 @@ class ScaleByAdam:
 
     @torch.no_grad()
     def step(self, named, grads, state, lr, bad):
-        """In place: grads like `named`; lr a float; bad a bool tensor."""
+        """In place: grads like `named`; lr a float, or one float per
+        group of `named`; bad a bool tensor."""
         count = state["count"] + 1
         c = count.float()
         bc1, bc2 = 1.0 - torch.pow(self.b1, c), 1.0 - torch.pow(self.b2, c)
         for k, ps in named.items():
+            lr_k = lr[k] if isinstance(lr, dict) else lr
             for n, p in ps.items():
                 g = torch.where(bad, 0.0, grads[k][n])
                 mu, nu = state["mu"][k][n], state["nu"][k][n]
                 mu.mul_(self.b1).add_((1.0 - self.b1) * g)
                 nu.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
                 u = -((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
-                p.add_(torch.where(bad, 0.0, u * lr))
+                p.add_(torch.where(bad, 0.0, u * lr_k))
         state["count"] = count
 
 

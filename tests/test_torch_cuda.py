@@ -13,9 +13,11 @@ import torch
 from neuman_tpu_torch.models import embedder, nerf
 from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
 from neuman_tpu_torch.ops import mesh as mesh_ops
+from neuman_tpu_torch.ops.kernels import knn as kknn
 from neuman_tpu_torch.ops.kernels import meshquery as kmq
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
+from neuman_tpu_torch.ops.kernels import offset_mlp as koff
 
 torch.set_num_threads(1)
 
@@ -179,3 +181,92 @@ def test_ericson_kernel_gradient(cuda):
     d2, _, cp = kmq.ericson_select(p3, rows9, cand, stride)
     d2.sum().backward()
     torch.testing.assert_close(p3.grad, 2.0 * (p3 - torch.stack(cp)).detach())
+
+
+def _offset_net(width, depth, skips, device):
+    pe = embedder.make_embedder(4, 9, 10)
+    spec = nerf.OffsetNetSpec(pos_pe=pe, nerf=nerf.NeRFSpec(
+        depth=depth, width=width, input_ch=pe.out_dim, input_ch_views=0, output_ch=3,
+        skips=skips, use_viewdirs=False, scale_type="linear"))
+    net = nerf.NeRF(spec.nerf, device=device).reset_parameters(torch.Generator().manual_seed(0))
+    return spec, net.requires_grad_(False)
+
+
+def _offset_inputs(r, s, device):
+    g = torch.Generator().manual_seed(4)
+    axes = [(torch.rand(r, s, generator=g) * 2 - 1).to(device) for _ in range(3)]
+    axes.append(torch.full((r, s), 0.37, device=device))
+    return axes, [torch.randn(r, s, generator=g).to(device) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("net", ["8x256", "4x64"])
+def test_offset_mlp_kernels_match_plain(cuda, net, dtype, monkeypatch):
+    """Forward and backward at a sample count that is not a tile multiple,
+    the backward over several tape chunks (the last one ragged); two
+    backward runs are bit-identical. Tolerances as for the nerf_mlp pair."""
+    monkeypatch.setattr(koff, "CHUNK_SAMPLES", 256)
+    spec, net = _offset_net(256, 8, (4,), cuda) if net == "8x256" else _offset_net(64, 4, (1,), cuda)
+    axes, cot = _offset_inputs(37, 24, cuda)
+    before = (koff.offset_mlp.launches, koff.offset_mlp_bwd.launches)
+    out = torch.stack(koff.offset_mlp(spec, net, axes, dtype))
+    ref = torch.stack(koff.offset_mlp_plain(spec, net, axes, dtype))
+    flat = lambda o: [t for wb in o[0] for t in wb] + list(o[1])
+    got = flat(koff.offset_mlp_bwd(spec, net, axes, cot, dtype))
+    again = flat(koff.offset_mlp_bwd(spec, net, axes, cot, dtype))
+    assert (koff.offset_mlp.launches, koff.offset_mlp_bwd.launches) == (before[0] + 1, before[1] + 2)
+    want = flat(koff.offset_mlp_bwd_plain(spec, net, axes, cot, dtype))
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        assert (out - ref).abs().max() <= 5e-2 * ref.abs().max()
+    for i, (a, b, c) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), f"output {i} differs between two runs"
+        if dtype == torch.float32:
+            assert (a - c).abs().max() <= 1e-4 * c.abs().max() + 1e-6, f"output {i}"
+        else:
+            assert (a - c).norm() <= 5e-2 * c.norm() + 1e-6, f"output {i}"
+
+
+def test_offset_mlp_fn_routes_kernel_gradients(cuda, monkeypatch):
+    spec, net = _offset_net(64, 4, (1,), cuda)
+    axes, cot = _offset_inputs(16, 32, cuda)
+    net.requires_grad_(True)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    want, _ = koff.offset_mlp_bwd_plain(spec, net, axes, cot)
+    monkeypatch.setattr(koff, "offset_mlp_plain", refuse)
+    monkeypatch.setattr(koff, "offset_mlp_bwd_plain", refuse)
+    out = koff.offset_mlp_fn(spec, net, axes)
+    sum((o * c).sum() for o, c in zip(out, cot)).backward()
+    for (w, b), (gw, gb) in zip(koff.net_layers(net), want):
+        torch.testing.assert_close(w.grad, gw, atol=1e-4 * gw.abs().max().item() + 1e-6, rtol=0)
+        torch.testing.assert_close(b.grad, gb, atol=1e-4 * gb.abs().max().item() + 1e-6, rtol=0)
+    with pytest.raises(ValueError):
+        koff.offset_mlp(spec, net, [axes[0].t().contiguous().t(), *axes[1:]])
+
+
+@pytest.mark.parametrize("case", ["V=642,k=4", "V=640,k=4", "V=40,k=3", "V=2562,k=8"])
+def test_bucketed_knn_kernel_matches_plain(cuda, case):
+    """V a multiple of 64 and not, V < 64 (buckets of padding only, the
+    clamp), k up to 8, a query count that is not a block multiple. The
+    scores are the same f32 operations on both sides; an index may differ
+    only where the two picked scores tie."""
+    v, k = (int(x.split("=")[1]) for x in case.split(","))
+    body = body_proxy_smpl_model(subdivisions=3 if v <= 642 else 4, device=cuda)
+    verts = body.v_template[:v].contiguous()
+    g = torch.Generator().manual_seed(5)
+    pts = (verts[torch.randint(0, v, (1000,), generator=g).to(cuda)]
+           + 0.05 * torch.randn(1000, 3, generator=g).to(cuda))
+    before = kknn.bucketed_knn.launches
+    idx, score = kknn.bucketed_knn(pts, verts, k)
+    assert kknn.bucketed_knn.launches == before + 1
+    ref_idx, ref_score = kknn.bucketed_knn_plain(pts, verts, k)
+    assert idx.dtype == torch.int32 and idx.shape == (1000, k)
+    assert ((idx >= 0) & (idx < v)).all()
+    torch.testing.assert_close(score, ref_score, atol=1e-5, rtol=0)
+    diff = idx != ref_idx
+    assert ((score - ref_score).abs()[diff] <= 1e-5).all()
+    assert diff.float().mean() <= 1e-2

@@ -38,6 +38,13 @@ MODULES = (
     "neuman_tpu_torch.trainers.background",
     "neuman_tpu_torch.train",
     "neuman_tpu_torch.tools.profile_bkg_step",
+    "neuman_tpu_torch.ops.kernels.offset_mlp",
+    "neuman_tpu_torch.ops.kernels.knn",
+    "neuman_tpu_torch.ops.mesh",
+    "neuman_tpu_torch.models.lpips",
+    "neuman_tpu_torch.models.nerf",
+    "neuman_tpu_torch.utils.canonical_cameras",
+    "neuman_tpu_torch.trainers.human",
     "chip_smoke",
 )
 
