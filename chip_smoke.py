@@ -5,8 +5,8 @@
 
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc builds the six kernel libraries from neuman_tpu_torch/csrc/
-     (sm_90a), all started together;
+  2. build: nvcc builds the six kernel libraries (seven kernels) from
+     neuman_tpu_torch/csrc/ (sm_90a), all started together;
   3. mlp: nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
      PE 10 + 4 bands), R=1024 x S=64: per-ray posenc and per-sample
      rotate, f32 and bf16;
@@ -39,7 +39,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      the nerf_mlp pair at the step's R=6144 x S=128 per-sample shape;
      train_human for 2 steps with validations (the human train path; launch
      counts reset just before it) and a checkpoint.npz round trip; 20 timed
-     steps in f32 and in bf16 with each kernel's launches per step.
+     steps in f32 and in bf16 with each kernel's launches per step; the
+     validation's four PNGs read back and decoded; the same 20 steps in the
+     mlp_tape="hbm" configuration (as in phase 7 too), whose parameters after
+     train_human's 2 steps equal the recompute configuration's bit for bit,
+     with the peak memory of each; one step's losses with the fused signed
+     distance against the default, and 2 train steps with it;
+ 10. tape: at the shapes of phases 6, 8 and 9 (R=4096 x S=256 per-ray,
+     R=6144 x S=128 per-sample, the offset net's R=1536 x S=128; f32 and
+     bf16) the tape-writing forwards vs their plain versions (outputs and
+     tape) and the backwards with the tape vs recompute (every gradient
+     bit-identical); times of both configurations and the tape's bytes; no
+     tape under torch.no_grad();
+ 11. signed: ericson_signed_select vs its plain version, vs ericson_select
+     and vs the unfused signed distance at N=196,608, C=24, stride 4 and 1,
+     with tables; its gradient; times of the fused and unfused queries;
+ 12. renders: a 270x480 render_smpl_nerf frame, canonical and posed, and a
+     two-actor render_hybrid_nerf_multi_persons frame, bf16, kernels vs the
+     plain path.
 Then one JSON line of per-kernel results, and last the device line.
 --phases runs a subset (for work on one kernel); the contract is the run
 with no arguments.
@@ -113,7 +130,22 @@ HUMAN_STEP_TOL = {
 # launches of one human train step: nerf_mlp = frozen coarse and fine
 # background + the batched canonical application + the sparsity rays
 HUMAN_LAUNCHES = {"nerf_mlp": 4, "nerf_mlp_bwd": 2, "offset_mlp": 1, "offset_mlp_bwd": 1,
-                  "ericson_select": 3, "bucketed_knn": 3}
+                  "ericson_select": 3, "ericson_signed_select": 0, "bucketed_knn": 3}
+# phase 11: the human step's signed-distance queries (1536 rays x 128 samples)
+SIGNED_RAYS, SIGNED_SAMPLES = 1536, 128
+# the fused kernel and the unfused tail take the same operations on the same
+# values, so their signs agree; a difference is excused only where the
+# unfused |(p - closest) . n| is within this of 0, and is counted
+SIGN_DOT_ATOL = 1e-6
+# barycentric weights, the normal blend and the dot, for the selected candidate
+SIGN_OPS_PER_POINT = 70
+# the losses of a step with the fused signed distance against the default
+FUSED_LOSS_ATOL = 1e-6
+# the images a human validation writes, and the index of the shape loss
+VAL_IMAGES = ("val_can", "val_depth", "val_acc", "val_smpl_overlay")
+LOSS_NAMES_SHAPE = 4  # "smpl_shape_reg" in trainers.human.LOSS_NAMES
+# launches of two human train steps with the fused signed distance
+FUSED_LAUNCHES = {"ericson_select": 2, "ericson_signed_select": 4}
 # a vertex score |v|^2 - 2 v.p: 3 multiplies and 3 adds
 KNN_OPS_PER_SCORE = 6
 
@@ -145,6 +177,13 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_min(fn, repeats=5, iters=20, warmup=20):
+    """For kernels of a millisecond or less, whose time moves with the
+    card's clocks (idle after the build): the least of `repeats` means of
+    `iters` calls each, after `warmup` calls."""
+    return min(cuda_ms(fn, iters, warmup if i == 0 else 0) for i in range(repeats))
+
+
 def bound_ms(flops, nbytes, dtype):
     """(least ms for the work, "operations" or "bytes"): the larger of the
     operations at the card's peak for `dtype` and the bytes at its HBM rate."""
@@ -152,29 +191,43 @@ def bound_ms(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def trunk_macs_per_sample(spec):
+    """Multiply-adds of the ReLU trunk for one sample."""
+    n, cp, w = spec.nerf, spec.pos_pe.out_dim, spec.nerf.width
+    return sum((cp if i == 0 else cp + w if (i - 1) in n.skips else w) * w
+               for i in range(n.depth))
+
+
 def mlp_macs_per_sample(spec, per_sample):
     """Multiply-adds of one forward application of the NeRF to one sample
     (the per-ray direction term is computed once per ray, outside)."""
-    n, cp, cd = spec.nerf, spec.pos_pe.out_dim, spec.dir_pe.out_dim
-    w = n.width
-    trunk = sum((cp if i == 0 else cp + w if (i - 1) in n.skips else w) * w
-                for i in range(n.depth))
-    return trunk + w + w * w + (w + (cd if per_sample else 0)) * (w // 2) + (w // 2) * 3
+    w, cd = spec.nerf.width, spec.dir_pe.out_dim
+    return (trunk_macs_per_sample(spec) + w + w * w
+            + (w + (cd if per_sample else 0)) * (w // 2) + (w // 2) * 3)
 
 
-def mlp_bound(spec, net, per_sample, r, s, dtype, backward):
+def tape_bytes(spec, n, dtype):
+    """The trunk posts of n samples in the compute dtype."""
+    return n * spec.nerf.depth * spec.nerf.width * (2 if dtype == "bf16" else 4)
+
+
+def mlp_bound(spec, net, per_sample, r, s, dtype, backward, tape=False):
     """Bound of the forward (each input read once: planes, direction,
     weights; outputs sigma, rgb) or of the recompute backward (+ the four
     cotangents in; d_planes, d_dir and every weight gradient out; 3x the
-    forward's multiply-adds)."""
+    forward's multiply-adds). tape: the forward also writes the trunk
+    posts; the backward reads them and leaves out the trunk's forward."""
     n = r * s
     params = sum(p.numel() for p in net.parameters()) * 4
     dirs = 3 * n * 4 if per_sample else r * (spec.nerf.width // 2) * 4
-    flops = 2 * mlp_macs_per_sample(spec, per_sample) * n * (3 if backward else 1)
+    macs = mlp_macs_per_sample(spec, per_sample) * (3 if backward else 1)
     nbytes = 3 * n * 4 + dirs + params + 4 * n * 4
     if backward:
         nbytes += 3 * n * 4 + dirs + params
-    return bound_ms(flops, nbytes, dtype)
+    if tape:
+        nbytes += tape_bytes(spec, n, dtype)
+        macs -= trunk_macs_per_sample(spec) if backward else 0
+    return bound_ms(2 * macs * n, nbytes, dtype)
 
 
 def ericson_bound(n, c, stride):
@@ -251,7 +304,7 @@ def _mlp_case(spec, net, mode, r, s, dtype, gen, device):
         kw = {"dir_part": kmlp.dir_projection(spec, net, (d / d.norm(dim=1, keepdim=True)).to(device),
                                               dtype)}
     err, scale, run_k, run_p = _fwd_compare(spec, net, planes, kw, dtype)
-    return err, scale, cuda_ms(run_k), cuda_ms(run_p)
+    return err, scale, cuda_ms_min(run_k), cuda_ms_min(run_p)
 
 
 def phase_mlp(model, spec, device, seed):
@@ -320,7 +373,7 @@ def phase_mesh(verts, topo, seed):
                   max((a - b).abs().max().item() for a, b in zip(kcp, pcp)))
         diff = kf != pf
         ties_only = bool((kmq.tie_gap(*ops)[diff] <= MESH_ATOL).all())
-        k_ms, p_ms = cuda_ms(run_k), cuda_ms(run_p)
+        k_ms, p_ms = cuda_ms_min(run_k), cuda_ms_min(run_p, repeats=2, iters=5, warmup=2)
         b_ms, b_by = ericson_bound(pts.shape[0], ops[2].shape[0], stride)
         ok = err <= MESH_ATOL and ties_only and bool(torch.isfinite(kd2).all())
         log("ericson", N=pts.shape[0], C=ops[2].shape[0], stride=stride,
@@ -533,9 +586,13 @@ def phase_train(device, seed):
     term) is O(1); the kernels themselves are held tighter in phases 3
     and 6. The checkpoint round trip is exact.
 
-    Returns, per dtype, the median ms/step and each kernel's launches in
-    train_background (2 steps and 2 validations) and in the 20 timed steps,
-    each counted from 0."""
+    Each dtype runs in both tape configurations (`mlp_tape`), from the same
+    seed: after train_background's 2 steps the "hbm" parameters must equal
+    the "recompute" ones bit for bit, and the launches are the same.
+
+    Returns, per dtype (and per dtype + "_hbm"), the median ms/step, each
+    kernel's launches in train_background (2 steps and 2 validations) and in
+    the 20 timed steps, each counted from 0, and the peak memory in GiB."""
     import torch
     from neuman_tpu_torch import train as ttrain
     from neuman_tpu_torch.datasets import arrays as darrays
@@ -612,14 +669,23 @@ def phase_train(device, seed):
         # SLICE_STEPS timed steps, in f32 (the default) and in bf16
         scene = darrays.ArraysScene(arrays)
         results = {}
-        for dtype in ("float32", "bfloat16"):
-            cfg = _bkg_config(out_dir, seed, name=dtype, compute_dtype=dtype)
+        for dtype, tape in ((d, t) for d in ("float32", "bfloat16") for t in ("recompute", "hbm")):
+            cfg = _bkg_config(out_dir, seed, name=f"{dtype}_{tape}", compute_dtype=dtype,
+                              mlp_tape=tape)
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             kmlp.nerf_mlp.launches = 0
             kvjp.nerf_mlp_bwd.launches = 0
             trainer = ttrain.train_background(cfg, scene, train_views, val_views, device=device)
             before = (kmlp.nerf_mlp.launches, kvjp.nerf_mlp_bwd.launches)
+            # the two configurations' parameters after the same 2 steps
+            after_2 = [p.detach().clone() for net in trainer.state["params"].values()
+                       for p in net.parameters()]
+            if tape == "recompute":
+                recompute_2, same_2 = after_2, True
+            else:
+                same_2 = all(torch.equal(a, b) for a, b in zip(after_2, recompute_2))
             events, losses = [], []
             for _ in range(SLICE_STEPS):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -637,18 +703,20 @@ def phase_train(device, seed):
             losses = torch.stack(losses)
             gib = torch.cuda.max_memory_allocated() / 2**30
             val = trainer.last_val_rgb
-            ok = (bool(torch.isfinite(losses).all()) and per_step == [2, 2]
+            ok = (bool(torch.isfinite(losses).all()) and per_step == [2, 2] and same_2
                   and tuple(val.shape) == (*SLICE_HW, 3) and bool(torch.isfinite(val).all()))
-            log("train", dtype=dtype, rays=cfg.rays_per_batch, S=cfg.samples_per_ray,
+            log("train", dtype=dtype, mlp_tape=tape, params_equal_recompute_after_2_steps=same_2,
+                rays=cfg.rays_per_batch, S=cfg.samples_per_ray,
                 I=cfg.importance_samples_per_ray, steps=SLICE_STEPS, ms_per_step=f"{median:.3f}",
                 ms_min=f"{ms[0]:.3f}", ms_max=f"{ms[-1]:.3f}",
                 first_loss=f"{losses[0].item():.5f}", last_loss=f"{losses[-1].item():.5f}",
                 launches_per_step=json.dumps(per_step), peak_gib=f"{gib:.2f}",
                 launches=json.dumps(launches, separators=(",", ":")), ok=ok)
             if not ok:
-                raise RuntimeError(f"train {dtype}: a loss is not finite, or the kernels did not "
-                                   f"run twice each per step ({per_step})")
-            results[dtype] = (median, launches)
+                raise RuntimeError(f"train {dtype} {tape}: a loss is not finite, the kernels did "
+                                   f"not run twice each per step ({per_step}), or the tape "
+                                   f"configuration's parameters differ from recompute's")
+            results[dtype if tape == "recompute" else f"{dtype}_hbm"] = (median, launches, gib)
 
         # checkpoint.npz round trip: a resumed trainer holds the same state
         trainer.save_model()
@@ -672,19 +740,22 @@ def phase_train(device, seed):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def offset_bound(spec, net, n, dtype, backward):
+def offset_bound(spec, net, n, dtype, backward, tape=False):
     """Bound of the offset net's forward (4 input planes, the weights, 3
     output planes) or recompute backward (+ 3 cotangent planes in; d_axes
-    and every weight gradient out; 3x the forward's multiply-adds)."""
-    ns, cp = spec.nerf, spec.pos_pe.out_dim
-    w = ns.width
-    macs = sum((cp if i == 0 else cp + w if (i - 1) in ns.skips else w) * w
-               for i in range(ns.depth)) + w * ns.output_ch
+    and every weight gradient out; 3x the forward's multiply-adds). tape: as
+    in `mlp_bound`."""
+    ns = spec.nerf
+    trunk = trunk_macs_per_sample(spec)
+    macs = (trunk + ns.width * ns.output_ch) * (3 if backward else 1)
     params = sum(p.numel() for p in net.parameters()) * 4
     nbytes = 4 * n * 4 + params + ns.output_ch * n * 4
     if backward:
         nbytes += ns.output_ch * n * 4 + 4 * n * 4 + params
-    return bound_ms(2 * macs * n * (3 if backward else 1), nbytes, dtype)
+    if tape:
+        nbytes += tape_bytes(spec, n, dtype)
+        macs -= trunk if backward else 0
+    return bound_ms(2 * macs * n, nbytes, dtype)
 
 
 def phase_offset(model, spec, device, seed):
@@ -810,7 +881,9 @@ def _kernel_counters():
 
     return {"nerf_mlp": nerf_mlp.nerf_mlp, "nerf_mlp_bwd": nerf_mlp_vjp.nerf_mlp_bwd,
             "offset_mlp": offset_mlp.offset_mlp, "offset_mlp_bwd": offset_mlp.offset_mlp_bwd,
-            "ericson_select": meshquery.ericson_select, "bucketed_knn": knn.bucketed_knn}
+            "ericson_select": meshquery.ericson_select,
+            "ericson_signed_select": meshquery.ericson_signed_select,
+            "bucketed_knn": knn.bucketed_knn}
 
 
 def _alive(model):
@@ -853,8 +926,20 @@ def phase_human_step(body, device, seed):
     gradient and is the same on both sides (the closest-point kernel is
     bit-equal to plain, the KNN equal outside ties).
 
-    Returns, per dtype, the median ms/step and each kernel's launches in
-    train_human (2 steps and 2 validations) and in the 20 timed steps."""
+    Each dtype then trains in both tape configurations (`mlp_tape`) from the
+    same seed: after train_human's 2 steps the "hbm" parameters must equal
+    the "recompute" ones bit for bit (those steps run with cuDNN's
+    deterministic convolutions: with its default ones two runs of one
+    configuration already differ in the last bits, through the LPIPS loss's
+    backward); the launches per step are the same.
+    Each train_human's last validation must have written its four PNGs,
+    which are read back and decoded. Last, the step's losses with the fused
+    signed distance are held to the default's, and 2 steps train with it.
+
+    Returns, per dtype (and per dtype + "_hbm"), the median ms/step, each
+    kernel's launches in train_human (2 steps and 2 validations) and in the
+    20 timed steps, and the peak memory in GiB; and the launches of the 2
+    steps with the fused signed distance."""
     import numpy as np
     import torch
     from neuman_tpu_torch import train as ttrain
@@ -862,6 +947,7 @@ def phase_human_step(body, device, seed):
     from neuman_tpu_torch.models import human_nerf as hn
     from neuman_tpu_torch.models import lpips as lpips_module
     from neuman_tpu_torch.trainers import human
+    from neuman_tpu_torch.trainers import logging as tlog
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     counters = _kernel_counters()
@@ -871,7 +957,7 @@ def phase_human_step(body, device, seed):
         poses = np.stack([s["pose"] for s in scene.smpls])
         betas = np.stack([s["betas"] for s in scene.smpls])
 
-        def trainer_for(cfg, model_seed):
+        def trainer_for(cfg, model_seed, ops=human.KERNELS):
             spec = hn.build_human_nerf_spec(cfg)
             model = hn.HumanNeRF(spec, device=device,
                                  generator=torch.Generator().manual_seed(model_seed),
@@ -879,7 +965,8 @@ def phase_human_step(body, device, seed):
             _alive(model)
             return human.HumanNeRFTrainer(
                 cfg, model, scene, train_views, val_views, body,
-                lpips_params=lpips_module.init_lpips_params(seed, device), device=device)
+                lpips_params=lpips_module.init_lpips_params(seed, device), device=device,
+                ops=ops)
 
         # one step's losses and gradients, kernels vs plain, on one batch
         for dtype in ("float32", "bfloat16"):
@@ -954,15 +1041,36 @@ def phase_human_step(body, device, seed):
         # the human train path: train_human (2 steps, 2 validations), then
         # HUMAN_STEPS timed steps, in f32 (the default) and in bf16
         results = {}
-        for dtype in ("float32", "bfloat16"):
-            cfg = _human_config(out_dir, seed, name=dtype, compute_dtype=dtype)
+        for dtype, tape in ((d, t) for d in ("float32", "bfloat16") for t in ("recompute", "hbm")):
+            cfg = _human_config(out_dir, seed, name=f"{dtype}_{tape}", compute_dtype=dtype,
+                                mlp_tape=tape)
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             for fn in counters.values():
                 fn.launches = 0
-            trainer = ttrain.train_human(cfg, scene, train_views, val_views, body, device=device)
+            # cuDNN's default convolution backward (the LPIPS loss) sums in an
+            # order that changes from run to run; for the comparison of the two
+            # configurations' parameters it is asked for its deterministic one
+            torch.backends.cudnn.deterministic = True
+            try:
+                trainer = ttrain.train_human(cfg, scene, train_views, val_views, body,
+                                             device=device)
+            finally:
+                torch.backends.cudnn.deterministic = False
             before = {k: fn.launches for k, fn in counters.items()}
             val_ok = all(math.isfinite(v) for v in trainer.last_val_losses.values())
+            # the validation's images, read back and decoded
+            pngs = {os.path.basename(path).rsplit("_", 1)[0]: tlog.decode_png(open(path, "rb").read())
+                    for path in trainer.last_val_images}
+            val_ok = val_ok and sorted(pngs) == sorted(VAL_IMAGES) and all(
+                img.shape == (*SLICE_HW, 3) for img in pngs.values())
+            # the two configurations' parameters after the same 2 steps
+            after_2 = [p.detach().clone() for p in trainer.model.parameters()]
+            if tape == "recompute":
+                recompute_2, same_2 = after_2, True
+            else:
+                same_2 = all(torch.equal(a, b) for a, b in zip(after_2, recompute_2))
             _alive(trainer.model)
             events, losses = [], []
             for _ in range(HUMAN_STEPS):
@@ -980,18 +1088,56 @@ def phase_human_step(body, device, seed):
             median = (ms[(HUMAN_STEPS - 1) // 2] + ms[HUMAN_STEPS // 2]) / 2
             losses = torch.stack(losses)
             gib = torch.cuda.max_memory_allocated() / 2**30
-            ok = (val_ok and bool(torch.isfinite(losses).all()) and bool((losses != 0).all())
-                  and per_step == HUMAN_LAUNCHES and all(v > 0 for v in before.values()))
-            log("human_train", dtype=dtype, rays=cfg.rays_per_batch, S=cfg.samples_per_ray,
+            ok = (val_ok and same_2 and bool(torch.isfinite(losses).all())
+                  and bool((losses != 0).all()) and per_step == HUMAN_LAUNCHES
+                  and all(v > 0 for k, v in before.items() if HUMAN_LAUNCHES[k]))
+            log("human_train", dtype=dtype, mlp_tape=tape,
+                params_equal_recompute_after_2_steps=same_2,
+                val_pngs=json.dumps({k: list(v.shape) for k, v in pngs.items()},
+                                    separators=(",", ":")),
+                rays=cfg.rays_per_batch, S=cfg.samples_per_ray,
                 V=body.num_verts, steps=HUMAN_STEPS, ms_per_step=f"{median:.3f}",
                 ms_min=f"{ms[0]:.3f}", ms_max=f"{ms[-1]:.3f}",
                 first_loss=f"{losses[0].item():.5f}", last_loss=f"{losses[-1].item():.5f}",
                 launches_per_step=json.dumps(per_step, separators=(",", ":")),
                 peak_gib=f"{gib:.2f}", launches=json.dumps(launches, separators=(",", ":")), ok=ok)
             if not ok:
-                raise RuntimeError(f"human train {dtype}: a loss is not finite or is zero, or the "
-                                   f"kernels' launches per step are not {HUMAN_LAUNCHES}")
-            results[dtype] = (median, launches)
+                raise RuntimeError(f"human train {dtype} {tape}: a loss is not finite or is zero, "
+                                   f"the kernels' launches per step are not {HUMAN_LAUNCHES}, a "
+                                   f"validation PNG is missing or of another size, or the tape "
+                                   f"configuration's parameters differ from recompute's")
+            results[dtype if tape == "recompute" else f"{dtype}_hbm"] = (median, launches, gib)
+
+        # the fused signed distance: one step's losses against the default
+        # on one batch, then 2 train steps of a trainer that runs it (the
+        # shape regulariser's 2 queries; the warp's stays ericson_select)
+        cfg = _human_config(out_dir, seed, name="fused", compute_dtype="float32")
+        trainer = trainer_for(cfg, seed, ops=human.KERNELS_FUSED)
+        batch = trainer.draw_batch(generator=torch.Generator(device).manual_seed(seed))
+        anneals = human.compute_anneals(cfg, HUMAN_GRAD_ITERATION)
+        both = []
+        with torch.no_grad():
+            for ops in (human.KERNELS, human.KERNELS_FUSED):
+                fn = human.make_human_loss_fn(trainer.model, cfg, trainer.ctx, ops=ops)
+                aux = fn(batch, torch.Generator(device).manual_seed(seed + 1), anneals)[1]
+                both.append(torch.stack([aux["losses"][k] for k in human.LOSS_NAMES]))
+        loss_err = (both[0] - both[1]).abs().max().item()
+        for fn in counters.values():
+            fn.launches = 0
+        fused_losses = torch.stack([trainer.train_step()["total_loss"] for _ in range(2)])
+        torch.cuda.synchronize()
+        fused_launches = {k: fn.launches for k, fn in counters.items()}
+        ok = (loss_err <= FUSED_LOSS_ATOL and bool(both[0][LOSS_NAMES_SHAPE] != 0)
+              and bool(torch.isfinite(fused_losses).all())
+              and all(fused_launches[k] == v for k, v in FUSED_LAUNCHES.items()))
+        log("human_fused_sd", dtype="float32", loss_max_abs_err=f"{loss_err:.3e}",
+            smpl_shape_reg=f"{both[1][LOSS_NAMES_SHAPE].item():.6f}",
+            launches_2_steps=json.dumps(fused_launches, separators=(",", ":")), ok=ok)
+        if not ok:
+            raise RuntimeError("human step with the fused signed distance: the losses differ from "
+                               "the default's, or the signed kernel was not launched")
+        results["fused_launches"] = {k: {"human_2_steps_fused_sd": v}
+                                     for k, v in fused_launches.items()}
 
         # checkpoint.npz round trip: a resumed trainer holds the same state
         trainer.save_model()
@@ -1050,6 +1196,301 @@ def phase_human_mlp(model, spec, device, seed):
             raise RuntimeError(f"nerf_mlp pair at the human step's {mode} shape disagrees with plain")
 
 
+def _tape_cases(model, spec, device, gen):
+    """(name, R, S, net spec, make(dtype) -> (forward of a given function
+    with or without the tape, the kernel, its plain version, backward given
+    a tape or None and optionally the function, the plain backward,
+    flatteners of the backward's and the forward's outputs),
+    bound(dtype, backward=) with the tape) of each fused MLP at its
+    train-step shape."""
+    import torch
+    from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
+    from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
+    from neuman_tpu_torch.ops.kernels import offset_mlp as koff
+
+    rand = lambda r, s: (torch.rand(r, s, generator=gen) * 3 - 1.5).to(device)
+    for mode, r, s in (("per_ray", BWD_RAYS, 256), ("per_sample", 4 * OFFSET_RAYS, OFFSET_SAMPLES)):
+        per_sample = mode == "per_sample"
+        jspec, net = ((spec.human, model.coarse_human_net.nerf) if per_sample
+                      else (spec.bkg, model.coarse_bkg_net.nerf))
+        planes = [rand(r, s) for _ in range(3)]
+        cot = [torch.randn(r, s, generator=gen).to(device) for _ in range(4)]
+        d = torch.randn(3, r, s, generator=gen) if per_sample else torch.randn(r, 3, generator=gen)
+        d = (d / d.norm(dim=0 if per_sample else 1, keepdim=True)).to(device)
+
+        def make(dtype, jspec=jspec, net=net, planes=planes, cot=cot, d=d, per_sample=per_sample):
+            kw = ({"dir_planes": [x.contiguous() for x in d]} if per_sample
+                  else {"dir_part": kmlp.dir_projection(jspec, net, d, dtype)})
+            fwd = lambda fn, tape=True: fn(jspec, net, *planes, compute_dtype=dtype,
+                                           emit_tape=tape, **kw)
+            bwd = lambda tape, fn=kvjp.nerf_mlp_bwd: fn(jspec, net, *planes, cot[0], cot[1:],
+                                                        compute_dtype=dtype, tape=tape, **kw)
+            flat_out = lambda out: torch.stack([out[0], *out[1]])
+            return (fwd, kmlp.nerf_mlp, kmlp.nerf_mlp_plain, bwd, kvjp.nerf_mlp_bwd_plain,
+                    _flat_grads, flat_out)
+
+        bound = functools.partial(mlp_bound, jspec, net, per_sample, r, s, tape=True)
+        yield f"nerf_mlp {mode}", r, s, jspec.nerf, make, bound
+    r, s = OFFSET_RAYS, OFFSET_SAMPLES
+    ospec, onet = spec.offset, model.offset_nets[0].nerf
+    axes = [rand(r, s) for _ in range(3)] + [torch.full((r, s), 0.37, device=device)]
+    ocot = [torch.randn(r, s, generator=gen).to(device) for _ in range(3)]
+
+    def make_offset(dtype):
+        fwd = lambda fn, tape=True: fn(ospec, onet, axes, dtype, emit_tape=tape)
+        bwd = lambda tape, fn=koff.offset_mlp_bwd: fn(ospec, onet, axes, ocot, dtype, tape=tape)
+        flat = lambda out: [t for wb in out[0] for t in wb] + list(out[1])
+        return (fwd, koff.offset_mlp, koff.offset_mlp_plain, bwd, koff.offset_mlp_bwd_plain, flat,
+                torch.stack)
+
+    bound = lambda dtype, backward: offset_bound(ospec, onet, r * s, dtype, backward, tape=True)
+    yield "offset_mlp", r, s, ospec.nerf, make_offset, bound
+
+
+def phase_tape(model, spec, device, seed):
+    """The `mlp_tape="hbm"` configuration of the four fused-MLP kernels at
+    the train steps' shapes. The tape-writing forward against its plain
+    version: outputs and tape at phase 3's tolerances (f32: another
+    summation order, 1e-3; bf16: 5e-2 of the largest value, a value on a
+    rounding boundary lands on either side). The backward with the tape
+    against the backward that recomputes the trunk: every weight gradient,
+    d_planes / d_axes and d_dir bit-identical (`torch.equal`), because the
+    forward kernel's trunk is the chain pass's arithmetic. Under
+    torch.no_grad() the Function writes no tape."""
+    import torch
+    from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    results, failed = {}, []
+    for name, r, s, nspec, make, bound in _tape_cases(model, spec, device, gen):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            fwd, kernel, plain, bwd, bwd_plain, flat, flat_out = make(dtype)
+            out_k, tape = fwd(kernel)
+            out_p, tape_p = fwd(plain)
+            torch.cuda.synchronize()
+            out_k, out_p = flat_out(out_k), flat_out(out_p)
+            f_err, f_scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
+            # the tape in pieces: a whole-tape float copy would double 8.6 GB
+            t_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(tape.split(65536), tape_p.split(65536)))
+            t_scale = max(b.float().abs().max().item() for b in tape_p.split(65536))
+            shape_ok = (tape.dtype == dtype and tuple(tape.shape) == (r * s, nspec.depth * nspec.width))
+            del tape_p, out_p
+            torch.cuda.empty_cache()
+            fwd_ok = _fwd_ok(f_err, f_scale, dname) and _fwd_ok(t_err, t_scale, dname) and shape_ok
+            taped, recomputed = flat(bwd(tape)), flat(bwd(None))
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(taped, recomputed))
+            finite = all(bool(torch.isfinite(a).all()) for a in taped)
+            del taped, recomputed
+            torch.cuda.empty_cache()
+            times = {"fwd": cuda_ms(lambda: fwd(kernel, False), iters=3, warmup=1),
+                     "fwd_tape": cuda_ms(lambda: fwd(kernel), iters=3, warmup=1),
+                     "bwd": cuda_ms(lambda: bwd(None), iters=3, warmup=1),
+                     "bwd_tape": cuda_ms(lambda: bwd(tape), iters=3, warmup=1),
+                     "fwd_tape_plain": cuda_ms(lambda: fwd(plain), iters=2, warmup=1),
+                     "bwd_tape_plain": cuda_ms(lambda: bwd(tape, bwd_plain), iters=2, warmup=1)}
+            tape_gb = tape.numel() * tape.element_size() / 1e9
+            (fb_ms, fb_by), (bb_ms, bb_by) = bound(dname, backward=False), bound(dname, backward=True)
+            ok = fwd_ok and equal and finite
+            log("tape", kernel=name, dtype=dname, R=r, S=s, fwd_max_abs_err=f"{f_err:.3e}",
+                tape_max_abs_err=f"{t_err:.3e}", tape_scale=f"{t_scale:.3f}", fwd_ok=fwd_ok,
+                grads_bit_identical_to_recompute=equal, tape_gb=f"{tape_gb:.3f}",
+                **{f"{k}_ms": f"{v:.3f}" for k, v in times.items()},
+                fwd_tape_bound_ms=f"{fb_ms:.3f}", fwd_tape_bound_by=fb_by,
+                bwd_tape_bound_ms=f"{bb_ms:.3f}", bwd_tape_bound_by=bb_by, ok=ok)
+            if not ok:
+                failed.append(f"{name} {dname}")
+            results[(name, dname)] = (times, tape_gb)
+            del tape
+            torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"tape configuration: a forward disagrees with its plain version or a "
+                           f"gradient with recompute: {failed}")
+
+    # no tape under torch.no_grad(): the Function allocates none
+    from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
+    jspec, net = spec.bkg, model.coarse_bkg_net.nerf
+    r, s = 1024, 128
+    planes = [(torch.rand(r, s, generator=gen) * 3 - 1.5).to(device) for _ in range(3)]
+    dirp = kmlp.dir_projection(jspec, net, torch.randn(r, 3, generator=gen).to(device))
+    tape_bytes = r * s * jspec.nerf.depth * jspec.nerf.width * 4
+    net.requires_grad_(True)
+    peaks = {}
+    try:
+        for label, ctx in (("no_grad", torch.no_grad()), ("grad", torch.enable_grad())):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with ctx:
+                out = kvjp.nerf_mlp_fn(jspec, net, *planes, dir_part=dirp, tape_mode="hbm")
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() - base
+            del out
+    finally:
+        net.requires_grad_(False)
+    ok = peaks["no_grad"] < tape_bytes / 2 <= peaks["grad"]
+    log("tape_no_grad", tape_mb=f"{tape_bytes / 1e6:.1f}",
+        **{f"{k}_peak_mb": f"{v / 1e6:.1f}" for k, v in peaks.items()}, ok=ok)
+    if not ok:
+        raise RuntimeError("nerf_mlp_fn allocated a tape under torch.no_grad(), or none with grad")
+    return results
+
+
+def signed_bound(n, c, stride):
+    """p3 [3, N], rows9 and cand [9C + C, N/stride] in; of vn9 only what
+    the function needs, the nine normal components of each point's selected
+    candidate; sd, face id, closest point [3, N] out; the region test for
+    every candidate and the sign for the selected one."""
+    groups = -(-n // stride)
+    nbytes = 3 * n * 4 + 9 * c * groups * 4 + c * groups * 4 + 9 * n * 4 + 5 * n * 4
+    return bound_ms((ERICSON_OPS_PER_TEST * c + SIGN_OPS_PER_POINT) * n, nbytes, "f32")
+
+
+def phase_signed(verts, topo, seed):
+    """`ericson_signed_select` at the human step's query, N=196,608 ray
+    samples, C=24, stride 4 and 1, operands from the query tables and the
+    bucketed KNN. Built with --fmad=false it runs the plain version's
+    operations: sd and the closest point are held to it bit for bit, the face
+    id outside ties; to `ericson_select` on the same operands bit for bit
+    (|sd| = sqrt(d2), closest point, face id: one device function); its
+    gradient to the plain Function's exactly. Against the unfused signed
+    distance (ericson_select + the sign in PyTorch, the same operations on
+    the same values) the signs may differ only where the unfused
+    |(p - closest) . n| <= 1e-6; those points are counted. Timed: the two
+    kernels and the plain version on the same operands, and the whole query
+    (`signed_distance`) fused and unfused."""
+    import torch
+    from neuman_tpu_torch.ops import mesh as mesh_ops
+    from neuman_tpu_torch.ops.kernels import meshquery as kmq
+
+    gen = torch.Generator().manual_seed(seed + 8)
+    pts = _ray_samples(verts, SIGNED_RAYS, SIGNED_SAMPLES, gen)
+    tables = mesh_ops.build_query_tables(verts, topo)
+    results = {}
+    for stride in (4, 1):
+        kw = dict(k=4, knn_stride=stride, knn_impl="bucketed", tables=tables)
+        p3, rows9, vn9, cand, st = mesh_ops.candidate_operands(pts, verts, topo, normals=True, **kw)
+        run_k = lambda: kmq.ericson_signed_select(p3, rows9, vn9, cand, st)
+        run_p = lambda: kmq.ericson_signed_select_plain(p3, rows9, vn9, cand, st)
+        run_u = lambda: kmq.ericson_select(p3, rows9, cand, st)
+        (sd, f_id, cp), (psd, pf, pcp), (d2, uf, ucp) = run_k(), run_p(), run_u()
+        torch.cuda.synchronize()
+        cp, pcp, ucp = torch.stack(cp), torch.stack(pcp), torch.stack(ucp)
+        err = max((sd - psd).abs().max().item(), (cp - pcp).abs().max().item())
+        plain_equal = torch.equal(sd, psd) and torch.equal(cp, pcp)
+        diff = f_id != pf
+        ties_only = bool((kmq.tie_gap(p3, rows9, cand, st)[diff] <= MESH_ATOL).all())
+        unsigned_equal = (torch.equal(sd.abs(), torch.sqrt(d2.clamp(min=0)))
+                          and torch.equal(cp, ucp) and torch.equal(f_id, uf))
+        # the unfused tail on the unsigned kernel's outputs
+        side = mesh_ops.pseudonormal_side(pts, verts, topo, uf, tuple(ucp), tables)
+        flips = (side < 0) != (sd < 0)
+        excused = bool((side.abs()[flips] <= SIGN_DOT_ATOL).all())
+        inside = (sd < 0).float().mean().item()
+        # gradient: kernel Function against the plain Function
+        g = torch.randn(sd.shape, generator=gen).to(sd.device)
+        grads = []
+        for plain in (False, True):
+            q = p3.clone().requires_grad_(True)
+            out = kmq.ericson_signed_select(q, rows9, vn9, cand, st, plain=plain)[0]
+            grads.append(torch.autograd.grad((out * g).sum(), q)[0])
+        grad_equal = torch.equal(*grads)
+        del grads, psd, pcp
+        full = lambda fused: mesh_ops.signed_distance(pts, verts, topo, fused=fused, **kw)
+        times = {"kernel": cuda_ms_min(run_k), "unsigned_kernel": cuda_ms_min(run_u),
+                 "plain": cuda_ms(run_p, iters=3, warmup=1),
+                 "query_fused": cuda_ms(lambda: full(True)),
+                 "query_unfused": cuda_ms(lambda: full(False))}
+        b_ms, b_by = signed_bound(pts.shape[0], cand.shape[0], st)
+        ok = (plain_equal and ties_only and unsigned_equal and excused and grad_equal
+              and bool(torch.isfinite(sd).all()) and 0.05 < inside < 0.95)
+        log("ericson_signed", N=pts.shape[0], C=cand.shape[0], stride=st,
+            max_abs_err=f"{err:.3e}", bit_equal_plain=plain_equal, f_id_diff=int(diff.sum()),
+            bit_equal_ericson_select=unsigned_equal, sign_flips_vs_unfused=int(flips.sum()),
+            flips_within_dot_bound=excused, grad_bit_equal_plain=grad_equal,
+            inside_share=f"{inside:.4f}", **{f"{k}_ms": f"{v:.3f}" for k, v in times.items()},
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, ok=ok)
+        if not ok:
+            raise RuntimeError(f"ericson_signed_select stride {st}: kernel disagrees")
+        results[st] = (err, times["kernel"], times["plain"], b_ms, b_by)
+    return results
+
+
+def phase_renders(model, spec, body, device, seed):
+    """The human-only and multi-person frames at 270x480 in bf16 through the
+    kernels, each against the same renderer on the plain path (>= 40 dB, the
+    repo's image-parity bar; the MLP paths differ in their last bits, as in
+    phase 5): `render_smpl_nerf` of the posed body and of the canonical body
+    (render_can: no warp, per-ray directions), and
+    `render_hybrid_nerf_multi_persons` with the body twice, the second copy
+    0.8 to the side. Each render path's launches are counted from 0."""
+    import torch
+    from neuman_tpu_torch.models import smpl
+    from neuman_tpu_torch.ops import mesh as mesh_ops
+    from neuman_tpu_torch.render import renderer
+
+    counters = _kernel_counters()
+    gen = torch.Generator().manual_seed(seed + 2)
+    pose = torch.zeros(1, 72)
+    pose[0, 3:] = torch.randn(69, generator=gen) * 0.1
+    verts, ts = smpl.da_pose_to_scene(body, pose.to(device), torch.zeros(1, 10, device=device))
+    topo = mesh_ops.MeshTopology.build(body.faces, len(verts), device)
+    c2w = [[1.0, 0, 0, 0], [0, -1.0, 0, 0], [0, 0, -1.0, 3.0], [0, 0, 0, 1.0]]
+    h, w = FRAME_HW
+    cap = Capture(h, w, 380.0 * w / 480, c2w, near=0.5, far=6.0)
+    kw = {k: v for k, v in RENDER.items() if k != "importance_samples_per_ray"}
+    shift = torch.tensor([0.8, 0.0, 0.0], device=device)
+    ts2 = ts.clone()
+    ts2[:, :3, 3] += shift
+    frames = {
+        "smpl_posed": lambda use: renderer.render_smpl_nerf(
+            spec, model, cap, verts, body.faces, ts, device, topology=topo, use_kernels=use, **kw),
+        "smpl_canonical": lambda use: renderer.render_smpl_nerf(
+            spec, model, cap, body.v_template, body.faces, None, device, topology=topo,
+            render_can=True, use_kernels=use, **kw),
+        "multi_persons": lambda use: renderer.render_hybrid_nerf_multi_persons(
+            spec, model, cap, [spec, spec], [model, model], [verts, verts + shift],
+            [body.faces, body.faces], [ts, ts2], device, use_kernels=use, **RENDER),
+    }
+    launches = {}
+    for name, render in frames.items():
+        render(True)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = render(True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        ref = render(False)
+        torch.cuda.synchronize()
+        psnr = -10.0 * math.log10(max(torch.mean((out[0] - ref[0]) ** 2).item(), 1e-20))
+        # the share of pixels that show a body: opaque ones, or for the
+        # composite those that differ from the background-only frame
+        if name == "multi_persons":
+            bkg_only = renderer.render_vanilla(
+                spec.bkg, model.coarse_bkg_net.nerf, cap, model.fine_bkg_net.nerf, device,
+                **{k: RENDER[k] for k in ("rays_per_batch", "samples_per_ray",
+                                          "importance_samples_per_ray")})
+            shown = ((out[0] - bkg_only).abs().amax(-1) > 1e-2).float().mean().item()
+        else:
+            shown = (out[2] > 0.5).float().mean().item()
+        expect = ("nerf_mlp",) if name == "smpl_canonical" else ("nerf_mlp", "ericson_select")
+        ok = (tuple(out[0].shape) == (h, w, 3) and all(bool(torch.isfinite(t).all()) for t in out)
+              and psnr >= FRAME_MIN_PSNR and shown > 0.01
+              and all(launches[name].get(k, 0) > 0 for k in expect))
+        log("render", frame=name, H=h, W=w, dtype="bf16", sec_per_frame=f"{sec:.3f}",
+            psnr_vs_plain=f"{psnr:.2f}", body_fraction=f"{shown:.4f}",
+            launches=json.dumps(launches[name], separators=(",", ":")), ok=ok)
+        if not ok:
+            raise RuntimeError(f"render {name}: not finite, under the PSNR bar, no body in the "
+                               f"frame, or a kernel was not launched")
+    return launches
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -1073,7 +1514,8 @@ def phase_human(model, spec, body, device, seed):
     return phase_human_step(body, device, seed)
 
 
-PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human")
+PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
+          "renders")
 
 
 def main(argv=None):
@@ -1112,6 +1554,9 @@ def main(argv=None):
         "offset": lambda: phase_offset(model, spec, device, args.seed),
         "knn": lambda: phase_knn(body.v_template, args.seed),
         "human": lambda: phase_human(model, spec, body, device, args.seed),
+        "tape": lambda: phase_tape(model, spec, device, args.seed),
+        "signed": lambda: phase_signed(body.v_template, topo, args.seed),
+        "renders": lambda: phase_renders(model, spec, body, device, args.seed),
     }
     out = {name: run[name]() for name in PHASES if name in phases}
     device_line = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1120,18 +1565,21 @@ def main(argv=None):
         print(json.dumps({**device_line, "phases": phases}), flush=True)
         return 0
     mlp, mesh, launches, bwd, train = (out[k] for k in ("mlp", "mesh", "slice", "bwd", "train"))
-    offset, knn, human = out["offset"], out["knn"], out["human"]
+    offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
+                                                            "renders"))
 
     # timings: nerf_mlp the render path's bf16 per-ray case (phase 3),
     # ericson_select stride 4 (phase 4), nerf_mlp_bwd the fine pass of the
     # f32 background step (phase 6), offset_mlp and offset_mlp_bwd the f32
-    # human step's shape and bucketed_knn its 49,152 groups (phase 8).
+    # human step's shape and bucketed_knn its 49,152 groups (phase 8),
+    # ericson_signed_select the human step's stride-4 query (phase 11).
     # launches: the sum over the main paths, each counted from 0 in its own
-    # run and listed in launches_by_path: one render frame (phase 5), the
+    # run and listed in launches_by_path: one hybrid frame (phase 5), the
     # f32 background train path (phase 7) split into train_background (2
-    # steps, 2 validations) and the 20 timed steps, and the f32 human train
-    # path (phase 9) split likewise. No single PyTorch call computes any of
-    # the six functions.
+    # steps, 2 validations) and the 20 timed steps, in both tape
+    # configurations, the f32 human train path (phase 9) split likewise, its
+    # 2 steps with the fused signed distance, and the three frames of phase
+    # 12. No single PyTorch call computes any of the seven functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by = timing
         return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{source}.cu",
@@ -1139,28 +1587,36 @@ def main(argv=None):
                 "launches_by_path": by_path, "max_abs_err": max_abs_err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
-    train_launches, human_launches = train["float32"][1], human["float32"][1]
+    def by_path(name):
+        paths = {"render_frame": launches.get(name, 0)}
+        for key, run in (("", train.get("float32")), ("hbm_", train.get("float32_hbm")),
+                         ("", human["float32"]), ("hbm_", human["float32_hbm"])):
+            paths.update({key + k: v for k, v in run[1].get(name, {}).items()})
+        paths.update(human["fused_launches"].get(name, {}))
+        paths.update({f"render_{frame}": counts.get(name, 0) for frame, counts in renders.items()})
+        return {k: v for k, v in paths.items() if v}
+
     kernels = [
-        entry("nerf_mlp", "nerf_mlp", "neuman_tpu/ops/pallas/raymarch.py:105",
-              {"render_frame": launches["nerf_mlp"], **train_launches["nerf_mlp"],
-               **human_launches["nerf_mlp"]},
+        entry("nerf_mlp", "nerf_mlp", "neuman_tpu/ops/pallas/raymarch.py:105", by_path("nerf_mlp"),
               max(mlp[(m, "bf16")][0] for m in ("per_ray", "per_sample")),
               mlp[("per_ray", "bf16")][1:]),
         entry("ericson_select", "ericson_select", "neuman_tpu/ops/pallas/meshquery.py:314",
-              {"render_frame": launches["ericson_select"], **human_launches["ericson_select"]},
-              max(r[0] for r in mesh.values()), mesh[4][1:]),
+              by_path("ericson_select"), max(r[0] for r in mesh.values()), mesh[4][1:]),
         entry("nerf_mlp_bwd", "nerf_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:76",
-              {**train_launches["nerf_mlp_bwd"], **human_launches["nerf_mlp_bwd"]},
-              bwd[("per_ray", 256, "f32")][0], bwd[("per_ray", 256, "f32")][1:]),
+              by_path("nerf_mlp_bwd"), bwd[("per_ray", 256, "f32")][0],
+              bwd[("per_ray", 256, "f32")][1:]),
         entry("offset_mlp", "offset_mlp", "neuman_tpu/ops/pallas/raymarch_vjp.py:506",
-              human_launches["offset_mlp"], offset["f32"]["fwd"][0], offset["f32"]["fwd"][1:]),
+              by_path("offset_mlp"), offset["f32"]["fwd"][0], offset["f32"]["fwd"][1:]),
         entry("offset_mlp_bwd", "offset_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:620",
-              human_launches["offset_mlp_bwd"], offset["f32"]["bwd"][0],
-              offset["f32"]["bwd"][1:]),
+              by_path("offset_mlp_bwd"), offset["f32"]["bwd"][0], offset["f32"]["bwd"][1:]),
         entry("bucketed_knn", "bucketed_knn", "neuman_tpu/ops/pallas/meshquery.py:427",
-              human_launches["bucketed_knn"], max(r[0] for r in knn.values()),
-              knn[KNN_QUERIES[0]][1:]),
+              by_path("bucketed_knn"), max(r[0] for r in knn.values()), knn[KNN_QUERIES[0]][1:]),
+        entry("ericson_signed_select", "ericson_select", "neuman_tpu/ops/pallas/meshquery.py:191",
+              by_path("ericson_signed_select"), max(r[0] for r in signed.values()), signed[4][1:]),
     ]
+    if any(k["launches"] == 0 for k in kernels):
+        raise RuntimeError("a kernel was launched on no main path: "
+                           + ", ".join(k["name"] for k in kernels if not k["launches"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps(device_line), flush=True)
     return 0

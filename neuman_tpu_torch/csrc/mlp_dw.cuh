@@ -5,6 +5,11 @@
 // KSPLIT contiguous ranges, one block per tile and range, each writing its
 // own partial (`bwd_dw_*_kernel`), and `bwd_reduce_kernel` adds the partials
 // in order. No atomics: two runs give bit-identical gradients.
+//
+// The trunk's post-ReLU values, B operands of most layers, are read through a
+// base pointer and row stride of their own (`post`, `ldp`): the chunk tape's
+// post columns in the recompute configuration, the chunk's rows of the tape
+// that the forward kernel wrote in the "hbm" one.
 
 #pragma once
 
@@ -14,24 +19,41 @@ namespace {
 
 struct DwLayer {
   int a_off, m;                  // A = tape[:, a_off : a_off + m]
-  int b_off1, n1, b_off2, n2;    // B = [tape[:, b_off1 : +n1], tape[:, b_off2 : +n2], 1]
+  int b_off1, n1, b_off2, n2;    // B = [src1[:, b_off1 : +n1], src2[:, b_off2 : +n2], 1]
+  int p1, p2;                    // a block's source: the posts (1) or the tape (0)
   int ldc, c_off, bias_off;      // dW[m][n] at c_off + m ldc + n, db[m] at bias_off + m
   int tiles_n, tile0;            // 64 x 64 output tiles: n-tiles, first tile id
 };
 
 struct DwArgs {
   const void* tape;
-  int ldt, k, kper;  // rows of the chunk, rows per split
+  const void* post;  // the trunk posts of the chunk's first row
+  int ldt, ldp, k, kper;  // row strides; rows of the chunk, rows per split
   int n_layers, total;
   float* partial;    // [KSPLIT, total]
   DwLayer L[MAX_LAYERS];
 };
 
+// A thread stages the same column of a tile in every k step (THREADS is a
+// multiple of the tile width), so where column c of B comes from is found
+// once: element [row] is base[row * ld + off], or the constant 1 (the bias
+// column) or 0 (past the layer's columns).
+static_assert(THREADS % 64 == 0, "a thread's staged column must not change");
 template <typename T>
-__device__ __forceinline__ float b_at(const T* row, const DwLayer& l, int c) {
-  if (c < l.n1) return tof(row[l.b_off1 + c]);
-  if (c < l.n1 + l.n2) return tof(row[l.b_off2 + c - l.n1]);
-  return c == l.n1 + l.n2 ? 1.f : 0.f;
+struct BCol {
+  const T* base;
+  int ld, off;
+  float fill;  // the constant when base is null
+};
+
+template <typename T>
+__device__ __forceinline__ BCol<T> b_col(const DwArgs& a, const DwLayer& l, int c) {
+  const T* tape = static_cast<const T*>(a.tape);
+  const T* post = static_cast<const T*>(a.post);
+  if (c < l.n1) return {l.p1 ? post : tape, l.p1 ? a.ldp : a.ldt, l.b_off1 + c, 0.f};
+  if (c < l.n1 + l.n2)
+    return {l.p2 ? post : tape, l.p2 ? a.ldp : a.ldt, l.b_off2 + c - l.n1, 0.f};
+  return {nullptr, 0, 0, c == l.n1 + l.n2 ? 1.f : 0.f};
 }
 
 __device__ __forceinline__ void dw_store(const DwArgs& a, const DwLayer& l, int ks, int m,
@@ -57,16 +79,17 @@ __global__ void __launch_bounds__(THREADS) bwd_dw_f32_kernel(DwArgs a) {
   const int tile = blockIdx.x - l.tile0, m0 = (tile / l.tiles_n) * 64,
             n0 = (tile % l.tiles_n) * 64, ks = blockIdx.y;
   const int k_lo = ks * a.kper, k_hi = min(a.k, k_lo + a.kper);
-  const float* tape = static_cast<const float*>(a.tape);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int c = threadIdx.x % 64;  // the column this thread stages
+  const BCol<float> bc = b_col<float>(a, l, n0 + c);
+  const float* acol = m0 + c < l.m ? static_cast<const float*>(a.tape) + l.a_off + m0 + c : nullptr;
   float acc[4][4] = {};
   for (int k0 = k_lo; k0 < k_hi; k0 += 16) {
-    for (int idx = threadIdx.x; idx < 16 * 64; idx += THREADS) {
-      const int kk = idx / 64, c = idx % 64, row = k0 + kk;
-      const float* r = tape + (size_t)row * a.ldt;
+    for (int kk = threadIdx.x / 64; kk < 16; kk += THREADS / 64) {
+      const int row = k0 + kk;
       const bool in = row < k_hi;
-      as[kk][c] = in && m0 + c < l.m ? r[l.a_off + m0 + c] : 0.f;
-      bs[kk][c] = in ? b_at(r, l, n0 + c) : 0.f;
+      as[kk][c] = in && acol != nullptr ? acol[(size_t)row * a.ldt] : 0.f;
+      bs[kk][c] = !in ? 0.f : bc.base != nullptr ? bc.base[(size_t)row * bc.ld + bc.off] : bc.fill;
     }
     __syncthreads();
 #pragma unroll
@@ -96,25 +119,19 @@ __global__ void __launch_bounds__(THREADS) bwd_dw_bf16_kernel(DwArgs a) {
   const int tile = blockIdx.x - l.tile0, m0 = (tile / l.tiles_n) * 64,
             n0 = (tile % l.tiles_n) * 64, ks = blockIdx.y;
   const int k_lo = ks * a.kper, k_hi = min(a.k, k_lo + a.kper);
-  const bf16* tape = static_cast<const bf16*>(a.tape);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int wm = warp % 4, wn = warp / 4;
-  const bf16 zero = __float2bfloat16(0.f), one = __float2bfloat16(1.f);
+  const int c = threadIdx.x % 64;  // the column this thread stages
+  const BCol<bf16> bc = b_col<bf16>(a, l, n0 + c);
+  const bf16* acol = m0 + c < l.m ? static_cast<const bf16*>(a.tape) + l.a_off + m0 + c : nullptr;
+  const bf16 zero = __float2bfloat16(0.f), fill = __float2bfloat16(bc.fill);
   float acc[4][4] = {};
   for (int k0 = k_lo; k0 < k_hi; k0 += DW_BK) {
-    for (int idx = threadIdx.x; idx < DW_BK * 64; idx += THREADS) {
-      const int kk = idx / 64, c = idx % 64, row = k0 + kk;
-      const bf16* r = tape + (size_t)row * a.ldt;
+    for (int kk = threadIdx.x / 64; kk < DW_BK; kk += THREADS / 64) {
+      const int row = k0 + kk;
       const bool in = row < k_hi;
-      as[c][kk] = in && m0 + c < l.m ? r[l.a_off + m0 + c] : zero;
-      const int cb = n0 + c;
-      bf16 bv = zero;
-      if (in) {
-        if (cb < l.n1) bv = r[l.b_off1 + cb];
-        else if (cb < l.n1 + l.n2) bv = r[l.b_off2 + cb - l.n1];
-        else if (cb == l.n1 + l.n2) bv = one;
-      }
-      bs[c][kk] = bv;
+      as[c][kk] = in && acol != nullptr ? acol[(size_t)row * a.ldt] : zero;
+      bs[c][kk] = !in ? zero : bc.base != nullptr ? bc.base[(size_t)row * bc.ld + bc.off] : fill;
     }
     __syncthreads();
 #pragma unroll

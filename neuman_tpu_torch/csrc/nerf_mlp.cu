@@ -37,6 +37,13 @@
 //   rounded to bf16 where the JAX kernel casts them (PE, trunk outputs,
 //   feature, dir PE, views output). Bound by the B-fragment loads from L1
 //   and by mma.sync issue (wgmma + TMA-staged weights is the next step).
+//
+// With a tape pointer (the `mlp_tape="hbm"` train configuration; the TPU
+// kernel's emit_tape) every trunk layer also writes its post-ReLU output, in
+// the compute dtype, to tape[n][i * W + o], sample-major rows of depth * W
+// values: what the backward's chain pass otherwise recomputes, bit for bit
+// (same products in the same order, same rounding). 8 KB a sample in f32 and
+// 4 KB in bf16 at 8 x 256; each warp writes whole 128-byte lines.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +74,7 @@ struct MlpArgs {
   const void* wt;             // packed weights (layout per kernel, see wrapper)
   const float* bias;          // packed biases
   float* out;                 // [4, N]: sigma, r, g, b
+  void* tape;                 // [N, depth * W] trunk posts, compute dtype, or null
   PE pos, dir;
   int n, spr, depth, width, skip_mask;
   int ld;              // activation row stride, elements
@@ -119,11 +127,14 @@ __device__ void pe_fill(T* buf, int ld, int off, int width, PE pe, const float* 
 // out = in[:, in_off:in_off+in_dim] @ wt + bias [+ dir_part row] [relu] for
 // the tile; wt is [in, out]. Shared-memory output: dst[s][dst_off + o].
 // Global output (gout != nullptr): gout[(dst_off + o) * n + n0 + s].
-template <int NJ>
+// TAPE: the shared-memory outputs also go to gtape[g][o] (a trunk layer's
+// posts); a template flag, so that the tape-less call keeps its code.
+template <int NJ, bool TAPE>
 __device__ void dense_f32(const float* src, int ld, int in_off, int in_dim,
                           const float* __restrict__ wt, const float* __restrict__ bias,
                           int out_dim, float* dst, int dst_off, bool relu,
-                          float* gout, const float* dir_part, int spr, int n0, int n) {
+                          float* gout, const float* dir_part, int spr, int n0, int n,
+                          float* gtape, int ldtape) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float acc[SPW][NJ];
 #pragma unroll
@@ -162,6 +173,7 @@ __device__ void dense_f32(const float* src, int ld, int in_off, int in_dim,
         if (g < n) gout[(size_t)(dst_off + o) * n + g] = v;
       } else {
         dst[s * ld + dst_off + o] = v;
+        if (TAPE && g < n) gtape[(size_t)g * ldtape + o] = v;
       }
     }
   }
@@ -170,12 +182,19 @@ __device__ void dense_f32(const float* src, int ld, int in_off, int in_dim,
 __device__ void dense_f32_any(const float* src, int ld, int in_off, int in_dim,
                               const float* wt, const float* bias, int out_dim,
                               float* dst, int dst_off, bool relu, float* gout,
-                              const float* dir_part, int spr, int n0, int n) {
+                              const float* dir_part, int spr, int n0, int n,
+                              float* gtape = nullptr, int ldtape = 0) {
   switch ((out_dim + 31) / 32) {
 #define NERF_DENSE_CASE(NJ)                                                    \
   case NJ:                                                                     \
-    dense_f32<NJ>(src, ld, in_off, in_dim, wt, bias, out_dim, dst, dst_off,    \
-                  relu, gout, dir_part, spr, n0, n);                           \
+    if (gtape != nullptr)                                                      \
+      dense_f32<NJ, true>(src, ld, in_off, in_dim, wt, bias, out_dim, dst,     \
+                          dst_off, relu, gout, dir_part, spr, n0, n, gtape,    \
+                          ldtape);                                             \
+    else                                                                       \
+      dense_f32<NJ, false>(src, ld, in_off, in_dim, wt, bias, out_dim, dst,    \
+                           dst_off, relu, gout, dir_part, spr, n0, n, gtape,   \
+                           ldtape);                                            \
     break;
     NERF_DENSE_CASE(1) NERF_DENSE_CASE(2) NERF_DENSE_CASE(3)
     NERF_DENSE_CASE(4) NERF_DENSE_CASE(5) NERF_DENSE_CASE(6)
@@ -193,6 +212,8 @@ __global__ void __launch_bounds__(THREADS) nerf_mlp_f32_kernel(MlpArgs a) {
   const int cp = a.cp, w = a.width;
   const float* wt = static_cast<const float*>(a.wt);
   const float* bias = a.bias;
+  float* tape = static_cast<float*>(a.tape);
+  const int ldtape = a.depth * w;
 
   pe_fill(cur, a.ld, 0, cp, a.pos, a.px, a.py, a.pz, n0, a.n);
   pe_fill(nxt, a.ld, 0, cp, a.pos, a.px, a.py, a.pz, n0, a.n);
@@ -204,7 +225,7 @@ __global__ void __launch_bounds__(THREADS) nerf_mlp_f32_kernel(MlpArgs a) {
     const int in_off = (i == 0 || after_skip) ? 0 : cp;
     const int in_dim = i == 0 ? cp : (after_skip ? cp + w : w);
     dense_f32_any(cur, a.ld, in_off, in_dim, wt, bias, w, nxt, cp, true, nullptr,
-                  nullptr, 1, n0, a.n);
+                  nullptr, 1, n0, a.n, tape == nullptr ? nullptr : tape + i * w, ldtape);
     wt += (size_t)in_dim * w;
     bias += w;
     __syncthreads();
@@ -261,11 +282,11 @@ __device__ __forceinline__ uint32_t ldg32(const bf16* p) {
 // [+ dir_part row])) for the 64 x out tile; w is [out, k] row-major, k a
 // multiple of 16, out = 32 NT. Warp (wm, wn) = (warp % 2, warp / 2) computes
 // rows 32 wm .. +32 and columns 8 NT wn .. + 8 NT.
-template <int NT>
+template <int NT, bool TAPE>
 __device__ void dense_mma(const bf16* src, int ld, int in_off, int k,
                           const bf16* __restrict__ w, const float* __restrict__ bias,
                           bf16* dst, int dst_off, bool relu, const float* dir_part,
-                          int spr, int n0, int n) {
+                          int spr, int n0, int n, bf16* gtape, int ldtape) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * NT * 8;
@@ -313,8 +334,10 @@ __device__ void dense_mma(const bf16* src, int ld, int in_off, int k,
           v1 += dp[1];
         }
         if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
-        *reinterpret_cast<__nv_bfloat162*>(dst + s * ld + dst_off + col) =
-            __floats2bfloat162_rn(v0, v1);
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(dst + s * ld + dst_off + col) = pair;
+        if (TAPE && gi < n)
+          *reinterpret_cast<__nv_bfloat162*>(gtape + (size_t)gi * ldtape + col) = pair;
       }
     }
   }
@@ -323,12 +346,17 @@ __device__ void dense_mma(const bf16* src, int ld, int in_off, int k,
 __device__ void dense_mma_any(const bf16* src, int ld, int in_off, int k,
                               const bf16* w, const float* bias, int out_dim,
                               bf16* dst, int dst_off, bool relu,
-                              const float* dir_part, int spr, int n0, int n) {
+                              const float* dir_part, int spr, int n0, int n,
+                              bf16* gtape = nullptr, int ldtape = 0) {
   switch (out_dim / 32) {
 #define NERF_MMA_CASE(NT)                                                      \
   case NT:                                                                     \
-    dense_mma<NT>(src, ld, in_off, k, w, bias, dst, dst_off, relu, dir_part,   \
-                  spr, n0, n);                                                 \
+    if (gtape != nullptr)                                                      \
+      dense_mma<NT, true>(src, ld, in_off, k, w, bias, dst, dst_off, relu,     \
+                          dir_part, spr, n0, n, gtape, ldtape);                \
+    else                                                                       \
+      dense_mma<NT, false>(src, ld, in_off, k, w, bias, dst, dst_off, relu,    \
+                           dir_part, spr, n0, n, gtape, ldtape);               \
     break;
     NERF_MMA_CASE(1) NERF_MMA_CASE(2) NERF_MMA_CASE(3) NERF_MMA_CASE(4)
     NERF_MMA_CASE(5) NERF_MMA_CASE(6) NERF_MMA_CASE(7) NERF_MMA_CASE(8)
@@ -361,6 +389,8 @@ __global__ void __launch_bounds__(THREADS) nerf_mlp_bf16_kernel(MlpArgs a) {
   const int cp = a.cp, w = a.width;
   const bf16* wt = static_cast<const bf16*>(a.wt);
   const float* bias = a.bias;
+  bf16* tape = static_cast<bf16*>(a.tape);
+  const int ldtape = a.depth * w;
 
   pe_fill(cur, a.ld, 0, cp, a.pos, a.px, a.py, a.pz, n0, a.n);
   pe_fill(nxt, a.ld, 0, cp, a.pos, a.px, a.py, a.pz, n0, a.n);
@@ -371,7 +401,7 @@ __global__ void __launch_bounds__(THREADS) nerf_mlp_bf16_kernel(MlpArgs a) {
     const int in_off = (i == 0 || after_skip) ? 0 : cp;
     const int in_dim = i == 0 ? cp : (after_skip ? cp + w : w);
     dense_mma_any(cur, a.ld, in_off, in_dim, wt, bias, w, nxt, cp, true, nullptr,
-                  1, n0, a.n);
+                  1, n0, a.n, tape == nullptr ? nullptr : tape + i * w, ldtape);
     wt += (size_t)in_dim * w;
     bias += w;
     __syncthreads();
@@ -420,11 +450,12 @@ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 // bf16 == 1: wt bf16, each layer [out, in] with the PE block padded to a
 //            multiple of 16 columns and the dir-PE block likewise; needs
 //            width % 64 == 0.
-// out [4, N] f32. Returns the cudaError_t of the launch (0 on success).
+// out [4, N] f32; tape [N, depth * width] of the compute dtype, or null.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int nerf_mlp_launch(
     const float* px, const float* py, const float* pz, const float* dx,
     const float* dy, const float* dz, const float* dir_part, const void* wt,
-    const float* bias, float* out, int n, int spr, int depth, int width,
+    const float* bias, float* out, void* tape, int n, int spr, int depth, int width,
     int skip_mask, int pos_mapping, int pos_include, int pos_bands,
     int pos_dim, const float* pos_coef, int dir_mapping, int dir_include,
     int dir_bands, int dir_dim, const float* dir_coef, int bf16, void* stream) {
@@ -433,7 +464,7 @@ extern "C" int nerf_mlp_launch(
   a.px = px; a.py = py; a.pz = pz;
   a.dx = dx; a.dy = dy; a.dz = dz;
   a.dir_part = dir_part;
-  a.wt = wt; a.bias = bias; a.out = out;
+  a.wt = wt; a.bias = bias; a.out = out; a.tape = tape;
   a.pos = PE{pos_mapping, pos_include, pos_bands, pos_dim, pos_coef};
   a.dir = PE{dir_mapping, dir_include, dir_bands, dir_dim, dir_coef};
   a.n = n; a.spr = spr; a.depth = depth; a.width = width;

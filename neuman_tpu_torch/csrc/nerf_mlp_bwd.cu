@@ -44,6 +44,20 @@
 //    operands through shared memory, transposed so that the MMA fragments
 //    are pairs along the sample axis. The tape costs ~20 KB a sample of
 //    traffic in f32 (written once, read ~twice), well under the FMA time.
+//
+// 5. The "hbm" configuration (`fwd_tape`, the TPU kernel's `tape=`): the
+//    forward kernel has written the trunk's post-ReLU values, sample-major
+//    [N, depth * W], and the chain pass reads them instead of recomputing
+//    the trunk: it loads the last layer's posts for the feature product and
+//    takes the ReLU masks from the forward's rows; PE, feature, the view
+//    head and everything downstream are computed as in the recompute
+//    configuration. The values are the recomputed ones bit for bit (the
+//    same products in the same order), so the gradients are too. The dW
+//    pass reads them in place too, through `DwArgs::post` (base pointer
+//    and row stride of the posts). The alternative, the chain pass copying
+//    the posts into the chunk tape for the dW pass, writes and reads the
+//    posts once more for nothing the dW pass needs; it was the slower of
+//    the two on an H100 while both existed, and was deleted.
 
 #include "mlp_dw.cuh"
 
@@ -64,6 +78,7 @@ struct ChainArgs {
   float* d_planes;            // [3, N]
   float* d_dir;               // per-sample: [3, N]; per-ray: unused here
   void* tape;                 // [chunk rows, ldt] compute dtype
+  const void* fwd_tape;       // [N, depth * W] posts from the forward, or null
   PE pos, dir;
   int n, spr, depth, width, skip_mask;
   int ld, cp, cd, dld;        // smem row stride, PE / dir-PE widths, d_pe stride
@@ -82,6 +97,11 @@ __global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
   const bool per_sample = a.dx != nullptr;
   T* tape = static_cast<T*>(a.tape) + (size_t)t0 * a.ldt;
   const int ldt = a.ldt;
+  // the trunk posts of the tile's first sample and their row stride: the
+  // chunk tape's columns, or the forward's tape (rows at or past lim unread)
+  const T* fwd = static_cast<const T*>(a.fwd_tape);
+  const int ldp = fwd != nullptr ? a.depth * w : ldt;
+  const T* posts = fwd != nullptr ? fwd + (size_t)n0 * ldp : tape + a.t_post;
   auto swap = [&]() { T* t = cur; cur = nxt; nxt = t; };
   auto in_dim_of = [&](int i, bool& has_pe) {
     const bool after_skip = i > 0 && ((a.skip_mask >> (i - 1)) & 1);
@@ -111,19 +131,30 @@ __global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
     tape[(size_t)s * ldt + c] = cur[s * ld + c];
   }
   const float* bias = a.bias;
-  for (int i = 0; i < a.depth; ++i) {
-    bool has_pe;
-    const int in_dim = in_dim_of(i, has_pe);
-    T* dst = nxt;
-    T* trow = tape + a.t_post + i * w;
-    dense(cur, ld, has_pe ? 0 : cp, in_dim, wf + off[i], w, [&](int s, int o, float v) {
-      const T tv = cvt<T>(fmaxf(v + bias[o], 0.f));
-      dst[s * ld + cp + o] = tv;
-      trow[(size_t)s * ldt + o] = tv;
-    });
-    bias += w;
+  if (fwd == nullptr) {
+    for (int i = 0; i < a.depth; ++i) {
+      bool has_pe;
+      const int in_dim = in_dim_of(i, has_pe);
+      T* dst = nxt;
+      T* trow = tape + a.t_post + i * w;
+      dense(cur, ld, has_pe ? 0 : cp, in_dim, wf + off[i], w, [&](int s, int o, float v) {
+        const T tv = cvt<T>(fmaxf(v + bias[o], 0.f));
+        dst[s * ld + cp + o] = tv;
+        trow[(size_t)s * ldt + o] = tv;
+      });
+      bias += w;
+      __syncthreads();
+      swap();
+    }
+  } else {
+    // the last layer's posts feed the feature product; both buffers hold the PE
+    const T* last = posts + (a.depth - 1) * w;
+    for (int idx = threadIdx.x; idx < TN * w; idx += blockDim.x) {
+      const int s = idx / w, o = idx % w;
+      cur[s * ld + cp + o] = n0 + s < lim ? last[(size_t)s * ldp + o] : cvt<T>(0.f);
+    }
+    bias += a.depth * w;
     __syncthreads();
-    swap();
   }
   bias += 1;  // alpha
   {
@@ -200,11 +231,12 @@ __global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
   // top of the trunk: d_h = d_feature . W_feature + g_alpha W_alpha
   {
     T* dst = nxt;
-    const T* post = tape + a.t_post + (a.depth - 1) * w;
+    const T* post = posts + (a.depth - 1) * w;
     T* dpre = tape + a.t_dpre + (a.depth - 1) * w;
     dense(cur, ld, cp, w, wb + off[a.depth + 1], w, [&](int s, int o, float v) {
       v += tof(tape[(size_t)s * ldt + a.t_g]) * a.head_a[o];
-      const T tv = cvt<T>(tof(post[(size_t)s * ldt + o]) > 0.f ? v : 0.f);
+      const bool on = n0 + s < lim && tof(post[(size_t)s * ldp + o]) > 0.f;
+      const T tv = cvt<T>(on ? v : 0.f);
       dst[s * ld + cp + o] = tv;
       dpre[(size_t)s * ldt + o] = tv;
     });
@@ -219,7 +251,7 @@ __global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
     T* dst = nxt;
     // layer i's input holds post_{i-1} after the PE columns (none for i = 0)
     const int prev = i > 0 ? i - 1 : 0;
-    const T* post = tape + a.t_post + prev * w;
+    const T* post = posts + prev * w;
     T* dpre = tape + a.t_dpre + prev * w;
     const int dld = a.dld;
     dense(cur, ld, cp, w, wb + off[i], in_dim, [&](int s, int o, float v) {
@@ -227,7 +259,8 @@ __global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
         dpe[s * dld + o] += v;
       } else {
         const int h = o - pe_cols;
-        const T tv = cvt<T>(tof(post[(size_t)s * ldt + h]) > 0.f ? v : 0.f);
+        const bool on = n0 + s < lim && tof(post[(size_t)s * ldp + h]) > 0.f;
+        const T tv = cvt<T>(on ? v : 0.f);
         dst[s * ld + cp + h] = tv;
         dpre[(size_t)s * ldt + h] = tv;
       }
@@ -290,7 +323,9 @@ extern "C" int nerf_mlp_bwd_tape_cols(int depth, int width, int pos_dim, int dir
 // same layers, same order and sizes, as f32 [out, in] (bf16 == 0) or bf16
 // [in, out] with the PE / dir-PE row blocks padded to multiples of 16
 // (bf16 == 1); bias: forward order; head_a [W] and head_rgb [3, W/2] the
-// head weights rounded to the compute dtype, f32.
+// head weights rounded to the compute dtype, f32. fwd_tape: the forward
+// kernel's tape [N, depth * width] in the compute dtype, or null to recompute
+// the trunk.
 // Outputs: d_planes [3, N]; d_dir [R, W/2] or [3, N]; grad: per layer in
 // forward order (trunk, alpha, feature, views, rgb) dW [out, in] then db,
 // f32, `total` floats. Scratch: tape [chunk_rays * spr rounded up to 64,
@@ -298,7 +333,8 @@ extern "C" int nerf_mlp_bwd_tape_cols(int depth, int width, int pos_dim, int dir
 // Returns the first CUDA error (0 on success), -1 for an inconsistent layout.
 extern "C" int nerf_mlp_bwd_launch(
     const float* px, const float* py, const float* pz, const float* dx, const float* dy,
-    const float* dz, const float* dir_part, const float* g, const void* wf, const void* wb,
+    const float* dz, const float* dir_part, const float* g, const void* fwd_tape,
+    const void* wf, const void* wb,
     const float* bias, const float* head_a, const float* head_rgb, float* d_planes,
     float* d_dir, float* grad, void* tape, float* partial, int n, int spr, int depth,
     int width, int skip_mask, int pos_mapping, int pos_include, int pos_bands, int pos_dim,
@@ -311,15 +347,21 @@ extern "C" int nerf_mlp_bwd_launch(
   if (depth + 4 > MAX_LAYERS) return -1;
 
   // dW descriptors, forward layer order
+  const int esize = bf16 ? 2 : 4;
+  const bool direct = fwd_tape != nullptr;
   DwArgs d;
   d.tape = tape;
   d.ldt = t.ldt;
+  d.ldp = direct ? depth * width : t.ldt;
   d.partial = partial;
   d.n_layers = depth + 4;
   int c_off = 0, tiles = 0;
-  auto add = [&](int li, int a_off, int m, int b1, int n1, int b2, int n2, int ldc) {
+  // p1, p2: the block is a trunk post, at an offset from `d.post`
+  auto add = [&](int li, int a_off, int m, int b1, int n1, int p1, int b2, int n2, int p2,
+                 int ldc) {
     DwLayer& l = d.L[li];
     l.a_off = a_off; l.m = m; l.b_off1 = b1; l.n1 = n1; l.b_off2 = b2; l.n2 = n2;
+    l.p1 = p1; l.p2 = p2;
     l.ldc = ldc; l.c_off = c_off; l.bias_off = c_off + m * ldc;
     c_off += m * ldc + m;
     l.tiles_n = (n1 + n2 + 1 + 63) / 64;
@@ -329,17 +371,17 @@ extern "C" int nerf_mlp_bwd_launch(
   for (int i = 0; i < depth; ++i) {
     const int a_off = t.t_dpre + i * width;
     const bool after_skip = i > 0 && ((skip_mask >> (i - 1)) & 1);
-    const int prev = t.t_post + (i - 1) * width;
-    if (i == 0) add(i, a_off, width, 0, pos_dim, 0, 0, pos_dim);
-    else if (after_skip) add(i, a_off, width, 0, pos_dim, prev, width, pos_dim + width);
-    else add(i, a_off, width, prev, width, 0, 0, width);
+    const int prev = (i - 1) * width;
+    if (i == 0) add(i, a_off, width, 0, pos_dim, 0, 0, 0, 0, pos_dim);
+    else if (after_skip) add(i, a_off, width, 0, pos_dim, 0, prev, width, 1, pos_dim + width);
+    else add(i, a_off, width, prev, width, 1, 0, 0, 0, width);
   }
-  const int top = t.t_post + (depth - 1) * width;
-  add(depth, t.t_g, 1, top, width, 0, 0, width);
-  add(depth + 1, t.t_dfeat, width, top, width, 0, 0, width);
-  add(depth + 2, t.t_dpre2, half, t.t_feat, width, t.t_dpe, per_sample ? dir_dim : 0,
+  const int top = (depth - 1) * width;
+  add(depth, t.t_g, 1, top, width, 1, 0, 0, 0, width);
+  add(depth + 1, t.t_dfeat, width, top, width, 1, 0, 0, 0, width);
+  add(depth + 2, t.t_dpre2, half, t.t_feat, width, 0, t.t_dpe, per_sample ? dir_dim : 0, 0,
       width + dir_dim);
-  add(depth + 3, t.t_g + 1, 3, t.t_h2, half, 0, 0, half);
+  add(depth + 3, t.t_g + 1, 3, t.t_h2, half, 0, 0, 0, 0, half);
   if (c_off != total) return -1;
   d.total = total;
 
@@ -347,7 +389,7 @@ extern "C" int nerf_mlp_bwd_launch(
   c.px = px; c.py = py; c.pz = pz; c.dx = dx; c.dy = dy; c.dz = dz;
   c.dir_part = dir_part; c.g = g; c.wf = wf; c.wb = wb; c.bias = bias;
   c.head_a = head_a; c.head_rgb = head_rgb; c.d_planes = d_planes; c.d_dir = d_dir;
-  c.tape = tape;
+  c.tape = tape; c.fwd_tape = fwd_tape;
   c.pos = PE{pos_mapping, pos_include, pos_bands, pos_dim, pos_coef};
   c.dir = PE{dir_mapping, dir_include, dir_bands, dir_dim, dir_coef};
   c.n = n; c.spr = spr; c.depth = depth; c.width = width; c.skip_mask = skip_mask;
@@ -360,7 +402,6 @@ extern "C" int nerf_mlp_bwd_launch(
   c.t_h2 = t.t_h2; c.t_g = t.t_g; c.t_dpre = t.t_dpre; c.t_dfeat = t.t_dfeat;
   c.t_dpre2 = t.t_dpre2;
 
-  const int esize = bf16 ? 2 : 4;
   const int smem = 2 * TN * c.ld * esize + TN * c.dld * 4;
   void (*chain)(ChainArgs) = bf16 ? bwd_chain_kernel<__nv_bfloat16> : bwd_chain_kernel<float>;
   cudaError_t err =
@@ -380,6 +421,8 @@ extern "C" int nerf_mlp_bwd_launch(
     chain<<<(cn + TN - 1) / TN, THREADS, smem, st>>>(c);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     d.k = cn;
+    d.post = direct ? static_cast<const char*>(fwd_tape) + (size_t)c0 * d.ldp * esize
+                    : static_cast<const char*>(tape) + (size_t)t.t_post * esize;
     d.kper = round_up((cn + ksplit - 1) / ksplit, 32);
     const dim3 grid(tiles, ksplit);
     if (bf16) bwd_dw_bf16_kernel<<<grid, THREADS, 0, st>>>(d);

@@ -17,6 +17,11 @@
 // the PE block (84 columns for D = 4, 10 bands) zero-padded to 96 for the
 // MMA's k step with matching zero weight columns from the wrapper. The
 // O-wide head runs on CUDA cores in both.
+//
+// With a tape pointer (the `mlp_tape="hbm"` train configuration; the TPU
+// kernel's emit_tape) every trunk layer also writes its post-ReLU output, in
+// the compute dtype, to tape[n][i * W + o]: what offset_mlp_bwd.cu's chain
+// pass otherwise recomputes, bit for bit (the same tile products).
 
 #include "mlp_tiles.cuh"
 
@@ -28,12 +33,15 @@ struct OffsetArgs {
   const float* bias;  // trunk biases, then the head's
   const float* head;  // [O, W] head weights rounded to the compute dtype, f32
   float* out;         // [O, N]
+  void* tape;         // [N, depth * W] trunk posts, compute dtype, or null
   PE pos;
   int n, depth, width, skip_mask, n_out;
   int ld, cp;
 };
 
-template <typename T>
+// TAPE: the trunk posts also go to a.tape; a template flag, so that the
+// tape-less kernel keeps its code.
+template <typename T, bool TAPE>
 __global__ void __launch_bounds__(THREADS) offset_mlp_kernel(OffsetArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cur = reinterpret_cast<T*>(smem_raw);
@@ -42,6 +50,8 @@ __global__ void __launch_bounds__(THREADS) offset_mlp_kernel(OffsetArgs a) {
   const int cp = a.cp, w = a.width, ld = a.ld;
   const T* wt = static_cast<const T*>(a.wt);
   const float* bias = a.bias;
+  T* tape = static_cast<T*>(a.tape);
+  const int ldtape = a.depth * w, n = a.n;
 
   pe_fill_nd(cur, ld, 0, cp, a.pos, a.ax, n0, a.n);
   pe_fill_nd(nxt, ld, 0, cp, a.pos, a.ax, n0, a.n);
@@ -51,8 +61,11 @@ __global__ void __launch_bounds__(THREADS) offset_mlp_kernel(OffsetArgs a) {
     const int in_off = (i == 0 || after_skip) ? 0 : cp;
     const int in_dim = i == 0 ? cp : (after_skip ? cp + w : w);
     T* dst = nxt;
+    T* trow = TAPE ? tape + (size_t)n0 * ldtape + i * w : nullptr;
     dense(cur, ld, in_off, in_dim, wt, w, [&](int s, int o, float v) {
-      dst[s * ld + cp + o] = cvt<T>(fmaxf(v + bias[o], 0.f));
+      const T tv = cvt<T>(fmaxf(v + bias[o], 0.f));
+      dst[s * ld + cp + o] = tv;
+      if (TAPE && n0 + s < n) trow[(size_t)s * ldtape + o] = tv;
     });
     wt += (size_t)in_dim * w;
     bias += w;
@@ -72,10 +85,12 @@ __global__ void __launch_bounds__(THREADS) offset_mlp_kernel(OffsetArgs a) {
 template <typename T>
 int launch(const OffsetArgs& a, void* stream) {
   const int smem = 2 * TN * a.ld * (int)sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(offset_mlp_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  void (*kernel)(OffsetArgs) =
+      a.tape != nullptr ? offset_mlp_kernel<T, true> : offset_mlp_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  offset_mlp_kernel<T><<<(a.n + TN - 1) / TN, THREADS, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<(a.n + TN - 1) / TN, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -87,16 +102,17 @@ int launch(const OffsetArgs& a, void* stream) {
 // bf16 == 0: wt f32, each trunk layer [in, out] (transposed), unpadded.
 // bf16 == 1: wt bf16, each trunk layer [out, in] with the PE column block
 //            padded to a multiple of 16; needs width % 64 == 0.
-// out [O, N] f32. Returns the cudaError_t of the launch (0 on success).
+// out [O, N] f32; tape [N, depth * width] of the compute dtype, or null.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int offset_mlp_launch(
     const float* ax0, const float* ax1, const float* ax2, const float* ax3, int d_in,
-    const void* wt, const float* bias, const float* head, float* out, int n, int depth,
+    const void* wt, const float* bias, const float* head, float* out, void* tape, int n, int depth,
     int width, int skip_mask, int n_out, int pos_include, int pos_bands, int pos_dim,
     const float* pos_coef, int bf16, void* stream) {
   if (n == 0) return 0;
   OffsetArgs a;
   a.ax = Axes{{ax0, ax1, ax2, ax3}, d_in};
-  a.wt = wt; a.bias = bias; a.head = head; a.out = out;
+  a.wt = wt; a.bias = bias; a.head = head; a.out = out; a.tape = tape;
   a.pos = PE{0, pos_include, pos_bands, pos_dim, pos_coef};
   a.n = n; a.depth = depth; a.width = width; a.skip_mask = skip_mask; a.n_out = n_out;
   a.cp = bf16 ? round_up(pos_dim, 16) : pos_dim;

@@ -22,6 +22,13 @@
 // f32 products are FMAs on CUDA cores (bound by FMA issue, ~3x the forward's
 // 0.57 M multiply-adds a sample), bf16 products mma.sync m16n8k16; the O-wide
 // head (O = 3) runs on CUDA cores.
+//
+// The "hbm" configuration (`fwd_tape`, the TPU kernel's `tape=`): the forward
+// kernel has written the trunk's post-ReLU values [N, depth * W]; the chain
+// pass skips the trunk recompute and takes the ReLU masks from those rows,
+// and the dW pass reads them in place (`DwArgs::post`), as in
+// nerf_mlp_bwd.cu. Gradients equal the recompute configuration's bit for
+// bit.
 
 #include "mlp_dw.cuh"
 
@@ -36,6 +43,7 @@ struct ChainArgs {
   const float* head;    // [O, W] head weights rounded to the compute dtype, f32
   float* d_axes;        // [D, N]
   void* tape;           // [chunk rows, ldt] compute dtype
+  const void* fwd_tape; // [N, depth * W] posts from the forward, or null
   PE pos;
   int n, depth, width, skip_mask, n_out;
   int ld, cp;           // smem row stride, PE width (padded for bf16)
@@ -52,6 +60,11 @@ __global__ void __launch_bounds__(THREADS) offset_chain_kernel(ChainArgs a) {
   const int t0 = blockIdx.x * TN, n0 = a.c0 + t0, lim = a.lim;
   const int w = a.width, cp = a.cp, ld = a.ld, n = a.n, ldt = a.ldt;
   T* tape = static_cast<T*>(a.tape) + (size_t)t0 * ldt;
+  // the trunk posts of the tile's first sample and their row stride: the
+  // chunk tape's columns, or the forward's tape (rows at or past lim unread)
+  const T* fwd = static_cast<const T*>(a.fwd_tape);
+  const int ldp = fwd != nullptr ? a.depth * w : ldt;
+  const T* posts = fwd != nullptr ? fwd + (size_t)n0 * ldp : tape + a.t_post;
   auto swap = [&]() { T* t = cur; cur = nxt; nxt = t; };
   auto in_dim_of = [&](int i, bool& has_pe) {
     const bool after_skip = i > 0 && ((a.skip_mask >> (i - 1)) & 1);
@@ -77,7 +90,7 @@ __global__ void __launch_bounds__(THREADS) offset_chain_kernel(ChainArgs a) {
     tape[(size_t)s * ldt + c] = cur[s * ld + c];
   }
   const float* bias = a.bias;
-  for (int i = 0; i < a.depth; ++i) {
+  for (int i = 0; i < (fwd == nullptr ? a.depth : 0); ++i) {
     bool has_pe;
     const int in_dim = in_dim_of(i, has_pe);
     T* dst = nxt;
@@ -102,14 +115,15 @@ __global__ void __launch_bounds__(THREADS) offset_chain_kernel(ChainArgs a) {
   __syncthreads();
   // top of the trunk: d_h = g . W_head on CUDA cores, masked by the last post
   {
-    const T* post = tape + a.t_post + (a.depth - 1) * w;
+    const T* post = posts + (a.depth - 1) * w;
     T* dpre = tape + a.t_dpre + (a.depth - 1) * w;
     for (int idx = threadIdx.x; idx < TN * w; idx += blockDim.x) {
       const int s = idx / w, o = idx % w;
       const T* row = tape + (size_t)s * ldt;
       float dh = 0.f;
       for (int c = 0; c < a.n_out; ++c) dh += tof(row[a.t_g + c]) * a.head[c * w + o];
-      const T tv = cvt<T>(tof(post[(size_t)s * ldt + o]) > 0.f ? dh : 0.f);
+      const bool on = n0 + s < lim && tof(post[(size_t)s * ldp + o]) > 0.f;
+      const T tv = cvt<T>(on ? dh : 0.f);
       cur[s * ld + cp + o] = tv;
       dpre[(size_t)s * ldt + o] = tv;
     }
@@ -123,14 +137,15 @@ __global__ void __launch_bounds__(THREADS) offset_chain_kernel(ChainArgs a) {
     T* dst = nxt;
     // layer i's input holds post_{i-1} after the PE columns (none for i = 0)
     const int prev = i > 0 ? i - 1 : 0;
-    const T* post = tape + a.t_post + prev * w;
+    const T* post = posts + prev * w;
     T* dpre = tape + a.t_dpre + prev * w;
     dense(cur, ld, cp, w, wb + off[i], in_dim, [&](int s, int o, float v) {
       if (o < pe_cols) {
         dpe[s * cp + o] += v;
       } else {
         const int h = o - pe_cols;
-        const T tv = cvt<T>(tof(post[(size_t)s * ldt + h]) > 0.f ? v : 0.f);
+        const bool on = n0 + s < lim && tof(post[(size_t)s * ldp + h]) > 0.f;
+        const T tv = cvt<T>(on ? v : 0.f);
         dst[s * ld + cp + h] = tv;
         dpre[(size_t)s * ldt + h] = tv;
       }
@@ -173,13 +188,15 @@ extern "C" int offset_mlp_bwd_tape_cols(int depth, int width, int pos_dim, int b
 // layers, same order and sizes, as f32 [out, in] (bf16 == 0) or bf16
 // [in, out] with the PE row block padded to a multiple of 16 (bf16 == 1);
 // bias: the trunk's; head [O, W] rounded to the compute dtype, f32.
+// fwd_tape: the forward kernel's tape [N, depth * width] in the compute
+// dtype, or null to recompute the trunk.
 // Outputs: d_axes [D, N]; grad: per layer in forward order (trunk, head)
 // dW [out, in] then db, f32, `total` floats. Scratch: tape [chunk rounded up
 // to 64, tape_cols], partial [ksplit, total] f32. `chunk` samples a pass.
 // Returns the first CUDA error (0 on success), -1 for an inconsistent layout.
 extern "C" int offset_mlp_bwd_launch(
     const float* ax0, const float* ax1, const float* ax2, const float* ax3, int d_in,
-    const float* g, const void* wf, const void* wb, const float* bias, const float* head,
+    const float* g, const void* fwd_tape, const void* wf, const void* wb, const float* bias, const float* head,
     float* d_axes, float* grad, void* tape, float* partial, int n, int depth, int width,
     int skip_mask, int n_out, int pos_include, int pos_bands, int pos_dim,
     const float* pos_coef, int bf16, int chunk, int ksplit, int total, void* stream) {
@@ -188,15 +205,20 @@ extern "C" int offset_mlp_bwd_launch(
   if (depth + 1 > MAX_LAYERS || n_out > 4 || d_in > 4 || chunk % TN) return -1;
 
   // dW descriptors, forward layer order
+  const int esize = bf16 ? 2 : 4;
   DwArgs d;
   d.tape = tape;
   d.ldt = t.ldt;
+  d.ldp = fwd_tape != nullptr ? depth * width : t.ldt;
   d.partial = partial;
   d.n_layers = depth + 1;
   int c_off = 0, tiles = 0;
-  auto add = [&](int li, int a_off, int m, int b1, int n1, int b2, int n2, int ldc) {
+  // p1, p2: the block is a trunk post, at an offset from `d.post`
+  auto add = [&](int li, int a_off, int m, int b1, int n1, int p1, int b2, int n2, int p2,
+                 int ldc) {
     DwLayer& l = d.L[li];
     l.a_off = a_off; l.m = m; l.b_off1 = b1; l.n1 = n1; l.b_off2 = b2; l.n2 = n2;
+    l.p1 = p1; l.p2 = p2;
     l.ldc = ldc; l.c_off = c_off; l.bias_off = c_off + m * ldc;
     c_off += m * ldc + m;
     l.tiles_n = (n1 + n2 + 1 + 63) / 64;
@@ -206,19 +228,19 @@ extern "C" int offset_mlp_bwd_launch(
   for (int i = 0; i < depth; ++i) {
     const int a_off = t.t_dpre + i * width;
     const bool after_skip = i > 0 && ((skip_mask >> (i - 1)) & 1);
-    const int prev = t.t_post + (i - 1) * width;
-    if (i == 0) add(i, a_off, width, 0, pos_dim, 0, 0, pos_dim);
-    else if (after_skip) add(i, a_off, width, 0, pos_dim, prev, width, pos_dim + width);
-    else add(i, a_off, width, prev, width, 0, 0, width);
+    const int prev = (i - 1) * width;
+    if (i == 0) add(i, a_off, width, 0, pos_dim, 0, 0, 0, 0, pos_dim);
+    else if (after_skip) add(i, a_off, width, 0, pos_dim, 0, prev, width, 1, pos_dim + width);
+    else add(i, a_off, width, prev, width, 1, 0, 0, 0, width);
   }
-  add(depth, t.t_g, n_out, t.t_post + (depth - 1) * width, width, 0, 0, width);
+  add(depth, t.t_g, n_out, (depth - 1) * width, width, 1, 0, 0, 0, width);
   if (c_off != total) return -1;
   d.total = total;
 
   ChainArgs c;
   c.ax = Axes{{ax0, ax1, ax2, ax3}, d_in};
   c.g = g; c.wf = wf; c.wb = wb; c.bias = bias; c.head = head; c.d_axes = d_axes;
-  c.tape = tape;
+  c.tape = tape; c.fwd_tape = fwd_tape;
   c.pos = PE{0, pos_include, pos_bands, pos_dim, pos_coef};
   c.n = n; c.depth = depth; c.width = width; c.skip_mask = skip_mask; c.n_out = n_out;
   c.cp = t.cp;
@@ -226,7 +248,6 @@ extern "C" int offset_mlp_bwd_launch(
   c.ld = bf16 ? round_up(ld - 8, 64) + 8 : ld;  // bf16: = 8 mod 64, conflict-free fragments
   c.ldt = t.ldt; c.t_post = t.t_post; c.t_g = t.t_g; c.t_dpre = t.t_dpre;
 
-  const int esize = bf16 ? 2 : 4;
   const int smem = 2 * TN * c.ld * esize + TN * t.cp * 4;
   void (*chain)(ChainArgs) =
       bf16 ? offset_chain_kernel<__nv_bfloat16> : offset_chain_kernel<float>;
@@ -246,6 +267,9 @@ extern "C" int offset_mlp_bwd_launch(
     chain<<<(cn + TN - 1) / TN, THREADS, smem, st>>>(c);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     d.k = cn;
+    d.post = fwd_tape != nullptr
+                 ? static_cast<const char*>(fwd_tape) + (size_t)c0 * d.ldp * esize
+                 : static_cast<const char*>(tape) + (size_t)t.t_post * esize;
     d.kper = round_up((cn + ksplit - 1) / ksplit, 32);
     const dim3 grid(tiles, ksplit);
     if (bf16) bwd_dw_bf16_kernel<<<grid, THREADS, 0, st>>>(d);

@@ -144,6 +144,10 @@ class _Pose:
     def __init__(self, c2w):
         self.camera_to_world = c2w
 
+    @property
+    def world_to_camera(self):
+        return np.linalg.inv(self.camera_to_world)
+
 
 class _Capture:
     """One view of an ArraysScene: the capture attributes that

@@ -1,5 +1,6 @@
 """Closest point over per-point candidate triangles: the `ericson_select`
-CUDA kernel.
+CUDA kernel, and `ericson_signed_select`, the same with the pseudonormal
+sign fused in.
 
 Replaces neuman_tpu/ops/pallas/meshquery.py `_kernel` (:65, through
 `_ericson_select_impl` :314 and `ericson_select_pallas` :390) and keeps
@@ -15,6 +16,16 @@ on the H100 and how the design answers that.
 The gradient is the envelope formula of the JAX custom VJP: d(d2)/dp =
 2 (p - cp); the closest point and face id carry none, and nothing flows
 into the triangles.
+
+`ericson_signed_select` replaces `_signed_kernel` (:119, through
+`_signed_select_impl` :191 and `ericson_signed_select_pallas` :276): the
+same operands plus vn9 [9C, N/stride], the angle-weighted pseudonormals of
+the candidates' corners laid out as rows9. Returns (sd [N], f_id [N]
+int32, closest): sd = sign * sqrt(max(d2, 0)), the sign that of
+(p - closest) . (u na + v nb + w nc) at the selected candidate, with
+sign(0) = +1. Gradient (the JAX custom VJP): d sd / d p = sign(sd)
+(p - closest) / |sd|, 0 where |sd| < 1e-12. Both kernels are in one source
+and share the region test, so d2, closest and f_id agree bit for bit.
 """
 
 import ctypes
@@ -23,6 +34,66 @@ import functools
 import torch
 
 from neuman_tpu_torch.ops.kernels import _build
+
+
+def closest_point_on_triangles_planar(p, a, b, c):
+    """Ericson's closest point (RTCD 5.1.5) on coordinate tuples: p, a, b,
+    c are (x, y, z) tuples of broadcastable tensors. Returns the closest
+    point as a tuple. Region priority: vertices, then edges, then face."""
+    sub = lambda u, v: (u[0] - v[0], u[1] - v[1], u[2] - v[2])
+    dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+    madd = lambda u, s, v: (u[0] + s * v[0], u[1] + s * v[1], u[2] + s * v[2])
+    ab, ac = sub(b, a), sub(c, a)
+    ap, bp, cp = sub(p, a), sub(p, b), sub(p, c)
+    d1, d2 = dot(ab, ap), dot(ac, ap)
+    d3, d4 = dot(ab, bp), dot(ac, bp)
+    d5, d6 = dot(ab, cp), dot(ac, cp)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+
+    in_vert_a = (d1 <= 0) & (d2 <= 0)
+    in_vert_b = (d3 >= 0) & (d4 <= d3)
+    in_vert_c = (d6 >= 0) & (d5 <= d6)
+    in_edge_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+    in_edge_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+    in_edge_bc = (va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0)
+
+    safe = lambda den: torch.where(den.abs() < 1e-20, 1e-20, den)
+    v_ab = d1 / safe(d1 - d3)
+    w_ac = d2 / safe(d2 - d6)
+    w_bc = (d4 - d3) / safe((d4 - d3) + (d5 - d6))
+    denom = safe(va + vb + vc)
+    v_int = vb / denom
+    w_int = vc / denom
+
+    out = madd(madd(a, v_int, ab), w_int, ac)
+    for mask, pt in (
+        (in_edge_bc, madd(b, w_bc, sub(c, b))),
+        (in_edge_ac, madd(a, w_ac, ac)),
+        (in_edge_ab, madd(a, v_ab, ab)),
+        (in_vert_c, c),
+        (in_vert_b, b),
+        (in_vert_a, a),
+    ):
+        out = tuple(torch.where(mask, pt[i], out[i]) for i in range(3))
+    return out
+
+
+def barycentric_planar(closest, v0, v1, v2):
+    """Barycentric weights (u, v, w) of v0, v1, v2 at points on the
+    triangles, by the reference's cross/dot formulation."""
+    sub = lambda u, v: (u[0] - v[0], u[1] - v[1], u[2] - v[2])
+    dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+    cross = lambda u, v: (
+        u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2], u[0] * v[1] - u[1] * v[0],
+    )
+    n = cross(sub(v1, v0), sub(v2, v0))
+    denom = dot(n, n)
+    denom = torch.where(denom.abs() < 1e-20, 1e-20, denom)
+    u = dot(n, cross(sub(v2, v1), sub(closest, v1))) / denom
+    v = dot(n, cross(sub(v0, v2), sub(closest, v2))) / denom
+    return u, v, 1.0 - u - v
 
 
 def ericson_select_plain(p3, rows9, cand, stride=1):
@@ -35,8 +106,6 @@ def ericson_select_plain(p3, rows9, cand, stride=1):
 def _member_candidates(p3, rows9, cand, stride, m):
     """Squared distance [C, Nq] and closest point 3x[C, Nq] of group
     member m to each candidate; invalid candidates at +inf."""
-    from neuman_tpu_torch.ops.mesh import closest_point_on_triangles_planar
-
     nq, num_cands = p3.shape[1] // stride, cand.shape[0]
     rows = rows9.reshape(9, num_cands, nq)
     a, b, c = (rows[0], rows[1], rows[2]), (rows[3], rows[4], rows[5]), (rows[6], rows[7], rows[8])
@@ -46,19 +115,39 @@ def _member_candidates(p3, rows9, cand, stride, m):
     return torch.where(cand >= 0, d2, torch.inf), cp
 
 
-def _select_plain(p3, rows9, cand, stride):
+def _select_plain(p3, rows9, cand, stride, vn9=None):
+    """(d2 or, with vn9, the signed distance; f_id; cp [3, N])."""
     n = p3.shape[1]
-    d2s, fids, cps = [], [], []
+    nq, num_cands = n // stride, cand.shape[0]
+    dists, fids, cps = [], [], []
     for m in range(stride):
         d2, cp = _member_candidates(p3, rows9, cand, stride, m)
         sel = torch.argmin(d2, dim=0, keepdim=True)  # first minimum
-        d2s.append(d2.gather(0, sel)[0])
+        best = d2.gather(0, sel)[0]
+        if vn9 is not None:
+            rows = rows9.reshape(9, num_cands, nq)
+            vn = vn9.reshape(9, num_cands, nq)
+            corners = [tuple(rows[3 * j + a] for a in range(3)) for j in range(3)]
+            u, v, w = barycentric_planar(cp, *corners)
+            p = tuple(p3[j].reshape(nq, stride)[:, m][None, :] for j in range(3))
+            dot = sum((p[a] - cp[a]) * (u * vn[a] + v * vn[3 + a] + w * vn[6 + a])
+                      for a in range(3))
+            sign = torch.where(dot.gather(0, sel)[0] < 0, -1.0, 1.0)
+            best = sign * torch.sqrt(torch.clamp(best, min=0.0))
+        dists.append(best)
         fids.append(cand.gather(0, sel)[0].clamp(min=0))
         cps.append(torch.stack([cp[j].gather(0, sel)[0] for j in range(3)]))
-    d2 = torch.stack(d2s, dim=1).reshape(n)
+    dist = torch.stack(dists, dim=1).reshape(n)
     f_id = torch.stack(fids, dim=1).reshape(n).to(torch.int32)
     cp = torch.stack(cps, dim=2).reshape(3, n)
-    return d2, f_id, cp
+    return dist, f_id, cp
+
+
+def ericson_signed_select_plain(p3, rows9, vn9, cand, stride=1):
+    """What the signed kernel computes, in plain PyTorch: the sign dot on
+    [C, N/stride] planes like the region test, the winner's picked."""
+    sd, f_id, cp = _select_plain(p3, rows9, cand, stride, vn9)
+    return sd, f_id, tuple(cp)
 
 
 def tie_gap(p3, rows9, cand, stride=1):
@@ -80,37 +169,49 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ericson_select_launch.argtypes = [p] * 6 + [i, i, i, p]
     lib.ericson_select_launch.restype = ctypes.c_int
+    lib.ericson_signed_select_launch.argtypes = [p] * 7 + [i, i, i, p]
+    lib.ericson_signed_select_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(p3, rows9, cand, stride):
+def _launch(p3, rows9, cand, stride, vn9=None):
+    """Launch `ericson_select`, or with vn9 `ericson_signed_select`."""
+    what = "ericson_select" if vn9 is None else "ericson_signed_select"
     device = p3.device
     n = p3.shape[1]
     num_cands = cand.shape[0]
-    checks = (
+    checks = [
         (p3, torch.float32, (3, n)),
         (rows9, torch.float32, (9 * num_cands, n // stride)),
         (cand, torch.int32, (num_cands, n // stride)),
-    )
+    ]
+    if vn9 is not None:
+        checks.append((vn9, torch.float32, (9 * num_cands, n // stride)))
     if stride < 1 or n % stride:
-        raise ValueError(f"ericson_select: N={n} is not a multiple of stride={stride}")
+        raise ValueError(f"{what}: N={n} is not a multiple of stride={stride}")
     for t, dtype, shape in checks:
         if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"ericson_select: expected {dtype} {shape} on {device}, "
+            raise ValueError(f"{what}: expected {dtype} {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
-            raise ValueError("ericson_select: operands must be contiguous")
-    d2 = torch.empty(n, device=device, dtype=torch.float32)
+            raise ValueError(f"{what}: operands must be contiguous")
+    dist = torch.empty(n, device=device, dtype=torch.float32)
     f_id = torch.empty(n, device=device, dtype=torch.int32)
     cp = torch.empty(3, n, device=device, dtype=torch.float32)
-    err = _lib().ericson_select_launch(
-        p3.data_ptr(), rows9.data_ptr(), cand.data_ptr(), d2.data_ptr(),
-        f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "ericson_select")
-    ericson_select.launches += 1
-    return d2, f_id, cp
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if vn9 is None:
+        err = _lib().ericson_select_launch(
+            p3.data_ptr(), rows9.data_ptr(), cand.data_ptr(), dist.data_ptr(),
+            f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride, stream)
+        _build.check(err, what)
+        ericson_select.launches += 1
+    else:
+        err = _lib().ericson_signed_select_launch(
+            p3.data_ptr(), rows9.data_ptr(), vn9.data_ptr(), cand.data_ptr(), dist.data_ptr(),
+            f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride, stream)
+        _build.check(err, what)
+        ericson_signed_select.launches += 1
+    return dist, f_id, cp
 
 
 class _EricsonSelect(torch.autograd.Function):
@@ -139,3 +240,36 @@ def ericson_select(p3, rows9, cand, stride=1):
 
 
 ericson_select.launches = 0
+
+
+class _EricsonSignedSelect(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p3, rows9, vn9, cand, stride, plain):
+        if plain or p3.device.type == "cpu":
+            sd, f_id, cp = _select_plain(p3, rows9, cand, stride, vn9)
+        elif p3.is_cuda:
+            sd, f_id, cp = _launch(p3, rows9, cand, stride, vn9)
+        else:
+            raise ValueError(f"ericson_signed_select: no kernel for device {p3.device}")
+        ctx.save_for_backward(p3, cp, sd)
+        ctx.mark_non_differentiable(f_id, cp)
+        return sd, f_id, cp
+
+    @staticmethod
+    def backward(ctx, g_sd, _g_fid, _g_cp):
+        p3, cp, sd = ctx.saved_tensors
+        mag = sd.abs()
+        inv = torch.where(mag < 1e-12, 0.0, 1.0 / mag)
+        sign = torch.where(sd < 0, -1.0, 1.0)
+        return g_sd * sign * (p3 - cp) * inv, None, None, None, None, None
+
+
+def ericson_signed_select(p3, rows9, vn9, cand, stride=1, plain=False):
+    """Kernel for CUDA tensors, `ericson_signed_select_plain` for CPU
+    tensors, differentiable in p3. plain=True runs the plain version on any
+    device under the same gradient, to hold the kernel to."""
+    sd, f_id, cp = _EricsonSignedSelect.apply(p3, rows9, vn9, cand, stride, plain)
+    return sd, f_id, (cp[0], cp[1], cp[2])
+
+
+ericson_signed_select.launches = 0

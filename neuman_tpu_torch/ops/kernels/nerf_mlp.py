@@ -14,6 +14,13 @@ With compute_dtype bfloat16 both round weights and activations to bf16
 at the points the JAX kernel casts them and accumulate in f32; on the
 card that dtype runs the tensor-core (mma.sync) kernel, float32 the FMA
 kernel.
+
+emit_tape=True (the `mlp_tape="hbm"` train configuration, the JAX
+kernel's emit_tape) returns ((sigma, rgb), tape): tape [R*S, depth*W] in
+the compute dtype holds the post-ReLU output of every trunk layer, layer i
+in columns [i*W, (i+1)*W), for `nerf_mlp_bwd(tape=)` to read in place of
+recomputing the trunk. The JAX tape is the transpose ([depth*W, R*S], a
+TPU lane layout); the tape is written for every shape the kernel accepts.
 """
 
 import ctypes
@@ -45,16 +52,20 @@ def dir_projection(spec, net, dirs, compute_dtype=torch.float32):
 
 
 def nerf_mlp_plain(spec, net, px, py, pz, dir_part=None, dir_planes=None,
-                   compute_dtype=torch.float32):
-    """What the kernel computes, in plain PyTorch (f32 matmuls)."""
+                   compute_dtype=torch.float32, emit_tape=False, tape_mode=None):
+    """What the kernel computes, in plain PyTorch (f32 matmuls). `tape_mode`
+    is taken so that a loss calls this like `nerf_mlp_fn`, and changes
+    nothing: autograd keeps this forward's activations in either mode."""
     rnd = _rounder(compute_dtype)
     nspec = spec.nerf
     r, s = px.shape
     lin = lambda x, layer: matmul_f32(rnd(x), rnd(layer.weight).T) + layer.bias
     pe = rnd(embed(spec.pos_pe, torch.stack([px, py, pz], -1).reshape(-1, 3)))
     h = pe
+    posts = []
     for i, layer in enumerate(net.pts_linears):
         h = rnd(torch.relu(lin(h, layer)))
+        posts.append(h)
         if i in nspec.skips:
             h = torch.cat([pe, h], dim=-1)
     alpha = lin(h, net.alpha_linear)
@@ -68,7 +79,10 @@ def nerf_mlp_plain(spec, net, px, py, pz, dir_part=None, dir_planes=None,
         feat_part = matmul_f32(rnd(feature), rnd(w_feat).T) + views.bias
         h2 = torch.relu(feat_part.reshape(r, s, -1) + dir_part[:, None, :]).reshape(r * s, -1)
     rgb = lin(rnd(h2), net.rgb_linear)
-    return alpha.reshape(r, s), [rgb[:, c].reshape(r, s) for c in range(3)]
+    out = alpha.reshape(r, s), [rgb[:, c].reshape(r, s) for c in range(3)]
+    if emit_tape:
+        return out, torch.cat(posts, dim=1).detach().to(compute_dtype)
+    return out
 
 
 def _round16(x):
@@ -131,7 +145,7 @@ def _lib():
     lib = _build.load("nerf_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nerf_mlp_launch.argtypes = (
-        [p] * 10 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i, p]
+        [p] * 11 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i, p]
     )
     lib.nerf_mlp_launch.restype = ctypes.c_int
     return lib
@@ -145,7 +159,7 @@ def _check_plane(t, shape, device, what):
         raise ValueError(f"{what} must be contiguous")
 
 
-def _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype):
+def _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tape):
     nspec = spec.nerf
     r, s = px.shape
     width, device = nspec.width, px.device
@@ -174,36 +188,40 @@ def _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype):
         wt = _pack_weights(spec, layers, compute_dtype)
         bias = torch.cat([b.reshape(-1) for _, b, _ in layers]).float()
     out = torch.empty(4, r * s, device=device, dtype=torch.float32)
+    tape = (torch.empty(r * s, nspec.depth * width, device=device, dtype=compute_dtype)
+            if emit_tape else None)
     d = dir_planes if per_sample else (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     skip_mask = sum(1 << i for i in nspec.skips)
     err = _lib().nerf_mlp_launch(
         ptr(px), ptr(py), ptr(pz), ptr(d[0]), ptr(d[1]), ptr(d[2]),
-        ptr(None if per_sample else dir_part), ptr(wt), ptr(bias), ptr(out),
+        ptr(None if per_sample else dir_part), ptr(wt), ptr(bias), ptr(out), ptr(tape),
         r * s, s, nspec.depth, width, skip_mask,
         *_pe_args(spec.pos_pe, device), *_pe_args(spec.dir_pe, device),
         int(bf16), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "nerf_mlp")
     nerf_mlp.launches += 1
-    return out[0].reshape(r, s), [out[1 + c].reshape(r, s) for c in range(3)]
+    res = out[0].reshape(r, s), [out[1 + c].reshape(r, s) for c in range(3)]
+    return (res, tape) if emit_tape else res
 
 
 def nerf_mlp(spec, net, px, py, pz, dir_part=None, dir_planes=None,
-             compute_dtype=torch.float32):
+             compute_dtype=torch.float32, emit_tape=False):
     """Raw (sigma [R, S], rgb 3x[R, S]) of the viewdirs NeRF `net` (the
     `NeRF` module of a Joiner with spec `spec`) at the samples px, py, pz
     [R, S]. Pass exactly one of dir_part [R, W/2] (per-ray, from
-    `dir_projection`) and dir_planes (3x[R, S], per-sample)."""
+    `dir_projection`) and dir_planes (3x[R, S], per-sample). emit_tape=True
+    returns ((sigma, rgb), tape [R*S, depth*W])."""
     if (dir_part is None) == (dir_planes is None):
         raise ValueError("pass exactly one of dir_part and dir_planes")
     if not spec.nerf.use_viewdirs:
         raise ValueError("nerf_mlp covers the view-direction head only")
     if px.is_cuda:
-        return _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype)
+        return _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tape)
     if px.device.type != "cpu":
         raise ValueError(f"nerf_mlp: no kernel for device {px.device}")
-    return nerf_mlp_plain(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype)
+    return nerf_mlp_plain(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tape)
 
 
 nerf_mlp.launches = 0

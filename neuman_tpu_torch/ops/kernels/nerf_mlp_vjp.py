@@ -18,6 +18,13 @@ Semantics (both): the forward is recomputed in the compute dtype; ReLU
 masks are taken from the post-activation values; in bf16 every product
 takes bf16 operands, cotangents included, with f32 sums, and per-ray d_dir
 sums the bf16 d_pre2 of the ray's samples; the PE derivative is f32.
+
+Two configurations, as `make_mlp_vjp(tape_mode=)`: "recompute" (the
+backward recomputes the trunk) and "hbm" (the forward writes the trunk's
+post-ReLU values to a tape [R*S, depth*W] in device memory, saved for the
+backward, which reads them instead). The tape holds what the recompute
+gives bit for bit, so the two configurations' gradients are bit-identical.
+Under `torch.no_grad()` no tape is written.
 """
 
 import ctypes
@@ -34,6 +41,21 @@ from neuman_tpu_torch.ops.precision import matmul_f32
 CHUNK_SAMPLES = 32768
 # contiguous sample ranges of a chunk whose dW partials are summed in order
 KSPLIT = 4
+
+
+def check_tape_mode(tape_mode):
+    """True for "hbm", False for "recompute"; anything else raises."""
+    if tape_mode not in ("recompute", "hbm"):
+        raise ValueError(f"tape_mode must be 'recompute' or 'hbm', not {tape_mode!r}")
+    return tape_mode == "hbm"
+
+
+def with_tape_mode(fn, tape_mode):
+    """`fn` (an MLP forward of a loss: `nerf_mlp_fn`, `offset_mlp_fn`, also
+    as partials, or a plain forward) with its tape configuration set. Raises
+    on an unknown mode."""
+    check_tape_mode(tape_mode)
+    return functools.partial(fn, tape_mode=tape_mode)
 
 
 def net_layers(net):
@@ -64,12 +86,13 @@ def pe_bwd(pe_spec, x, d_pe):
 
 
 def nerf_mlp_bwd_plain(spec, net, px, py, pz, g_sigma, g_rgb, dir_part=None,
-                       dir_planes=None, compute_dtype=torch.float32):
+                       dir_planes=None, compute_dtype=torch.float32, tape=None):
     """What the kernel computes, in plain PyTorch (f32 matmuls on operands
     rounded to the compute dtype). Returns (grads, d_planes, d_dir): grads
     [(dW [out, in], db)] in `net_layers` order (per-ray mode leaves the
     direction columns of the views weight 0), d_planes 3x[R, S], d_dir
-    [R, W/2] (per-ray) or 3x[R, S] (per-sample)."""
+    [R, W/2] (per-ray) or 3x[R, S] (per-sample). With `tape` (from
+    `nerf_mlp_plain(emit_tape=True)`) the trunk posts are its columns."""
     rnd = kmlp._rounder(compute_dtype)
     nspec, width = spec.nerf, spec.nerf.width
     r, s = px.shape
@@ -84,7 +107,10 @@ def nerf_mlp_bwd_plain(spec, net, px, py, pz, g_sigma, g_rgb, dir_part=None,
         h = pe
         for i, lin in enumerate(trunk):
             hins.append(h)
-            post = rnd(torch.relu(mm(h, lin.weight.T) + lin.bias))
+            if tape is not None:
+                post = tape[:, i * width:(i + 1) * width].float()
+            else:
+                post = rnd(torch.relu(mm(h, lin.weight.T) + lin.bias))
             posts.append(post)
             h = torch.cat([pe, post], dim=1) if i in nspec.skips else post
         feature = rnd(mm(h, net.feature_linear.weight.T) + net.feature_linear.bias)
@@ -140,7 +166,7 @@ def _lib():
     lib = _build.load("nerf_mlp_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nerf_mlp_bwd_launch.argtypes = (
-        [p] * 18 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i] * 4 + [p]
+        [p] * 19 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i] * 4 + [p]
     )
     lib.nerf_mlp_bwd_launch.restype = ctypes.c_int
     lib.nerf_mlp_bwd_tape_cols.argtypes = [i] * 6
@@ -148,7 +174,15 @@ def _lib():
     return lib
 
 
-def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute_dtype):
+def _check_tape(tape, n, cols, device, compute_dtype, what):
+    if (tape.device != device or tape.dtype != compute_dtype or tuple(tape.shape) != (n, cols)
+            or not tape.is_contiguous()):
+        raise ValueError(f"{what}: expected a contiguous {compute_dtype} tape {(n, cols)} on "
+                         f"{device}, got {tape.dtype} {tuple(tape.shape)} on {tape.device}")
+
+
+def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute_dtype,
+            fwd_tape):
     nspec = spec.nerf
     r, s = px.shape
     n, width, device = r * s, nspec.width, px.device
@@ -178,6 +212,8 @@ def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute
     if any(w.device != device for w, _, _ in layers):
         raise ValueError("nerf_mlp_bwd: weights and planes must be on one device")
 
+    if fwd_tape is not None:
+        _check_tape(fwd_tape, n, nspec.depth * width, device, compute_dtype, "nerf_mlp_bwd")
     with torch.no_grad():
         wf = kmlp._pack_weights(spec, layers, compute_dtype)
         wb = kmlp._pack_weights(spec, layers, compute_dtype, backward=True)
@@ -201,7 +237,8 @@ def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.nerf_mlp_bwd_launch(
         ptr(px), ptr(py), ptr(pz), ptr(d[0]), ptr(d[1]), ptr(d[2]),
-        ptr(None if per_sample else dir_part), ptr(g), ptr(wf), ptr(wb), ptr(bias),
+        ptr(None if per_sample else dir_part), ptr(g), ptr(fwd_tape),
+        ptr(wf), ptr(wb), ptr(bias),
         ptr(head_a), ptr(head_rgb), ptr(d_planes), ptr(d_dir), ptr(grad), ptr(tape),
         ptr(partial), n, s, nspec.depth, width, sum(1 << i for i in nspec.skips),
         *kmlp._pe_args(spec.pos_pe, device), *kmlp._pe_args(spec.dir_pe, device),
@@ -220,18 +257,20 @@ def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute
 
 
 def nerf_mlp_bwd(spec, net, px, py, pz, g_sigma, g_rgb, dir_part=None, dir_planes=None,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, tape=None):
     """Gradients of `nerf_mlp` for the cotangents g_sigma [R, S] and g_rgb
-    3x[R, S]: (grads, d_planes, d_dir) as `nerf_mlp_bwd_plain` returns them."""
+    3x[R, S]: (grads, d_planes, d_dir) as `nerf_mlp_bwd_plain` returns them.
+    tape: the forward's `emit_tape` output [R*S, depth*W], read in place of
+    recomputing the trunk; None recomputes."""
     if (dir_part is None) == (dir_planes is None):
         raise ValueError("pass exactly one of dir_part and dir_planes")
     if px.is_cuda:
         return _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes,
-                       compute_dtype)
+                       compute_dtype, tape)
     if px.device.type != "cpu":
         raise ValueError(f"nerf_mlp_bwd: no kernel for device {px.device}")
     return nerf_mlp_bwd_plain(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes,
-                              compute_dtype)
+                              compute_dtype, tape)
 
 
 nerf_mlp_bwd.launches = 0
@@ -242,39 +281,49 @@ class _NerfMlpFunction(torch.autograd.Function):
     then every (weight, bias) of `net_layers(net)`, flattened."""
 
     @staticmethod
-    def forward(ctx, spec, net, compute_dtype, plain, n_dir, px, py, pz, *rest):
+    def forward(ctx, spec, net, compute_dtype, plain, emit_tape, px, py, pz, *rest):
+        n_dir = len(rest) - 2 * len(net_layers(net))
         dirs = rest[:n_dir]
         kw = {"dir_planes": list(dirs)} if n_dir == 3 else {"dir_part": dirs[0]}
         ctx.spec, ctx.net, ctx.compute_dtype, ctx.plain = spec, net, compute_dtype, plain
-        ctx.save_for_backward(px, py, pz, *dirs)
         fwd = kmlp.nerf_mlp_plain if plain else kmlp.nerf_mlp
-        sigma, rgb = fwd(spec, net, px, py, pz, compute_dtype=compute_dtype, **kw)
+        out = fwd(spec, net, px, py, pz, compute_dtype=compute_dtype, emit_tape=emit_tape, **kw)
+        (sigma, rgb), tape = out if emit_tape else (out, None)
+        ctx.n_dir = n_dir
+        ctx.save_for_backward(px, py, pz, *dirs, *([tape] if emit_tape else []))
         return sigma, *rgb
 
     @staticmethod
     def backward(ctx, g_sigma, g_r, g_g, g_b):
         px, py, pz, *dirs = ctx.saved_tensors
+        tape = dirs.pop() if len(dirs) > ctx.n_dir else None
         kw = {"dir_planes": dirs} if len(dirs) == 3 else {"dir_part": dirs[0]}
         bwd = nerf_mlp_bwd_plain if ctx.plain else nerf_mlp_bwd
         grads, d_planes, d_dir = bwd(
             ctx.spec, ctx.net, px, py, pz, g_sigma.contiguous(),
-            [g.contiguous() for g in (g_r, g_g, g_b)], compute_dtype=ctx.compute_dtype, **kw)
+            [g.contiguous() for g in (g_r, g_g, g_b)], compute_dtype=ctx.compute_dtype,
+            tape=tape, **kw)
         d_dirs = list(d_dir) if len(dirs) == 3 else [d_dir]
         return (None,) * 5 + (*d_planes, *d_dirs, *[t for wb in grads for t in wb])
 
 
 def nerf_mlp_fn(spec, net, px, py, pz, dir_part=None, dir_planes=None,
-                compute_dtype=torch.float32, plain=False):
+                compute_dtype=torch.float32, plain=False, tape_mode="recompute"):
     """Differentiable `nerf_mlp`: (sigma [R, S], rgb 3x[R, S]); the backward
     runs `nerf_mlp_bwd` (the kernel on the card, its plain version on the
     CPU). Pass exactly one of dir_part [R, W/2] and dir_planes 3x[R, S].
     plain=True runs `nerf_mlp_plain` and `nerf_mlp_bwd_plain` on any
     device: the kernels' function, rounded at the same points, to hold the
-    kernels to."""
+    kernels to. tape_mode "hbm": the forward writes the trunk posts to a
+    tape that the backward reads instead of recomputing them (not under
+    `torch.no_grad()`, where nothing is saved); gradients are bit-identical
+    to "recompute"."""
     if (dir_part is None) == (dir_planes is None):
         raise ValueError("pass exactly one of dir_part and dir_planes")
     dirs = list(dir_planes) if dir_planes is not None else [dir_part]
     params = [t for wb in net_layers(net) for t in wb]
-    sigma, *rgb = _NerfMlpFunction.apply(spec, net, compute_dtype, plain, len(dirs), px, py, pz,
+    emit_tape = (check_tape_mode(tape_mode) and torch.is_grad_enabled()
+                 and any(t.requires_grad for t in (px, py, pz, *dirs, *params)))
+    sigma, *rgb = _NerfMlpFunction.apply(spec, net, compute_dtype, plain, emit_tape, px, py, pz,
                                          *dirs, *params)
     return sigma, rgb

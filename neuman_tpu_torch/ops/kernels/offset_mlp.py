@@ -18,6 +18,12 @@ with compute_dtype bfloat16, weights and activations are rounded to bf16
 where the JAX kernel casts them, cotangents included, and sums are f32;
 ReLU masks come from the recomputed post-activation values; the PE, its
 derivative and the sum of the PE gradients are f32.
+
+As for `nerf_mlp`, `offset_mlp(emit_tape=True)` also returns the trunk's
+post-ReLU values as a tape [R*S, depth*W] in the compute dtype, which
+`offset_mlp_bwd(tape=)` reads in place of recomputing the trunk, and
+`offset_mlp_fn(tape_mode="hbm")` ties the two; gradients are bit-identical
+to "recompute".
 """
 
 import ctypes
@@ -28,7 +34,7 @@ import torch
 from neuman_tpu_torch.models.embedder import embed
 from neuman_tpu_torch.ops.kernels import _build
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
-from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import pe_bwd
+from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import _check_tape, check_tape_mode, pe_bwd
 from neuman_tpu_torch.ops.precision import matmul_f32
 
 # samples per chunk of the backward kernel's tape (~550 MB in f32 at 8 x 256)
@@ -47,26 +53,35 @@ def _flat_axes(axes):
     return torch.stack(list(axes), -1).reshape(r * s, len(axes))
 
 
-def offset_mlp_plain(spec, net, axes, compute_dtype=torch.float32):
+def offset_mlp_plain(spec, net, axes, compute_dtype=torch.float32, emit_tape=False,
+                     tape_mode=None):
     """What the forward kernel computes, in plain PyTorch (f32 matmuls on
-    operands rounded to the compute dtype): O raw planes [R, S]."""
+    operands rounded to the compute dtype): O raw planes [R, S]; with
+    emit_tape (planes, tape [R*S, depth*W]). `tape_mode` is taken so that a
+    loss calls this like `offset_mlp_fn`, and changes nothing."""
     rnd = kmlp._rounder(compute_dtype)
     r, s = axes[0].shape
     lin = lambda x, layer: matmul_f32(rnd(x), rnd(layer.weight).T) + layer.bias
     pe = rnd(embed(spec.pos_pe, _flat_axes(axes)))
     h = pe
+    posts = []
     for i, layer in enumerate(net.pts_linears):
         h = rnd(torch.relu(lin(h, layer)))
+        posts.append(h)
         if i in spec.nerf.skips:
             h = torch.cat([pe, h], dim=-1)
     out = lin(h, net.output_linear)
-    return [out[:, c].reshape(r, s) for c in range(out.shape[1])]
+    planes = [out[:, c].reshape(r, s) for c in range(out.shape[1])]
+    if emit_tape:
+        return planes, torch.cat(posts, dim=1).detach().to(compute_dtype)
+    return planes
 
 
-def offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype=torch.float32):
+def offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype=torch.float32, tape=None):
     """What the backward kernel computes, in plain PyTorch. g_rows: O
     cotangent planes [R, S]. Returns (grads, d_axes): grads [(dW [out, in],
-    db)] in `net_layers` order, d_axes D x [R, S]."""
+    db)] in `net_layers` order, d_axes D x [R, S]. With `tape` (from
+    `offset_mlp_plain(emit_tape=True)`) the trunk posts are its columns."""
     rnd = kmlp._rounder(compute_dtype)
     nspec = spec.nerf
     r, s = axes[0].shape
@@ -81,7 +96,10 @@ def offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype=torch.float32):
         h = pe
         for i, lin in enumerate(trunk):
             hins.append(h)
-            post = rnd(torch.relu(mm(h, lin.weight.T) + lin.bias))
+            if tape is not None:
+                post = tape[:, i * nspec.width:(i + 1) * nspec.width].float()
+            else:
+                post = rnd(torch.relu(mm(h, lin.weight.T) + lin.bias))
             posts.append(post)
             h = torch.cat([pe, post], dim=1) if i in nspec.skips else post
         g = rnd(torch.stack(list(g_rows), -1).reshape(n, len(g_rows)))
@@ -158,7 +176,7 @@ def _axes_ptrs(axes):
 def _lib_fwd():
     lib = _build.load("offset_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.offset_mlp_launch.argtypes = [p] * 4 + [i] + [p] * 4 + [i] * 5 + [i, i, i, p] + [i, p]
+    lib.offset_mlp_launch.argtypes = [p] * 4 + [i] + [p] * 5 + [i] * 5 + [i, i, i, p] + [i, p]
     lib.offset_mlp_launch.restype = ctypes.c_int
     return lib
 
@@ -168,14 +186,14 @@ def _lib_bwd():
     lib = _build.load("offset_mlp_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.offset_mlp_bwd_launch.argtypes = (
-        [p] * 4 + [i] + [p] * 9 + [i] * 5 + [i, i, i, p] + [i] * 4 + [p])
+        [p] * 4 + [i] + [p] * 10 + [i] * 5 + [i, i, i, p] + [i] * 4 + [p])
     lib.offset_mlp_bwd_launch.restype = ctypes.c_int
     lib.offset_mlp_bwd_tape_cols.argtypes = [i] * 4
     lib.offset_mlp_bwd_tape_cols.restype = ctypes.c_int
     return lib
 
 
-def _launch_fwd(spec, net, axes, compute_dtype):
+def _launch_fwd(spec, net, axes, compute_dtype, emit_tape):
     nspec = spec.nerf
     rnd, bf16 = _check(spec, net, axes, compute_dtype, "offset_mlp")
     r, s = axes[0].shape
@@ -185,30 +203,34 @@ def _launch_fwd(spec, net, axes, compute_dtype):
         bias = torch.cat([b.reshape(-1) for _, b in net_layers(net)]).float()
         head = rnd(net.output_linear.weight).contiguous()
     out = torch.empty(nspec.output_ch, r * s, device=device, dtype=torch.float32)
+    tape = (torch.empty(r * s, nspec.depth * nspec.width, device=device, dtype=compute_dtype)
+            if emit_tape else None)
     err = _lib_fwd().offset_mlp_launch(
         *_axes_ptrs(axes), wt.data_ptr(), bias.data_ptr(), head.data_ptr(), out.data_ptr(),
+        None if tape is None else tape.data_ptr(),
         r * s, nspec.depth, nspec.width, sum(1 << i for i in nspec.skips), nspec.output_ch,
         *_pe_args(spec.pos_pe, device), int(bf16), torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "offset_mlp")
     offset_mlp.launches += 1
-    return [out[c].reshape(r, s) for c in range(nspec.output_ch)]
+    planes = [out[c].reshape(r, s) for c in range(nspec.output_ch)]
+    return (planes, tape) if emit_tape else planes
 
 
-def offset_mlp(spec, net, axes, compute_dtype=torch.float32):
+def offset_mlp(spec, net, axes, compute_dtype=torch.float32, emit_tape=False):
     """Raw output planes (O x [R, S]) of the no-viewdirs NeRF `net` (the
     `NeRF` module of an OffsetNet with spec `spec`) on the input planes
-    `axes` (D x [R, S])."""
+    `axes` (D x [R, S]); with emit_tape (planes, tape [R*S, depth*W])."""
     if axes[0].is_cuda:
-        return _launch_fwd(spec, net, axes, compute_dtype)
+        return _launch_fwd(spec, net, axes, compute_dtype, emit_tape)
     if axes[0].device.type != "cpu":
         raise ValueError(f"offset_mlp: no kernel for device {axes[0].device}")
-    return offset_mlp_plain(spec, net, axes, compute_dtype)
+    return offset_mlp_plain(spec, net, axes, compute_dtype, emit_tape)
 
 
 offset_mlp.launches = 0
 
 
-def _launch_bwd(spec, net, axes, g_rows, compute_dtype):
+def _launch_bwd(spec, net, axes, g_rows, compute_dtype, fwd_tape):
     nspec = spec.nerf
     rnd, bf16 = _check(spec, net, axes, compute_dtype, "offset_mlp_bwd")
     r, s = axes[0].shape
@@ -217,6 +239,9 @@ def _launch_bwd(spec, net, axes, g_rows, compute_dtype):
         raise ValueError(f"offset_mlp_bwd: expected {nspec.output_ch} cotangent planes")
     for c, t in enumerate(g_rows):
         kmlp._check_plane(t, (r, s), device, f"g_rows[{c}]")
+    if fwd_tape is not None:
+        _check_tape(fwd_tape, n, nspec.depth * nspec.width, device, compute_dtype,
+                    "offset_mlp_bwd")
     with torch.no_grad():
         wf = _pack_trunk(spec, net, compute_dtype)
         wb = _pack_trunk(spec, net, compute_dtype, backward=True)
@@ -233,7 +258,8 @@ def _launch_bwd(spec, net, axes, g_rows, compute_dtype):
     grad = torch.empty(total, device=device)
     d_axes = torch.empty(len(axes), n, device=device)
     err = lib.offset_mlp_bwd_launch(
-        *_axes_ptrs(axes), g.data_ptr(), wf.data_ptr(), wb.data_ptr(), bias.data_ptr(),
+        *_axes_ptrs(axes), g.data_ptr(), None if fwd_tape is None else fwd_tape.data_ptr(),
+        wf.data_ptr(), wb.data_ptr(), bias.data_ptr(),
         head.data_ptr(), d_axes.data_ptr(), grad.data_ptr(), tape.data_ptr(),
         partial.data_ptr(), n, nspec.depth, nspec.width, sum(1 << i for i in nspec.skips),
         nspec.output_ch, *_pe_args(spec.pos_pe, device), int(bf16), chunk, KSPLIT, total,
@@ -250,14 +276,15 @@ def _launch_bwd(spec, net, axes, g_rows, compute_dtype):
     return grads, [d_axes[a].reshape(r, s) for a in range(len(axes))]
 
 
-def offset_mlp_bwd(spec, net, axes, g_rows, compute_dtype=torch.float32):
+def offset_mlp_bwd(spec, net, axes, g_rows, compute_dtype=torch.float32, tape=None):
     """Gradients of `offset_mlp` for the cotangent planes g_rows (O x
-    [R, S]): (grads, d_axes) as `offset_mlp_bwd_plain` returns them."""
+    [R, S]): (grads, d_axes) as `offset_mlp_bwd_plain` returns them. tape:
+    the forward's `emit_tape` output, read in place of recomputing the trunk."""
     if axes[0].is_cuda:
-        return _launch_bwd(spec, net, axes, g_rows, compute_dtype)
+        return _launch_bwd(spec, net, axes, g_rows, compute_dtype, tape)
     if axes[0].device.type != "cpu":
         raise ValueError(f"offset_mlp_bwd: no kernel for device {axes[0].device}")
-    return offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype)
+    return offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype, tape)
 
 
 offset_mlp_bwd.launches = 0
@@ -268,31 +295,41 @@ class _OffsetMlpFunction(torch.autograd.Function):
     `net_layers(net)`, flattened."""
 
     @staticmethod
-    def forward(ctx, spec, net, compute_dtype, plain, n_axes, *rest):
+    def forward(ctx, spec, net, compute_dtype, plain, emit_tape, *rest):
+        n_axes = len(rest) - 2 * len(net_layers(net))
         axes = list(rest[:n_axes])
         ctx.spec, ctx.net, ctx.compute_dtype, ctx.plain = spec, net, compute_dtype, plain
-        ctx.save_for_backward(*axes)
         fwd = offset_mlp_plain if plain else offset_mlp
-        return tuple(fwd(spec, net, axes, compute_dtype))
+        out = fwd(spec, net, axes, compute_dtype, emit_tape)
+        planes, tape = out if emit_tape else (out, None)
+        ctx.n_axes = n_axes
+        ctx.save_for_backward(*axes, *([tape] if emit_tape else []))
+        return tuple(planes)
 
     @staticmethod
     def backward(ctx, *g_rows):
         axes = list(ctx.saved_tensors)
+        tape = axes.pop() if len(axes) > ctx.n_axes else None
         bwd = offset_mlp_bwd_plain if ctx.plain else offset_mlp_bwd
         grads, d_axes = bwd(ctx.spec, ctx.net, axes, [g.contiguous() for g in g_rows],
-                            ctx.compute_dtype)
+                            ctx.compute_dtype, tape)
         # the kernel always computes d_axes; autograd drops those not asked for
         d_axes = [d if need else None
                   for d, need in zip(d_axes, ctx.needs_input_grad[5:5 + len(axes)])]
         return (None,) * 5 + (*d_axes, *[t for wb in grads for t in wb])
 
 
-def offset_mlp_fn(spec, net, axes, compute_dtype=torch.float32, plain=False):
+def offset_mlp_fn(spec, net, axes, compute_dtype=torch.float32, plain=False,
+                  tape_mode="recompute"):
     """Differentiable `offset_mlp`: O raw planes [R, S]; the backward runs
     `offset_mlp_bwd` (the kernel on the card, its plain version on the CPU).
     plain=True runs `offset_mlp_plain` and `offset_mlp_bwd_plain` on any
     device: the kernels' function, rounded at the same points, to hold the
-    kernels to."""
+    kernels to. tape_mode "hbm": the forward writes the trunk posts to a
+    tape that the backward reads instead of recomputing them (not under
+    `torch.no_grad()`); gradients are bit-identical to "recompute"."""
     params = [t for wb in net_layers(net) for t in wb]
-    return list(_OffsetMlpFunction.apply(spec, net, compute_dtype, plain, len(axes),
+    emit_tape = (check_tape_mode(tape_mode) and torch.is_grad_enabled()
+                 and any(t.requires_grad for t in (*axes, *params)))
+    return list(_OffsetMlpFunction.apply(spec, net, compute_dtype, plain, emit_tape,
                                          *axes, *params))

@@ -6,7 +6,9 @@ incident to the k nearest vertices, then either the inverse of the
 barycentric blend of the per-vertex LBS transforms at that point (the warp
 into canonical space: plain for the render, differentiable in the vertices
 and the transforms for training) or the pseudonormal sign (the signed
-distance). The candidate phase is the `ericson_select` kernel. The KNN is
+distance; `signed_distance(fused=True)` takes closest point and sign in one
+kernel, `ericson_signed_select`). The candidate phase is the
+`ericson_select` kernel. The KNN is
 exact for the render (one f32 matmul score and a top-k per query chunk)
 and the `bucketed_knn` kernel for training (knn_impl="bucketed").
 """
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 from neuman_tpu_torch.ops.kernels.knn import bucketed_knn, bucketed_knn_plain
-from neuman_tpu_torch.ops.kernels.meshquery import ericson_select, ericson_select_plain
+from neuman_tpu_torch.ops.kernels.meshquery import (barycentric_planar, ericson_select,
+                                                     ericson_select_plain,
+                                                     ericson_signed_select)
 from neuman_tpu_torch.ops.precision import matmul_f32
 
 # queries per KNN score chunk: [8192, V=10242] f32 is 336 MB
@@ -52,50 +56,6 @@ class MeshTopology:
         return cls(torch.as_tensor(faces, device=device), torch.as_tensor(inc, device=device))
 
 
-def closest_point_on_triangles_planar(p, a, b, c):
-    """Ericson's closest point (RTCD 5.1.5) on coordinate tuples: p, a, b,
-    c are (x, y, z) tuples of broadcastable tensors. Returns the closest
-    point as a tuple. Region priority: vertices, then edges, then face."""
-    sub = lambda u, v: (u[0] - v[0], u[1] - v[1], u[2] - v[2])
-    dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
-    madd = lambda u, s, v: (u[0] + s * v[0], u[1] + s * v[1], u[2] + s * v[2])
-    ab, ac = sub(b, a), sub(c, a)
-    ap, bp, cp = sub(p, a), sub(p, b), sub(p, c)
-    d1, d2 = dot(ab, ap), dot(ac, ap)
-    d3, d4 = dot(ab, bp), dot(ac, bp)
-    d5, d6 = dot(ab, cp), dot(ac, cp)
-    va = d3 * d6 - d5 * d4
-    vb = d5 * d2 - d1 * d6
-    vc = d1 * d4 - d3 * d2
-
-    in_vert_a = (d1 <= 0) & (d2 <= 0)
-    in_vert_b = (d3 >= 0) & (d4 <= d3)
-    in_vert_c = (d6 >= 0) & (d5 <= d6)
-    in_edge_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
-    in_edge_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
-    in_edge_bc = (va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0)
-
-    safe = lambda den: torch.where(den.abs() < 1e-20, 1e-20, den)
-    v_ab = d1 / safe(d1 - d3)
-    w_ac = d2 / safe(d2 - d6)
-    w_bc = (d4 - d3) / safe((d4 - d3) + (d5 - d6))
-    denom = safe(va + vb + vc)
-    v_int = vb / denom
-    w_int = vc / denom
-
-    out = madd(madd(a, v_int, ab), w_int, ac)
-    for mask, pt in (
-        (in_edge_bc, madd(b, w_bc, sub(c, b))),
-        (in_edge_ac, madd(a, w_ac, ac)),
-        (in_edge_ab, madd(a, v_ab, ab)),
-        (in_vert_c, c),
-        (in_vert_b, b),
-        (in_vert_a, a),
-    ):
-        out = tuple(torch.where(mask, pt[i], out[i]) for i in range(3))
-    return out
-
-
 def stride_for(samples_per_ray, knn_stride):
     """Group-KNN stride for [R, S]-flattened ray samples: a group must not
     straddle two rays, so fall back to 1 unless S % stride == 0."""
@@ -112,14 +72,22 @@ class QueryTables:
 
     vtab9: torch.Tensor  # [V, D*9] corner coordinates of each vertex's incident faces
     vn_pack: torch.Tensor  # [F, 9] angle-weighted pseudonormals of each face's corners
+    vntab9: torch.Tensor  # [V, D*9] those pseudonormals, laid out as vtab9
+
+
+def _incident_rows(values, topology: MeshTopology):
+    """([F, 9] per-vertex `values` [V, 3] at each face's corners, [V, D*9]
+    those rows for each vertex's incident faces, padding as face 0)."""
+    pack = values[topology.faces].reshape(-1, 9)
+    return pack, pack[topology.incidence.clamp(min=0)].reshape(values.shape[0], -1)
 
 
 def build_query_tables(verts, topology: MeshTopology):
     verts = verts.detach()
-    tri = verts[topology.faces].reshape(-1, 9)  # [F, 9]
-    vtab9 = tri[topology.incidence.clamp(min=0)].reshape(verts.shape[0], -1)
-    vn = angle_weighted_vertex_normals(verts, topology.faces)
-    return QueryTables(vtab9=vtab9, vn_pack=vn[topology.faces].reshape(-1, 9))
+    vtab9 = _incident_rows(verts, topology)[1]
+    vn_pack, vntab9 = _incident_rows(angle_weighted_vertex_normals(verts, topology.faces),
+                                     topology)
+    return QueryTables(vtab9=vtab9, vn_pack=vn_pack, vntab9=vntab9)
 
 
 def angle_weighted_vertex_normals(verts, faces):
@@ -176,36 +144,27 @@ def point_mesh_closest_planar(points, verts, topology: MeshTopology, k=4,
 
 
 def candidate_operands(points, verts, topology: MeshTopology, k=4, knn_stride=1,
-                       knn_impl="exact", use_kernels=True, tables=None):
+                       knn_impl="exact", use_kernels=True, tables=None, normals=False):
     """The closest-point kernel's operands: (p3 [3, N], rows9 [9C, Nq],
     cand [C, Nq] int32, stride). With `tables` the corner rows come from k
-    row gathers a group (vtab9) in place of C face gathers."""
+    row gathers a group (vtab9) in place of C face gathers. normals=True
+    gives the signed kernel's: (p3, rows9, vn9 [9C, Nq], cand, stride), vn9
+    the candidates' corner pseudonormals laid out as rows9."""
     verts = verts.detach()
     knn_idx, stride = _query_knn(points, verts, k, knn_stride, knn_impl, use_kernels)
     nq = knn_idx.shape[0]
     cand = topology.incidence[knn_idx].reshape(nq, -1)  # [Nq, C]
+    major = lambda rows: rows.reshape(nq, -1, 9).permute(2, 1, 0).reshape(-1, nq).contiguous()
     if tables is not None:
         rows = tables.vtab9[knn_idx]  # [Nq, k, D*9]
     else:
         rows = verts[topology.faces[cand.clamp(min=0).reshape(-1)]]  # [Nq*C, 3, 3]
-    rows9 = rows.reshape(nq, -1, 9).permute(2, 1, 0).reshape(-1, nq).contiguous()
-    return points.T.contiguous(), rows9, cand.T.to(torch.int32).contiguous(), stride
-
-
-def barycentric_planar(closest, v0, v1, v2):
-    """Barycentric weights (u, v, w) of v0, v1, v2 at points on the
-    triangles, by the reference's cross/dot formulation."""
-    sub = lambda u, v: (u[0] - v[0], u[1] - v[1], u[2] - v[2])
-    dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
-    cross = lambda u, v: (
-        u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2], u[0] * v[1] - u[1] * v[0],
-    )
-    n = cross(sub(v1, v0), sub(v2, v0))
-    denom = dot(n, n)
-    denom = torch.where(denom.abs() < 1e-20, 1e-20, denom)
-    u = dot(n, cross(sub(v2, v1), sub(closest, v1))) / denom
-    v = dot(n, cross(sub(v0, v2), sub(closest, v2))) / denom
-    return u, v, 1.0 - u - v
+    p3, cand_t = points.T.contiguous(), cand.T.to(torch.int32).contiguous()
+    if not normals:
+        return p3, major(rows), cand_t, stride
+    vntab9 = (tables.vntab9 if tables is not None else
+              _incident_rows(angle_weighted_vertex_normals(verts, topology.faces), topology)[1])
+    return p3, major(rows), major(vntab9[knn_idx]), cand_t, stride
 
 
 def _blend_inverse_affine(closest, f_id, verts, Ts, topology: MeshTopology):
@@ -251,15 +210,32 @@ def apply_affine_cols(aff, p):
 
 
 def signed_distance(points, verts, topology: MeshTopology, k=4, knn_stride=1, tables=None,
-                    knn_impl="exact", use_kernels=True):
+                    knn_impl="exact", use_kernels=True, fused=False):
     """Signed distance to a watertight mesh, negative inside: the closest
     point (KNN + Ericson) and the sign of (p - closest) . n, n the
     barycentric blend of the face's corner pseudonormals; sign(0) = +1.
     `tables`: QueryTables when `verts` are the same from query to query.
+    fused=True takes closest point and sign in one kernel
+    (`ericson_signed_select`; its plain version with use_kernels=False) on
+    one more row gather, the candidates' pseudonormals; same contract.
     Returns (signed_dist [N], f_id [N], closest [N, 3])."""
+    if fused:
+        ops = candidate_operands(points, verts, topology, k, knn_stride, knn_impl, use_kernels,
+                                 tables, normals=True)
+        sd, f_id, closest = ericson_signed_select(*ops, plain=not use_kernels)
+        return sd, f_id, torch.stack(closest, dim=-1)
     d2, f_id, closest = point_mesh_closest_planar(
         points, verts, topology, k=k, knn_stride=knn_stride, use_kernels=use_kernels,
         knn_impl=knn_impl, tables=tables)
+    side = pseudonormal_side(points, verts, topology, f_id, closest, tables)
+    sign = torch.where(side < 0, -1.0, 1.0)
+    sd = sign * torch.sqrt(torch.clamp(d2, min=0.0))
+    return sd, f_id, torch.stack(closest, dim=-1)
+
+
+def pseudonormal_side(points, verts, topology: MeshTopology, f_id, closest, tables=None):
+    """(p - closest) . n [N], n the barycentric blend of the pseudonormals of
+    face f_id's corners at `closest` (an (x, y, z) tuple): negative inside."""
     verts = verts.detach()
     fv = topology.faces[f_id.long()]  # [N, 3]
     corners = [tuple(verts[fv[:, j], a] for a in range(3)) for j in range(3)]
@@ -269,10 +245,7 @@ def signed_distance(points, verts, topology: MeshTopology, k=4, knn_stride=1, ta
     else:
         vrows = angle_weighted_vertex_normals(verts, topology.faces)[fv].reshape(-1, 9)
     normal = [u * vrows[:, a] + v * vrows[:, 3 + a] + w * vrows[:, 6 + a] for a in range(3)]
-    side = sum((points[:, a] - closest[a]) * normal[a] for a in range(3))
-    sign = torch.where(side < 0, -1.0, 1.0)
-    sd = sign * torch.sqrt(torch.clamp(d2, min=0.0))
-    return sd, f_id, torch.stack(closest, dim=-1)
+    return sum((points[:, a] - closest[a]) * normal[a] for a in range(3))
 
 
 def warp_points_to_canonical_diff(pts, verts, T, topology: MeshTopology, k=4, knn_stride=1,

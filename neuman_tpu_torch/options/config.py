@@ -92,6 +92,11 @@ class NeuManConfig:
 
     seed: int = 42
     compute_dtype: str = "float32"  # or "bfloat16" for the MLP products
+    # the fused MLPs' backward: "recompute" re-derives the trunk activations,
+    # "hbm" reads a tape of them that the forward wrote to device memory
+    # (depth * width values a sample in the compute dtype, alive until the
+    # backward); the gradients are bit-identical
+    mlp_tape: str = "recompute"
 
     # derived (set by finalize)
     out: Optional[str] = None
@@ -107,6 +112,8 @@ class NeuManConfig:
             self.load_weights_path = os.path.join(self.out_dir, self.name, "checkpoint.npz")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {self.compute_dtype}")
+        if self.mlp_tape not in ("recompute", "hbm"):
+            raise ValueError(f"mlp_tape must be recompute or hbm, not {self.mlp_tape}")
         ratios = self.body_rays_ratio + self.border_rays_ratio + self.bkg_rays_ratio
         if not math.isclose(ratios, 1.0):
             raise ValueError(f"the ray ratios must sum to 1, not {ratios}")

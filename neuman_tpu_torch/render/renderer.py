@@ -1,13 +1,18 @@
 """Renderers (counterpart of the planar paths of neuman_tpu/render/renderer.py:
 `_bkg_branch_planar`, `_human_branch_planar`, `_hybrid_chunk_planar`,
-`render_hybrid_nerf`, and `render_vanilla`, the background-only render the
-background trainer validates with).
+`render_hybrid_nerf`, `render_smpl_nerf`, `render_hybrid_nerf_multi_persons`,
+and `render_vanilla`, the background-only render the background trainer
+validates with).
 
 `render_hybrid_nerf` renders a frame by the compact dispatch: every ray
 goes through the background path, chunk by chunk; the rays of a chunk that
 pass within geo_threshold of a body vertex (the hit mask) are selected by
 boolean indexing, run the human branch (warp + canonical net), merge its
 samples with their background samples by z, and are scattered back.
+`render_smpl_nerf` (the human alone, posed or in canonical space) and
+`render_hybrid_nerf_multi_persons` (several actors in one scene) dispatch
+the same way: misses get the constant or background pixel, and the human
+branches run on the hit rays only (for several actors, the union of theirs).
 
 Per chunk the MLPs run through the `nerf_mlp` kernel and the warp's
 closest-point query through the `ericson_select` kernel; `use_kernels=False`
@@ -51,17 +56,25 @@ def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far
 
 
 def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, posed_verts,
-                  Ts, samples_per_ray, knn_k, compute_dtype, knn_stride=1, use_kernels=True):
+                  Ts, samples_per_ray, knn_k, compute_dtype, knn_stride=1, use_kernels=True,
+                  render_can=False, interval_comp=1.0):
     """Samples between the geometry-guided near/far [R] -> warp to canonical
     -> canonical MLP with per-sample directions. Rays with near >= far miss
-    the body and get placeholder samples on [0, 1]. Returns (z [R, S],
-    sigma [R, S], rgb_c 3x[R, S])."""
+    the body and get placeholder samples on [0, 1]. render_can: the samples
+    are canonical points already (no warp) and the net takes the ray's
+    direction. sigma is scaled by interval_comp. Returns (z [R, S], sigma
+    [R, S], rgb_c 3x[R, S])."""
     hit = near < far
     z = ray_ops.sample_z_vals(torch.where(hit, near, 0.0), torch.where(hit, far, 1.0),
                               samples_per_ray)
     r, s = z.shape
-    flat = torch.stack([origins[:, a, None] + dirs[:, a, None] * z for a in range(3)], -1)
-    flat = flat.reshape(-1, 3)
+    planes = [origins[:, a, None] + dirs[:, a, None] * z for a in range(3)]
+    if render_can:
+        sigma, rgb_c = _mlp(use_kernels)(
+            human_spec, human_net, *planes, compute_dtype=compute_dtype,
+            dir_part=dir_projection(human_spec, human_net, dirs, compute_dtype))
+        return z, sigma * interval_comp, rgb_c
+    flat = torch.stack(planes, -1).reshape(-1, 3)
     _, f_id, closest = mesh_ops.point_mesh_closest_planar(
         flat, posed_verts, topology, k=knn_k,
         knn_stride=mesh_ops.stride_for(samples_per_ray, knn_stride),
@@ -77,7 +90,7 @@ def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, pos
         human_spec, human_net, *can_planes, dir_planes=[p / norm for p in diffs],
         compute_dtype=compute_dtype,
     )
-    return z, sigma, rgb_c
+    return z, sigma * interval_comp, rgb_c
 
 
 def _merge_human(bkg, hit, h_z, h_sigma, h_rgb_c, bkg_far, white_bkg):
@@ -205,3 +218,106 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
                 hit_bkg, hit, *human, bkg_far[sel], white_bkg)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)
+
+
+@torch.no_grad()
+def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_batch=32768,
+                     samples_per_ray=64, white_bkg=True, render_can=False,
+                     geo_threshold=DEFAULT_GEO_THRESH, interval_comp=1.0, knn_k=4,
+                     knn_stride=1, compute_dtype=torch.bfloat16, use_kernels=True,
+                     topology=None):
+    """Human-only frame, compact dispatch: only the rays that pass within
+    geo_threshold of a vertex run the human branch; the others get the white
+    or black pixel, depth 0 and acc 0. render_can: `posed_verts` are the
+    canonical vertices and the samples canonical points (no warp; Ts
+    unused). Ts None: identity transforms. Arguments otherwise as
+    `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth [H, W], acc [H, W])
+    on `device`."""
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    verts = f32(posed_verts)
+    if topology is None:
+        topology = mesh_ops.MeshTopology.build(faces, len(verts), device)
+    Ts = (torch.eye(4, device=device).repeat(len(verts), 1, 1) if Ts is None
+          else f32(Ts)[: len(verts)])
+    origins, dirs = cap_rays(cap, device)
+    total = origins.shape[0]
+    rgb = torch.full((total, 3), 1.0 if white_bkg else 0.0, device=device)
+    depth = torch.zeros(total, device=device)
+    acc = torch.zeros(total, device=device)
+    # the hit test holds [rays, V] distances: chunk by chunk, like the branch
+    bounds = [ray_ops.geometry_guided_near_far(o, d, verts, geo_threshold)
+              for o, d in zip(origins.split(rays_per_batch), dirs.split(rays_per_batch))]
+    near, far = (torch.cat(x) for x in zip(*bounds))
+    for sel in torch.nonzero(near < far).squeeze(1).split(rays_per_batch):
+        o, d = origins[sel], dirs[sel]
+        z, sigma, rgb_c = _human_branch(
+            spec.human, model.coarse_human_net.nerf, topology, o, d, near[sel], far[sel], verts,
+            Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels, render_can,
+            interval_comp)
+        rgb[sel], _, acc[sel], _, depth[sel] = volume.integrate_planar(
+            sigma, rgb_c, z, torch.linalg.norm(d, dim=-1), white_bkg)
+    h, w = cap.shape
+    return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)
+
+
+@torch.no_grad()
+def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, human_models,
+                                     posed_verts_list, faces_list, Ts_list, device,
+                                     rays_per_batch=32768, samples_per_ray=64,
+                                     importance_samples_per_ray=128, white_bkg=True,
+                                     geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
+                                     compute_dtype=torch.bfloat16, use_kernels=True):
+    """Several actors composited into one scene, compact dispatch: the
+    background (the nets of `bkg_model`) on every ray, chunk by chunk; on the
+    rays within geo_threshold of any actor, every actor's human branch (the
+    canonical net of its HumanNeRF in `human_models`, its vertices, faces
+    and transforms), and one merge by z over the background and all actors.
+    An actor that a ray misses contributes samples at z = linspace(1, 2) x
+    1e8 with sigma -1e9: far behind every real sample, so the last real
+    sample keeps its own interval. Returns (rgb [H, W, 3], depth [H, W]) on
+    `device`."""
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    actors = []
+    for spec_h, model_h, verts_h, faces_h, ts_h in zip(human_specs, human_models,
+                                                       posed_verts_list, faces_list, Ts_list):
+        verts_h = f32(verts_h)
+        actors.append((spec_h.human, model_h.coarse_human_net.nerf,
+                       mesh_ops.MeshTopology.build(faces_h, len(verts_h), device), verts_h,
+                       f32(ts_h)[: len(verts_h)]))
+    origins, dirs = cap_rays(cap, device)
+    total = origins.shape[0]
+    rgb = torch.empty(total, 3, device=device)
+    depth = torch.empty(total, device=device)
+    dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
+    for i in range(0, total, rays_per_batch):
+        o, d = origins[i:i + rays_per_batch], dirs[i:i + rays_per_batch]
+        n = o.shape[0]
+        bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
+        bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
+        f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
+            bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, o, d,
+            bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
+            compute_dtype, use_kernels)
+        rgb[i:i + n], _, _, _, depth[i:i + n] = volume.integrate_planar(
+            f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
+        bounds = [ray_ops.geometry_guided_near_far(o, d, a[3], geo_threshold) for a in actors]
+        any_hit = torch.zeros(n, dtype=torch.bool, device=device)
+        for near, far in bounds:
+            any_hit |= near < far
+        sel = torch.nonzero(any_hit).squeeze(1)
+        if not sel.numel():
+            continue
+        zs, sigmas, rgbs = [f_z[sel]], [f_sigma[sel]], [[c[sel] for c in f_rgb_c]]
+        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far) in zip(actors, bounds):
+            h_z, h_sigma, h_rgb_c = _human_branch(
+                spec_h, net_h, topo_h, o[sel], d[sel], near[sel], far[sel], verts_h, ts_h,
+                samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
+            hit = (near < far)[sel, None]
+            zs.append(torch.where(hit, h_z, dummy_z))
+            sigmas.append(torch.where(hit, h_sigma, -1e9))
+            rgbs.append(h_rgb_c)
+        z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
+        rgb[i + sel], _, _, _, depth[i + sel] = volume.integrate_planar(
+            sigma, rgb_c, z, dir_norm[sel], white_bkg)
+    h, w = cap.shape
+    return rgb.reshape(h, w, 3), depth.reshape(h, w)

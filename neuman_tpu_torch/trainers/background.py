@@ -26,7 +26,7 @@ from neuman_tpu_torch.datasets.arrays import build_scene_arrays
 from neuman_tpu_torch.ops import rays as ray_ops
 from neuman_tpu_torch.ops import volume
 from neuman_tpu_torch.ops.kernels.nerf_mlp import dir_projection
-from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn
+from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn, with_tape_mode
 from neuman_tpu_torch.render import renderer
 from neuman_tpu_torch.trainers import checkpoint as ckpt
 from neuman_tpu_torch.trainers import logging as tlog
@@ -95,9 +95,11 @@ def bkg_loss_fn(params, spec, batch, opt, penalty_weight, generator=None, mlp=ne
     perturbation and density noise (both 0 at the bkg defaults) draw from
     `generator`. `mlp` is the differentiable MLP: `nerf_mlp_fn` (the kernel
     pair); checks pass `nerf_mlp_fn` with plain=True (the kernels' plain
-    versions) or `nerf_mlp_plain` (autograd of the plain forward)."""
+    versions) or `nerf_mlp_plain` (autograd of the plain forward). The
+    Functions run in the configuration `opt.mlp_tape` names."""
     if opt.ablate_nerft:
         raise NotImplementedError("the NeRF-T ablation (ablate_nerft) is not ported")
+    mlp = with_tape_mode(mlp, opt.mlp_tape)
     compute_dtype = DTYPES[opt.compute_dtype]
     origin, direction, color = batch["origin"], batch["direction"], batch["color"]
     dir_norm = torch.linalg.norm(direction, dim=-1)

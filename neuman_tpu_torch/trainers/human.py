@@ -43,12 +43,13 @@ from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops import rays as ray_ops
 from neuman_tpu_torch.ops import volume
 from neuman_tpu_torch.ops.kernels.nerf_mlp import dir_projection, nerf_mlp_plain
-from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn
+from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn, with_tape_mode
 from neuman_tpu_torch.ops.kernels.offset_mlp import offset_mlp_fn, offset_mlp_plain
 from neuman_tpu_torch.trainers import checkpoint as ckpt
 from neuman_tpu_torch.trainers import logging as tlog
 from neuman_tpu_torch.trainers.background import DTYPES, make_optimizer
-from neuman_tpu_torch.utils.canonical_cameras import canonical_cameras
+from neuman_tpu_torch.render import rasterize, renderer
+from neuman_tpu_torch.utils.canonical_cameras import canonical_cameras, canonical_capture
 from neuman_tpu_torch.utils.constants import (
     CANONICAL_CAMERA_DIST,
     HARD_SURFACE_OFFSET,
@@ -77,10 +78,16 @@ class Ops:
     mlp: Callable  # the NeRF MLP, differentiable (the frozen background runs it without grad)
     offset: Callable  # the offset net's MLP, differentiable
     mesh_kernels: bool  # the closest-point and KNN kernels, or their plain versions
+    # the shape regulariser's two signed-distance queries: closest point and
+    # sign in one kernel (`ericson_signed_select`), or `ericson_select` and
+    # the sign in PyTorch (the default, as in the JAX trainer)
+    fused_signed_distance: bool = False
 
 
 # the kernels (on CPU tensors each wrapper runs its plain version)
 KERNELS = Ops(nerf_mlp_fn, offset_mlp_fn, True)
+# the kernels, with the fused signed-distance query
+KERNELS_FUSED = dataclasses.replace(KERNELS, fused_signed_distance=True)
 # the kernels' plain versions inside the same autograd Functions: rounded at
 # the kernels' points in bf16, forward and backward
 PLAIN_FUNCTIONS = Ops(functools.partial(nerf_mlp_fn, plain=True),
@@ -176,6 +183,8 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
     body_model, da_smpl, topo, knn_k = ctx["body_model"], ctx["da_smpl"], ctx["topo"], ctx["knn_k"]
     knn_stride = mesh_ops.stride_for(opt.samples_per_ray, ctx.get("knn_stride", 1))
     cd = DTYPES[opt.compute_dtype]
+    ops = dataclasses.replace(ops, mlp=with_tape_mode(ops.mlp, opt.mlp_tape),
+                              offset=with_tape_mode(ops.offset, opt.mlp_tape))
     mesh_kw = dict(k=knn_k, knn_stride=knn_stride, knn_impl="bucketed",
                    use_kernels=ops.mesh_kernels)
     # the canonical vertices are the same from step to step: their query
@@ -184,6 +193,8 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
     tables = [mesh_ops.build_query_tables(v, topo) for v in can_verts]
     can_vtab9 = torch.stack([t.vtab9 for t in tables])
     can_vn_pack = torch.stack([t.vn_pack for t in tables])
+    can_vntab9 = (torch.stack([t.vntab9 for t in tables]) if ops.fused_signed_distance
+                  else [None] * len(tables))
     del tables
 
     def ray_planes(origin, direction, z):
@@ -256,13 +267,14 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
     def shape_reg(batch, can_planes, sg, d_planes, d_sg, w_alpha, w_dummy):
         cap = batch["cap_id"]
         verts = can_verts[cap]
-        tabs = mesh_ops.QueryTables(can_vtab9[cap], can_vn_pack[cap])
+        tabs = mesh_ops.QueryTables(can_vtab9[cap], can_vn_pack[cap], can_vntab9[cap])
+        sd_kw = dict(mesh_kw, tables=tabs, fused=ops.fused_signed_distance)
         flat = torch.stack([p.reshape(-1) for p in can_planes], dim=-1).detach()
         # warped ray samples stay consecutive along a ray: the stride applies
         with torch.no_grad():
-            sd = mesh_ops.signed_distance(flat, verts, topo, tables=tabs, **mesh_kw)[0]
+            sd = mesh_ops.signed_distance(flat, verts, topo, **sd_kw)[0]
             dummy_flat = torch.stack([p.reshape(-1) for p in d_planes], dim=-1)
-            sd_d = mesh_ops.signed_distance(dummy_flat, verts, topo, tables=tabs, **mesh_kw)[0]
+            sd_d = mesh_ops.signed_distance(dummy_flat, verts, topo, **sd_kw)[0]
         occ = 1.0 - torch.exp(-torch.relu(sg.reshape(-1)))
         reg = _masked_mean((occ - 1.0) ** 2, (sd < 0).float()) * w_alpha
         d_occ = 1.0 - torch.exp(-torch.relu(d_sg.reshape(-1)))
@@ -448,14 +460,14 @@ def warn_lpips_divergence(opt, ctx):
     return skipped
 
 
-def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None):
+def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KERNELS):
     """train_step(state, batch) -> (state, metrics), updating `model` and
     the optimiser state in place. state: {"opt_state", "iteration" (int),
     "generator" (the device draws), "init_generator" (a CPU generator for
     the dead-net restart)}. The step reads one scalar back (whether the
     canonical net died); the skip itself is decided on the device."""
     lpips_skipped = warn_lpips_divergence(opt, ctx)
-    loss_fn = make_human_loss_fn(model, opt, ctx, parity_inject)
+    loss_fn = make_human_loss_fn(model, opt, ctx, parity_inject, ops)
 
     def train_step(state, batch):
         it = state["iteration"]
@@ -500,7 +512,7 @@ class HumanNeRFTrainer:
     [N][V, 3], faces, scale, and per capture an optional `densepose` map."""
 
     def __init__(self, opt, model, scene, train_views, val_views, body_model,
-                 interval_comp=1.0, lpips_params=None, device="cuda"):
+                 interval_comp=1.0, lpips_params=None, device="cuda", ops=KERNELS):
         self.opt, self.model, self.scene = opt, model, scene
         self.device = torch.device(device)
         self.out = opt.out
@@ -508,6 +520,7 @@ class HumanNeRFTrainer:
         all_views = sorted(set(train_views) | set(val_views))
         self.arrays = build_scene_arrays(scene, all_views, use_fused_depth=True,
                                          device=self.device)
+        self.all_views, self.body_model, self.interval_comp = all_views, body_model, interval_comp
         remap = {v: i for i, v in enumerate(all_views)}
         ids = lambda views: torch.tensor([remap[v] for v in views], device=self.device)
         self.train_ids = ids(train_views)
@@ -515,6 +528,7 @@ class HumanNeRFTrainer:
         hw = scene.captures[0].shape
         can_k, can_c2w = canonical_cameras(
             np.asarray(scene.static_vert[0]), body_model.J_regressor.cpu().numpy(), hw)
+        self.can_cap = canonical_capture(can_k[0], can_c2w[0], hw)
         as_t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt,
                                                            device=self.device)
         self.ctx = {
@@ -543,8 +557,8 @@ class HumanNeRFTrainer:
             "generator": torch.Generator(self.device).manual_seed(opt.seed),
             "init_generator": torch.Generator().manual_seed(opt.seed + 1),
         }
-        self.step_fn = make_human_train_step(model, opt, self.optimizer, self.ctx)
-        self.loss_fn = make_human_loss_fn(model, opt, self.ctx)
+        self.step_fn = make_human_train_step(model, opt, self.optimizer, self.ctx, ops=ops)
+        self.loss_fn = make_human_loss_fn(model, opt, self.ctx, ops=ops)
         self.pusher = tlog.MetricsPusher(opt)
         self.meter = tlog.ThroughputMeter(opt.rays_per_batch * 4 * opt.samples_per_ray)
         if opt.resume:
@@ -587,9 +601,11 @@ class HumanNeRFTrainer:
         self.validate()
 
     def validate(self):
-        """The losses on a batch of the validation views, and a checkpoint
-        (the canonical render and the SMPL overlay of the JAX trainer's
-        validation come with the other renders)."""
+        """The losses on a batch of the validation views; the canonical
+        render of canonical camera 0 (white background, with its depth and
+        acc maps, the depth clipped to the solid region) and the current body
+        shaded over the middle training view, written as PNGs beside
+        metrics.jsonl (`last_val_images` keeps their paths); a checkpoint."""
         gen = torch.Generator(self.device).manual_seed(self.iteration + 1)
         with torch.no_grad():
             batch = self.draw_batch(self.val_ids, gen)
@@ -598,6 +614,27 @@ class HumanNeRFTrainer:
         self.pusher.push_scalars(
             self.iteration, {f"val_loss/{k}": v for k, v in self.last_val_losses.items()},
             training=False)
+
+        opt = self.opt
+        rgb, depth_map, acc_map = (t.cpu().numpy() for t in renderer.render_smpl_nerf(
+            self.model.spec, self.model, self.can_cap, np.asarray(self.scene.static_vert[0]),
+            self.scene.faces, None, self.device, rays_per_batch=opt.rays_per_batch,
+            samples_per_ray=opt.samples_per_ray, white_bkg=True, render_can=True,
+            geo_threshold=opt.geo_threshold, interval_comp=self.interval_comp,
+            knn_k=self.ctx["knn_k"], topology=self.ctx["topo"]))
+        solid = acc_map >= 1.0 - 1e-10
+        if solid.any():
+            depth_map = np.clip(depth_map, depth_map[solid].min(), depth_map[solid].max())
+        overfit_id = int(self.train_ids[len(self.train_ids) // 2])
+        cap = self.scene.captures[self.all_views[overfit_id]]
+        with torch.no_grad():
+            verts = hn.vertex_forward(self.model, self.body_model, self.ctx["da_smpl"],
+                                      self.ctx["scale"], self.ctx["scene_ids"][overfit_id])[0]
+        overlay = rasterize.overlay_smpl(np.asarray(cap.image), verts[0].cpu().numpy(),
+                                         np.asarray(self.scene.faces)[:, :3], cap)
+        self.last_val_images = self.pusher.push_images(self.iteration, {
+            "val_can": rgb, "val_depth": depth_map, "val_acc": acc_map,
+            "val_smpl_overlay": overlay.astype(np.float32) / 255.0})
         self.save_model()
 
     def _moment_tree(self, name):

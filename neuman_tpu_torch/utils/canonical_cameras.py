@@ -4,6 +4,7 @@ port's copies of neuman_tpu/render/paths.py (`pose_spherical`,
 and the canonical intrinsics of the JAX HumanNeRFTrainer."""
 
 import math
+import types
 
 import numpy as np
 
@@ -75,3 +76,10 @@ def canonical_cameras(static_vert, j_regressor, hw, res=100):
     f = CANONICAL_ZOOM_FACTOR * w
     k = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]], np.float32)
     return np.tile(k[None], (res, 1, 1)), np.stack(poses).astype(np.float32)
+
+
+def canonical_capture(k, c2w, hw):
+    """One canonical camera as the capture the renderers read: .shape,
+    .intrinsic_matrix, .cam_pose.camera_to_world."""
+    return types.SimpleNamespace(shape=tuple(hw), intrinsic_matrix=np.asarray(k),
+                                 cam_pose=types.SimpleNamespace(camera_to_world=np.asarray(c2w)))

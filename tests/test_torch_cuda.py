@@ -270,3 +270,149 @@ def test_bucketed_knn_kernel_matches_plain(cuda, case):
     diff = idx != ref_idx
     assert ((score - ref_score).abs()[diff] <= 1e-5).all()
     assert diff.float().mean() <= 1e-2
+
+
+def _tape_case(kind, dtype, device):
+    """(forward with tape, backward(tape), plain forward with tape) of one
+    net at a sample count that is not a tile multiple."""
+    if kind == "offset":
+        spec, net = _offset_net(256, 8, (4,), device)
+        axes, cot = _offset_inputs(37, 24, device)
+        fwd = lambda fn: fn(spec, net, axes, dtype, emit_tape=True)
+        bwd = lambda tape: koff.offset_mlp_bwd(spec, net, axes, cot, dtype, tape=tape)
+        flat = lambda o: [t for wb in o[0] for t in wb] + list(o[1])
+        return fwd, koff.offset_mlp, koff.offset_mlp_plain, bwd, flat
+    per_sample = kind == "per_sample"
+    spec, net = _net("rotate" if per_sample else "posenc", 256, device)
+    planes, kw = _mlp_inputs(spec, net, per_sample, 37, 24, device, dtype)
+    g = torch.Generator().manual_seed(3)
+    cot = [torch.randn(37, 24, generator=g).to(device) for _ in range(4)]
+    fwd = lambda fn: fn(spec, net, *planes, compute_dtype=dtype, emit_tape=True, **kw)
+    bwd = lambda tape: kvjp.nerf_mlp_bwd(spec, net, *planes, cot[0], cot[1:],
+                                         compute_dtype=dtype, tape=tape, **kw)
+    return fwd, kmlp.nerf_mlp, kmlp.nerf_mlp_plain, bwd, _flat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["per_ray", "per_sample", "offset"])
+def test_tape_backward_is_bit_identical_to_recompute(cuda, kind, dtype, monkeypatch):
+    """The forward kernels' tape holds what the backward's chain pass
+    recomputes, bit for bit, so every gradient with the tape equals the
+    recompute configuration's exactly, over several ragged chunks; the tape
+    agrees with the plain version's at the forward's tolerances."""
+    monkeypatch.setattr(kvjp, "CHUNK_SAMPLES", 240)
+    monkeypatch.setattr(koff, "CHUNK_SAMPLES", 256)
+    fwd, kernel, plain, bwd, flat = _tape_case(kind, dtype, cuda)
+    _, tape = fwd(kernel)
+    _, ref_tape = fwd(plain)
+    assert tape.dtype == dtype and tape.shape == (37 * 24, 8 * 256)
+    if dtype == torch.float32:
+        torch.testing.assert_close(tape, ref_tape, atol=1e-4, rtol=0)
+    else:
+        assert (tape.float() - ref_tape.float()).abs().max() <= 5e-2 * ref_tape.float().abs().max()
+    for i, (a, b) in enumerate(zip(flat(bwd(tape)), flat(bwd(None)))):
+        assert torch.equal(a, b), f"output {i}: tape and recompute differ"
+
+
+def test_tape_functions_route_gradients_and_skip_no_grad(cuda, monkeypatch):
+    spec, net = _net("posenc", 64, cuda)
+    planes, kw = _mlp_inputs(spec, net, False, 16, 32, cuda)
+    net.requires_grad_(True)
+    grads = {}
+    for mode in ("recompute", "hbm"):
+        net.zero_grad()
+        sigma, rgb = kvjp.nerf_mlp_fn(spec, net, *planes, tape_mode=mode, **kw)
+        (sigma.sum() + sum(c.square().sum() for c in rgb)).backward()
+        grads[mode] = [p.grad.clone() for p in net.parameters() if p.grad is not None]
+    assert all(torch.equal(a, b) for a, b in zip(grads["recompute"], grads["hbm"]))
+    seen = []
+    real = kmlp._launch
+    monkeypatch.setattr(kmlp, "_launch", lambda *a: seen.append(a[-1]) or real(*a))
+    with torch.no_grad():
+        kvjp.nerf_mlp_fn(spec, net, *planes, tape_mode="hbm", **kw)
+    kvjp.nerf_mlp_fn(spec, net, *planes, tape_mode="hbm", **kw)
+    assert seen == [False, True]
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["gathered", "tables"])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_signed_select_kernel_matches_plain_and_unsigned(cuda, stride, tables):
+    """sd and the closest point equal the plain version's bit for bit
+    (--fmad=false), |sd|, closest point and face id the unsigned kernel's,
+    and the gradient the plain Function's."""
+    body = body_proxy_smpl_model(subdivisions=3, device=cuda)
+    topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, cuda)
+    g = torch.Generator().manual_seed(2)
+    pts = (body.v_template[torch.randint(0, body.num_verts, (4096,), generator=g).to(cuda)]
+           + 0.05 * torch.randn(4096, 3, generator=g).to(cuda))
+    tabs = mesh_ops.build_query_tables(body.v_template, topo) if tables else None
+    p3, rows9, vn9, cand, st = mesh_ops.candidate_operands(
+        pts, body.v_template, topo, k=4, knn_stride=stride, tables=tabs, normals=True)
+    before = kmq.ericson_signed_select.launches
+    p3 = p3.clone().requires_grad_(True)
+    sd, f_id, cp = kmq.ericson_signed_select(p3, rows9, vn9, cand, st)
+    assert kmq.ericson_signed_select.launches == before + 1
+    sd.sum().backward()
+    grad, p3.grad = p3.grad, None
+    rsd, rf, rcp = kmq.ericson_signed_select(p3, rows9, vn9, cand, st, plain=True)
+    rsd.sum().backward()
+    assert torch.equal(sd, rsd) and torch.equal(torch.stack(cp), torch.stack(rcp))
+    assert torch.equal(grad, p3.grad)
+    assert (kmq.tie_gap(p3.detach(), rows9, cand, st)[f_id != rf] <= 1e-6).all()
+    d2, uf, ucp = kmq.ericson_select(p3.detach(), rows9, cand, st)
+    assert torch.equal(sd.abs(), torch.sqrt(d2.clamp(min=0))) and torch.equal(f_id, uf)
+    assert torch.equal(torch.stack(cp), torch.stack(ucp))
+    assert (sd < 0).any() and (sd > 0).any()
+    full = mesh_ops.signed_distance(pts, body.v_template, topo, k=4, knn_stride=stride,
+                                    tables=tabs)[0]
+    assert (torch.sign(full) != torch.sign(sd)).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("frame", ["smpl_posed", "smpl_canonical", "multi_persons"])
+def test_render_frames_kernels_match_plain(cuda, frame):
+    """The human-only and multi-person frames through the kernels against
+    the plain path at the image-parity bar (40 dB), 36 x 48 in bf16."""
+    import math
+    import types
+
+    from neuman_tpu_torch.models import human_nerf, smpl
+    from neuman_tpu_torch.options.config import NeuManConfig
+    from neuman_tpu_torch.render import renderer
+
+    cfg = NeuManConfig(nerf_width=64, nerf_depth=6)  # the skip after layer 4 needs depth >= 6
+    spec = human_nerf.build_human_nerf_spec(cfg)
+    model = human_nerf.HumanNeRF(spec, device=cuda, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    model.coarse_bkg_net.nerf.alpha_linear.bias.fill_(0.5)
+    model.fine_bkg_net.nerf.alpha_linear.bias.fill_(0.5)
+    model.coarse_human_net.nerf.alpha_linear.bias.fill_(5.0)
+    body = body_proxy_smpl_model(subdivisions=3, device=cuda)
+    verts, ts = smpl.da_pose_to_scene(body, torch.zeros(1, 72, device=cuda),
+                                      torch.zeros(1, 10, device=cuda))
+    h, w = 36, 48
+    cap = types.SimpleNamespace(
+        shape=(h, w), near={"bkg": 0.5}, far={"bkg": 6.0},
+        intrinsic_matrix=[[40.0, 0.0, w / 2], [0.0, 40.0, h / 2], [0.0, 0.0, 1.0]],
+        cam_pose=types.SimpleNamespace(
+            camera_to_world=[[1.0, 0, 0, 0], [0, -1.0, 0, 0], [0, 0, -1.0, 3.0], [0, 0, 0, 1.0]]))
+    kw = dict(rays_per_batch=512, samples_per_ray=16, geo_threshold=0.2, knn_k=4, knn_stride=4)
+    shift = torch.tensor([0.8, 0.0, 0.0], device=cuda)
+    ts2 = ts.clone()
+    ts2[:, :3, 3] += shift
+    render = {
+        "smpl_posed": lambda use: renderer.render_smpl_nerf(
+            spec, model, cap, verts, body.faces, ts, cuda, use_kernels=use, **kw),
+        "smpl_canonical": lambda use: renderer.render_smpl_nerf(
+            spec, model, cap, body.v_template, body.faces, None, cuda, render_can=True,
+            use_kernels=use, **kw),
+        "multi_persons": lambda use: renderer.render_hybrid_nerf_multi_persons(
+            spec, model, cap, [spec, spec], [model, model], [verts, verts + shift],
+            [body.faces, body.faces], [ts, ts2], cuda, importance_samples_per_ray=16,
+            use_kernels=use, **kw),
+    }[frame]
+    before = kmlp.nerf_mlp.launches
+    out, ref = render(True), render(False)
+    assert kmlp.nerf_mlp.launches > before
+    assert out[0].shape == (h, w, 3) and all(torch.isfinite(x).all() for x in out)
+    psnr = -10.0 * math.log10(max(torch.mean((out[0] - ref[0]) ** 2).item(), 1e-20))
+    assert psnr >= 40.0, psnr

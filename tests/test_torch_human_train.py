@@ -553,3 +553,85 @@ def test_train_human_runs_on_the_cpu_when_asked(tmp_path):
     assert int(data["iteration"]) == 2 and set(data["hybrid_model"]) == {
         "coarse_bkg_net", "fine_bkg_net", "coarse_human_net", "offset_nets", "poses", "betas",
         "alignments"}
+
+
+def test_validate_writes_four_decodable_pngs(tmp_path):
+    """The visual half of the validation: the canonical render with its
+    depth and acc maps and the SMPL overlay, as PNGs beside metrics.jsonl
+    that an independent decoder (imageio) and the port's own read back at
+    the frame's size; the canonical frame shows the body on white."""
+    import imageio.v2 as imageio
+
+    from neuman_tpu_torch.trainers import logging as tlog
+
+    _, tcfg = _configs(tmp_path, max_iter=1, valid_iter=1, penalize_lpips=0.0, rays_per_batch=40)
+    _, tbody, smpl, _, tarr = _scene()
+    scene = tarrays.ArraysScene(
+        tarr, static_vert=list(tarr.verts.numpy()), faces=tbody.faces, scale=1.0,
+        smpls=[{"pose": p, "betas": b} for p, b in zip(smpl["poses"], smpl["betas"])],
+        alignments=smpl["alignments"])
+    model = thn.HumanNeRF(thn.build_human_nerf_spec(tcfg),
+                          generator=torch.Generator().manual_seed(0), **smpl)
+    with torch.no_grad():
+        model.coarse_human_net.nerf.alpha_linear.bias.fill_(3.0)
+    trainer = thuman.HumanNeRFTrainer(tcfg, model, scene, [0, 1, 2], [3], tbody, device="cpu")
+    trainer.validate()
+    names = [p.rsplit("/", 1)[1] for p in trainer.last_val_images]
+    assert names == [f"{n}_00000000.png" for n in ("val_can", "val_depth", "val_acc",
+                                                   "val_smpl_overlay")]
+    images = {}
+    for path, name in zip(trainer.last_val_images, names):
+        assert path == str(tmp_path / "test" / name)
+        own = tlog.decode_png(open(path, "rb").read())
+        assert own.shape == (H, W, 3) and own.dtype == np.uint8
+        np.testing.assert_array_equal(own, np.asarray(imageio.imread(path))[..., :3])
+        images[name.split("_0")[0]] = own
+    body = images["val_acc"][..., 0] > 127
+    assert 0.01 < body.mean() < 0.9
+    assert (images["val_can"][~body].min(axis=-1) > 200).all()  # white where nothing is
+    # the overlay is the training view with the shaded body composited in
+    view = scene.captures[trainer.all_views[int(trainer.train_ids[1])]].image
+    changed = (images["val_smpl_overlay"] != view).any(-1)
+    assert changed.mean() > 0.005 and not changed.all()
+
+
+def test_png_round_trip_and_push_images(tmp_path):
+    from neuman_tpu_torch.trainers import logging as tlog
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, size=(7, 5, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(tlog.decode_png(tlog.encode_png(img)), img)
+    with pytest.raises(ValueError):
+        tlog.encode_png(img.astype(np.float32))
+    with pytest.raises(ValueError):
+        tlog.decode_png(tlog.encode_png(img)[:-6] + b"\x00" * 6)
+    _, tcfg = _configs(tmp_path)
+    pusher = tlog.MetricsPusher(tcfg)
+    depth = np.linspace(2.0, 4.0, 12, dtype=np.float32).reshape(3, 4)
+    paths = pusher.push_images(12, {"rgb": img / 255.0 * 1.5 - 0.1, "depth": depth})
+    assert [p.rsplit("/", 1)[1] for p in paths] == ["rgb_00000012.png", "depth_00000012.png"]
+    got = tlog.decode_png(open(paths[0], "rb").read())
+    want = (np.clip(np.float32(img / 255.0 * 1.5 - 0.1), 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(got, want)
+    d = tlog.decode_png(open(paths[1], "rb").read())
+    assert d[0, 0].tolist() == [0, 0, 0] and d[-1, -1].tolist() == [255, 255, 255]
+
+
+def test_overlay_smpl_matches_jax():
+    """The port's copy of the numpy rasteriser against the JAX package's,
+    on one capture: exactly the same image."""
+    from neuman_tpu.render import rasterize as jrast
+    from neuman_tpu_torch.render import rasterize as trast
+
+    _, tbody, _, _, tarr = _scene()
+    scene = tarrays.ArraysScene(tarr)
+    cap = scene.captures[1]
+    verts = np.asarray(tbody.v_template) * 0.8
+    faces = np.asarray(tbody.faces)
+    got = trast.overlay_smpl(cap.image, verts, faces, cap)
+    want = jrast.overlay_smpl(cap.image, verts, faces, cap)
+    assert got.dtype == np.uint8 and got.shape == (H, W, 3)
+    np.testing.assert_array_equal(got, want)
+    assert 0.01 < (got != cap.image).any(-1).mean() < 0.9
+    np.testing.assert_array_equal(trast.rasterize_mesh(verts, faces[:, :3], cap),
+                                  jrast.rasterize_mesh(verts, faces[:, :3], cap))

@@ -45,6 +45,8 @@ MODULES = (
     "neuman_tpu_torch.models.nerf",
     "neuman_tpu_torch.utils.canonical_cameras",
     "neuman_tpu_torch.trainers.human",
+    "neuman_tpu_torch.render.rasterize",
+    "neuman_tpu_torch.tools.profile_frame",
     "chip_smoke",
 )
 

@@ -1,7 +1,8 @@
-"""The port's ericson_select and closest-point query vs neuman_tpu.
+"""The port's ericson_select, ericson_signed_select, closest-point query
+and signed distance vs neuman_tpu.
 
-On the CPU `ericson_select` runs its plain PyTorch version; the CUDA kernel
-is held to it on the card (tests/test_torch_cuda.py, and chip_smoke.py).
+On the CPU the wrappers run their plain PyTorch versions; the CUDA kernels
+are held to those on the card (tests/test_torch_cuda.py, and chip_smoke.py).
 """
 
 import numpy as np
@@ -10,7 +11,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from neuman_tpu.ops.pallas.meshquery import ericson_select_pallas
+from neuman_tpu.ops import mesh as jmesh
+from neuman_tpu.ops.pallas.meshquery import ericson_select_pallas, ericson_signed_select_pallas
 from neuman_tpu.utils.synthetic_body import synthetic_body_mesh
 from neuman_tpu_torch.ops import mesh as tmesh
 from neuman_tpu_torch.ops.kernels import meshquery as kmq
@@ -83,6 +85,91 @@ def test_ericson_select_envelope_gradient_matches_jax(body):
         jd2, _, _ = ericson_select_pallas(p, jnp.asarray(rows9.numpy()),
                                           jnp.asarray(cand.numpy()), True, stride)
         return jnp.sum(jd2 * w)
+
+    g = jax.grad(loss)(jnp.asarray(p3.detach().numpy()))
+    np.testing.assert_allclose(p3.grad.numpy(), np.asarray(g), atol=1e-5)
+
+
+def _signed_operands(body, stride, tables=False):
+    _, _, topo, verts, pts = body
+    tabs = tmesh.build_query_tables(verts, topo) if tables else None
+    return tmesh.candidate_operands(pts, verts, topo, k=4, knn_stride=stride, tables=tabs,
+                                    normals=True)
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_ericson_signed_select_matches_pallas(body, stride):
+    """sd and the closest point against the fused Pallas kernel in interpret
+    mode at 1e-6 (the same f32 operations), the face id outside ties; the
+    sign may differ only where |sd| is that small."""
+    p3, rows9, vn9, cand, stride = _signed_operands(body, stride)
+    assert vn9.shape == rows9.shape
+    sd, f_id, cp = kmq.ericson_signed_select(p3, rows9, vn9, cand, stride)
+    psd, pf, pcp = kmq.ericson_signed_select_plain(p3, rows9, vn9, cand, stride)
+    assert torch.equal(sd, psd) and torch.equal(f_id, pf)
+    assert all(torch.equal(a, b) for a, b in zip(cp, pcp))
+    jsd, jf, jcp = ericson_signed_select_pallas(
+        jnp.asarray(p3.numpy()), jnp.asarray(rows9.numpy()), jnp.asarray(vn9.numpy()),
+        jnp.asarray(cand.numpy()), True, stride)
+    np.testing.assert_allclose(sd.numpy(), np.asarray(jsd), atol=1e-6)
+    for a in range(3):
+        np.testing.assert_allclose(cp[a].numpy(), np.asarray(jcp[a]), atol=1e-6)
+    clear = (kmq.tie_gap(p3, rows9, cand, stride) > 1e-6).numpy()
+    np.testing.assert_array_equal(f_id.numpy()[clear], np.asarray(jf)[clear])
+    assert (sd < 0).any() and (sd > 0).any()
+    # and the unsigned kernel's outputs on the same operands, exactly
+    d2, uf, ucp = kmq.ericson_select(p3, rows9, cand, stride)
+    assert torch.equal(sd.abs(), torch.sqrt(d2.clamp(min=0))) and torch.equal(f_id, uf)
+    assert all(torch.equal(a, b) for a, b in zip(cp, ucp))
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["gathered", "tables"])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_signed_distance_fused_matches_jax_and_unfused(body, stride, tables):
+    """`signed_distance(fused=True)` against the JAX package's
+    use_pallas="fused" and against the port's unfused path: distances at
+    1e-5, closest points at 1e-4 (the bars of tests/test_mesh_ops.py), signs
+    equal wherever |sd| > 1e-5, face ids outside ties."""
+    verts_np, faces, topo, verts, pts = body
+    tabs = tmesh.build_query_tables(verts, topo) if tables else None
+    kw = dict(k=4, knn_stride=stride, tables=tabs)
+    sd, f_id, closest = tmesh.signed_distance(pts, verts, topo, fused=True, **kw)
+    usd, uf, uclosest = tmesh.signed_distance(pts, verts, topo, **kw)
+    plain = tmesh.signed_distance(pts, verts, topo, fused=True, use_kernels=False, **kw)
+    assert torch.equal(sd, plain[0]) and torch.equal(closest, plain[2])
+    assert closest.shape == (pts.shape[0], 3)
+    np.testing.assert_allclose(sd.numpy(), usd.numpy(), atol=1e-5)
+    np.testing.assert_allclose(closest.numpy(), uclosest.numpy(), atol=1e-4)
+    assert torch.equal(f_id, uf)
+    jtopo = jmesh.MeshTopology.build(faces, len(verts_np))
+    jtabs = jmesh.build_query_tables(jnp.asarray(verts_np), jtopo) if tables else None
+    jsd, jf, jclosest = jmesh.signed_distance(
+        jnp.asarray(pts.numpy()), jnp.asarray(verts_np), jtopo, k=4, knn_stride=stride,
+        tables=jtabs, use_pallas="fused")
+    jsd = np.asarray(jsd)
+    np.testing.assert_allclose(np.abs(sd.numpy()), np.abs(jsd), atol=1e-5)
+    np.testing.assert_allclose(closest.numpy(), np.asarray(jclosest), atol=1e-4)
+    far = np.abs(jsd) > 1e-5
+    np.testing.assert_array_equal(np.sign(sd.numpy())[far], np.sign(jsd)[far])
+    assert 0.02 < (jsd < 0).mean() < 0.98
+
+
+def test_signed_select_gradient_matches_jax(body):
+    """d sd / d p = sign(sd) (p - cp) / |sd| against jax.grad through the
+    fused kernel's custom VJP, 1e-5; nothing flows into the mesh."""
+    p3, rows9, vn9, cand, stride = _signed_operands(body, 4, tables=True)
+    w = np.random.default_rng(1).uniform(0.5, 1.5, size=p3.shape[1]).astype(np.float32)
+    p3 = p3.clone().requires_grad_(True)
+    rows9, vn9 = rows9.clone().requires_grad_(True), vn9.clone().requires_grad_(True)
+    sd, _, _ = kmq.ericson_signed_select(p3, rows9, vn9, cand, stride)
+    (sd * torch.tensor(w)).sum().backward()
+    assert rows9.grad is None and vn9.grad is None
+
+    def loss(p):
+        jsd, _, _ = ericson_signed_select_pallas(
+            p, jnp.asarray(rows9.detach().numpy()), jnp.asarray(vn9.detach().numpy()),
+            jnp.asarray(cand.numpy()), True, stride)
+        return jnp.sum(jsd * w)
 
     g = jax.grad(loss)(jnp.asarray(p3.detach().numpy()))
     np.testing.assert_allclose(p3.grad.numpy(), np.asarray(g), atol=1e-5)

@@ -174,3 +174,78 @@ def test_render_hybrid_nerf_matches_jax(scene, dtype):
     np.testing.assert_array_equal(acc.numpy() > 0, hit)
     if dtype == "float32":
         np.testing.assert_allclose(depth.numpy(), ref_depth, rtol=1e-3, atol=1e-3)
+
+
+def _psnr(a, b):
+    return -10.0 * np.log10(max(float(np.mean((np.asarray(a) - np.asarray(b)) ** 2)), 1e-12))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("render_can", [False, True], ids=["posed", "canonical"])
+def test_render_smpl_nerf_matches_jax(scene, dtype, render_can):
+    """The human-only frame, posed (warp, per-sample directions) and in
+    canonical space (no warp, per-ray directions, Ts=None), with a density
+    scale, at the test_image_parity bar; misses are white with depth 0 and
+    acc 0 on both sides."""
+    jspec, params, tspec, model, faces, verts, ts = scene
+    cap = _capture()
+    kw = dict(rays_per_batch=128, samples_per_ray=S, geo_threshold=0.2, knn_k=4, knn_stride=4,
+              render_can=render_can, interval_comp=1.3)
+    Ts = None if render_can else ts
+    ref_rgb, ref_depth, ref_acc = jrenderer.render_smpl_nerf(
+        jspec, params, cap, verts, faces, Ts, return_depth=True, return_mask=True,
+        compute_dtype_name=dtype, dispatch="compact", **kw)
+    rgb, depth, acc = trenderer.render_smpl_nerf(
+        tspec, model, cap, verts, faces, Ts, device="cpu", compute_dtype=getattr(torch, dtype), **kw)
+    assert rgb.shape == (24, 16, 3) and depth.shape == acc.shape == (24, 16)
+    assert _psnr(rgb, ref_rgb) >= 40.0
+    hit = ref_acc > 0
+    assert 0.05 < hit.mean() < 0.95
+    np.testing.assert_array_equal(acc.numpy() > 0, hit)
+    assert (rgb.numpy()[~hit] == 1.0).all() and (depth.numpy()[~hit] == 0.0).all()
+    tol = 1e-3 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(acc.numpy(), ref_acc, atol=tol)
+    np.testing.assert_allclose(depth.numpy(), ref_depth, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_render_multi_persons_matches_jax(scene, dtype):
+    """Two actors (the body, and a copy 0.6 to the side) composited into the
+    scene at the test_image_parity bar; rays outside every actor equal the
+    background-only render."""
+    jspec, params, tspec, model, faces, verts, ts = scene
+    cap = _capture()
+    shift = np.array([0.6, 0.0, 0.0], np.float32)
+    ts2 = ts.copy()
+    ts2[:, :3, 3] += shift
+    kw = dict(rays_per_batch=128, samples_per_ray=S, importance_samples_per_ray=I,
+              geo_threshold=0.2, knn_k=4, knn_stride=4)
+    ref_rgb, ref_depth = jrenderer.render_hybrid_nerf_multi_persons(
+        jspec, params, cap, [jspec, jspec], [params, params], [verts, verts + shift],
+        [faces, faces], [ts, ts2], return_depth=True, compute_dtype_name=dtype,
+        dispatch="compact", **kw)
+    cd = getattr(torch, dtype)
+    rgb, depth = trenderer.render_hybrid_nerf_multi_persons(
+        tspec, model, cap, [tspec, tspec], [model, model], [verts, verts + shift],
+        [faces, faces], [ts, ts2], device="cpu", compute_dtype=cd, **kw)
+    assert rgb.shape == (24, 16, 3) and depth.shape == (24, 16)
+    assert _psnr(rgb, ref_rgb) >= 40.0
+    if dtype == "float32":
+        np.testing.assert_allclose(depth.numpy(), ref_depth, rtol=1e-3, atol=1e-3)
+    bkg = trenderer.render_vanilla(
+        tspec.bkg, model.coarse_bkg_net.nerf, cap, model.fine_bkg_net.nerf, "cpu",
+        rays_per_batch=128, samples_per_ray=S, importance_samples_per_ray=I, compute_dtype=cd)
+    o, d = trenderer.cap_rays(cap, "cpu")
+    miss = torch.ones(o.shape[0], dtype=torch.bool)
+    for v in (verts, verts + shift):
+        near, far = trays.geometry_guided_near_far(o, d, t(v), 0.2)
+        miss &= ~(near < far)
+    assert 0.05 < miss.float().mean() < 0.95
+    assert torch.equal(rgb.reshape(-1, 3)[miss], bkg.reshape(-1, 3)[miss])
+    # one actor alone is the hybrid frame of that actor
+    one, _ = trenderer.render_hybrid_nerf_multi_persons(
+        tspec, model, cap, [tspec], [model], [verts], [faces], [ts], device="cpu",
+        compute_dtype=cd, **kw)
+    hybrid = trenderer.render_hybrid_nerf(tspec, model, cap, verts, faces, ts, device="cpu",
+                                          compute_dtype=cd, **kw)[0]
+    assert _psnr(one, hybrid) >= 40.0
