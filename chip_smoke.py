@@ -6,7 +6,9 @@
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc builds the six kernel libraries (seven kernels) from
-     neuman_tpu_torch/csrc/ (sm_90a), all started together;
+     neuman_tpu_torch/csrc/ (sm_90a), all started together; then each
+     kernel of the nerf_mlp pair with its registers, spill bytes and stack
+     (ptxas -v) and the dynamic shared memory it launches with;
   3. mlp: nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
      PE 10 + 4 bands), R=1024 x S=64: per-ray posenc and per-sample
      rotate, f32 and bf16;
@@ -266,6 +268,37 @@ def phase_build():
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_library={k: round(v, 2) for k, v in _build.build_seconds.items()},
         dir=os.path.relpath(_build.BUILD_DIR, ROOT))
+    # dynamic shared memory of the forward, chain-pass and dW kernels
+    smem = {"nerf_mlp_kernel": nerf_mlp._lib().nerf_mlp_shared_bytes,
+            "bwd_chain_kernel": functools.partial(nerf_mlp_vjp._lib().nerf_mlp_bwd_shared_bytes, 0),
+            "dw_kernel": functools.partial(nerf_mlp_vjp._lib().nerf_mlp_bwd_shared_bytes, 1)}
+    spills = []
+    for lib in ("nerf_mlp", "nerf_mlp_bwd"):
+        for fn, res in sorted(_build.kernel_resources(lib).items()):
+            kernel, dtype, width = _kernel_name(fn)
+            if kernel is None or "registers" not in res:
+                continue
+            shared = smem[kernel](width or 256, int(dtype == "bf16")) if kernel in smem else 0
+            log("ptxas", library=lib, kernel=kernel, dtype=dtype, width=width or "any",
+                registers=res["registers"], spill_stores=res.get("spill_stores", 0),
+                spill_loads=res.get("spill_loads", 0), stack=res.get("stack", 0),
+                dynamic_smem=shared)
+            if res.get("spill_stores", 0) or res.get("spill_loads", 0):
+                spills.append(f"{lib}:{kernel}<{dtype},{width}>")
+    log("ptxas_spills", kernels=",".join(spills) or "none")
+
+
+def _kernel_name(mangled):
+    """(kernel, dtype, width) of a mangled kernel name of the nerf_mlp pair,
+    or (None, None, None) for another function."""
+    import re
+
+    m = re.search(r"(nerf_mlp_kernel|bwd_chain_kernel|dw_kernel|bwd_ddir_kernel|dw_reduce_kernel)"
+                  r"(I(f|13__nv_bfloat16)(Li(\d+)E)?E)?", mangled)
+    if m is None:
+        return None, None, None
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}.get(m.group(3), "f32")
+    return m.group(1), dtype, int(m.group(5)) if m.group(5) else None
 
 
 def _fwd_compare(spec, net, planes, kw, dtype):

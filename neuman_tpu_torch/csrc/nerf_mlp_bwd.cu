@@ -1,286 +1,196 @@
 // Recompute backward of the fused PE + NeRF MLP (the VJP of nerf_mlp.cu).
 //
 // Replaces neuman_tpu/ops/pallas/raymarch_vjp.py `_mlp_bwd` (kernel body
-// :184, pallas_call :371, wrapper `make_mlp_vjp` :417) in both direction
-// modes: per-ray (dir_part [R, W/2] in, d_dir [R, W/2] out) and per-sample
-// (direction planes in, d_dir 3 x [N] out), both PE mappings, f32 and bf16.
-// Semantics kept from the TPU kernel: the forward is recomputed in the
-// compute dtype; ReLU masks come from the recomputed post-activation values
-// (> 0); in bf16 every product takes bf16 operands, the cotangents included,
-// and accumulates in f32; the PE and its derivative are f32.
+// :184, pallas_call :371, wrapper `make_mlp_vjp` :417, `tape=` :229-240) in
+// both direction modes: per-ray (dir_part [R, W/2] in, d_dir [R, W/2] out)
+// and per-sample (direction planes in, d_dir 3 x [N] out), both PE
+// mappings, f32 and bf16. Semantics kept from the TPU kernel: the forward is
+// recomputed in the compute dtype; ReLU masks come from the post-activation
+// values (> 0); in bf16 every product takes bf16 operands, the cotangents
+// included, and accumulates in f32; the PE and its derivative are f32.
 //
-// Where the card differs from the TPU, and what this design does about it:
+// What bounds it on an H100: ~3x the forward's multiply-adds (1.77 M a
+// sample at 8 x 256: the forward, the input gradients, the weight
+// gradients) at 989 TFLOP/s in bf16 and 67 TFLOP/s in f32, and the tape:
+// ~10 KB (bf16) / ~20 KB (f32) a sample written by the chain pass and read
+// back by the dW pass.
 //
-// 1. The TPU kernel keeps every layer's activations of a 1024-lane tile in
-//    VMEM. A 64-sample tile of them (~2,800 values a sample) is ~720 KB in
-//    f32, over a block's 227 KB. Here a block keeps only two ping-pong
-//    [64][LD] buffers in shared memory (the same plan as nerf_mlp.cu) and
-//    writes each layer's input and output values of the tile to a "tape" in
-//    global memory: PE, the trunk posts, feature, dir PE, h2, the
-//    cotangents, and on the way down every layer's pre-activation gradient.
-//    The tape holds one chunk of whole rays (~32k samples, ~650 MB in f32)
-//    and is reused chunk after chunk.
+// Three passes per chunk of whole rays (the TPU kernel's grid is sequential
+// and sums dW in place; blocks here run in parallel):
 //
-// 2. dW is a sum over all R*S samples; on the TPU the grid is sequential
-//    and accumulates in place. Blocks here run in parallel, so the sum is
-//    three passes per chunk, all in fixed order (the second and third are in
-//    mlp_dw.cuh, shared with offset_mlp_bwd.cu): `bwd_chain_kernel` (one
-//    block per 64-sample tile: recompute forward, propagate d_h down the
-//    net, write the tape, d_planes and per-sample d_dir); `bwd_dw_kernel`
-//    (dW[o, k] = sum_s d_pre[s, o] h_in[s, k] of every layer as 64x64 output
-//    tiles; the chunk's samples are split into KSPLIT contiguous ranges, one
-//    block per tile and range, each writing its own partial); and
-//    `bwd_reduce_kernel` (grad += the KSPLIT partials, in order, one thread
-//    per element). No atomics: two runs give bit-identical gradients.
+// 1. `bwd_chain_kernel`, on mlp_hopper.cuh's building blocks (the forward
+//    kernel's design: persistent blocks, weight slabs streamed by a producer
+//    warp through a shared-memory ring with cp.async.bulk on mbarriers,
+//    wgmma in bf16 with two 64-sample tiles a block, register-blocked FMAs in
+//    f32): recompute the forward of a tile with the forward kernel's
+//    functions (`trunk`, `feature_views`), then propagate d_h down the net
+//    with the transposed weights, each layer's output written over its input
+//    in shared memory. It writes every value a dW product reads to the
+//    chunk's tape in device memory (PE, posts, feature, dir PE, h2, the
+//    cotangents, d_pre2, d_feature and every layer's d_pre), 16 bytes a
+//    store, and d_planes and per-sample d_dir itself.
+// 2. `dw_kernel` (mlp_hopper.cuh): dW = d_pre^T h_in of every layer from the
+//    tape, as a Hopper GEMM: 128 x 128 output tiles, operands as TMA boxes
+//    into a shared-memory ring, wgmma with both operands MN-major (bf16) or
+//    register-blocked FMAs (f32); the chunk's samples split into contiguous
+//    ranges, one partial each, and `dw_reduce_kernel` adds them in order. No
+//    atomics: two runs give bit-identical gradients.
+// 3. Per-ray mode: d_dir sums d_pre2 over a ray's S samples, which span
+//    tiles; `bwd_ddir_kernel` sums each ray's rows of the tape in order.
 //
-// 3. In per-ray mode d_dir sums d_pre2 over a ray's S samples, which span
-//    several tiles. Chunks hold whole rays, and `bwd_ddir_kernel` sums each
-//    ray's rows of the tape in order, one thread per (ray, column).
-//
-// 4. Products: f32 FMAs on CUDA cores in f32 (bound by FMA issue, ~3x the
-//    forward's 0.59 M multiply-adds a sample); bf16 mma.sync m16n8k16 with
-//    f32 accumulation in bf16, as the forward kernel. The narrow heads
-//    (alpha: 1 output, rgb: 3) run on CUDA cores. The dW tiles stage their
-//    operands through shared memory, transposed so that the MMA fragments
-//    are pairs along the sample axis. The tape costs ~20 KB a sample of
-//    traffic in f32 (written once, read ~twice), well under the FMA time.
-//
-// 5. The "hbm" configuration (`fwd_tape`, the TPU kernel's `tape=`): the
-//    forward kernel has written the trunk's post-ReLU values, sample-major
-//    [N, depth * W], and the chain pass reads them instead of recomputing
-//    the trunk: it loads the last layer's posts for the feature product and
-//    takes the ReLU masks from the forward's rows; PE, feature, the view
-//    head and everything downstream are computed as in the recompute
-//    configuration. The values are the recomputed ones bit for bit (the
-//    same products in the same order), so the gradients are too. The dW
-//    pass reads them in place too, through `DwArgs::post` (base pointer
-//    and row stride of the posts). The alternative, the chain pass copying
-//    the posts into the chunk tape for the dW pass, writes and reads the
-//    posts once more for nothing the dW pass needs; it was the slower of
-//    the two on an H100 while both existed, and was deleted.
+// The "hbm" configuration (`fwd_tape`, the TPU kernel's `tape=`): the
+// forward kernel has written the trunk's post-ReLU values, sample-major
+// [N, depth * W]; the chain pass loads the last layer's posts instead of
+// recomputing the trunk and takes the ReLU masks from the forward's rows,
+// and the dW pass reads them in place through a second tensor map. The
+// forward's trunk is the chain pass's (`trunk`), so the values, and the
+// gradients, are the recompute configuration's bit for bit.
 
-#include "mlp_dw.cuh"
+#include "mlp_hopper.cuh"
 
 namespace {
 
-// ------------------------------------------------------------ chain pass
-
 struct ChainArgs {
-  const float *px, *py, *pz;  // [N] sample positions
-  const float *dx, *dy, *dz;  // [N] per-sample directions, or null
-  const float* dir_part;      // [R, W/2] per-ray direction term, or null
-  const float* g;             // [4, N] cotangents of sigma, r, g, b
-  const void* wf;             // weights as the forward kernel packs them
-  const void* wb;             // the same layers transposed (see the wrapper)
-  const float* bias;          // packed biases, forward order
-  const float* head_a;        // [W] alpha weights, rounded to the compute dtype
-  const float* head_rgb;      // [3, W/2] rgb weights, rounded likewise
-  float* d_planes;            // [3, N]
-  float* d_dir;               // per-sample: [3, N]; per-ray: unused here
-  void* tape;                 // [chunk rows, ldt] compute dtype
-  const void* fwd_tape;       // [N, depth * W] posts from the forward, or null
-  PE pos, dir;
-  int n, spr, depth, width, skip_mask;
-  int ld, cp, cd, dld;        // smem row stride, PE / dir-PE widths, d_pe stride
-  int ldt, t_post, t_feat, t_dpe, t_h2, t_g, t_dpre, t_dfeat, t_dpre2;
-  int c0, lim;                // chunk's first sample; samples >= lim are padding
+  Net net;
+  const unsigned char* img;  // weight slab images: the forward's, then the transposed layers'
+  const uint2* slabs;
+  int n_slabs;
+  const float* g;          // [4, N] cotangents of sigma, r, g, b
+  const float* head_a;     // [W] alpha weights, rounded to the compute dtype
+  const float* head_rgb;   // [3, W/2] rgb weights, likewise
+  float* d_planes;         // [3, N]
+  float* d_dir;            // per-sample: [3, N]; per-ray: unused here
+  void* tape;              // [chunk rows, ldt] compute dtype
+  const void* fwd_tape;    // [N, depth * W] posts from the forward, or null
+  int n, ldt, t_post, t_feat, t_dpe, t_h2, t_g, t_dpre, t_dfeat, t_dpre2;
+  int c0, lim;             // the chunk's first sample; samples >= lim are padding
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) bwd_chain_kernel(ChainArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* nxt = cur + TN * a.ld;
-  float* dpe = reinterpret_cast<float*>(nxt + TN * a.ld);  // [TN][dld] f32
-  const int t0 = blockIdx.x * TN, n0 = a.c0 + t0, lim = a.lim;
-  const int w = a.width, cp = a.cp, half = w / 2, ld = a.ld, n = a.n;
-  const bool per_sample = a.dx != nullptr;
-  T* tape = static_cast<T*>(a.tape) + (size_t)t0 * a.ldt;
-  const int ldt = a.ldt;
-  // the trunk posts of the tile's first sample and their row stride: the
-  // chunk tape's columns, or the forward's tape (rows at or past lim unread)
+template <typename T, int W>
+__device__ void chain(const ChainArgs& a, Ring& ring, unsigned char* rest, int units, int tiles) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  constexpr int HALF = W / 2, KB_HALF = (HALF + 63) / 64;
+  const int gi = threadIdx.x / 32 / (CONSUMER_WARPS / G);
+  Tile<T> t = make_tile<T, W>(rest, gi, true);
+  const Net& net = a.net;
+  const bool per_sample = net.dx != nullptr;
+  const int ldt = a.ldt, lim = a.lim, depth = net.depth;
   const T* fwd = static_cast<const T*>(a.fwd_tape);
-  const int ldp = fwd != nullptr ? a.depth * w : ldt;
-  const T* posts = fwd != nullptr ? fwd + (size_t)n0 * ldp : tape + a.t_post;
-  auto swap = [&]() { T* t = cur; cur = nxt; nxt = t; };
-  auto in_dim_of = [&](int i, bool& has_pe) {
-    const bool after_skip = i > 0 && ((a.skip_mask >> (i - 1)) & 1);
-    has_pe = i == 0 || after_skip;
-    return i == 0 ? cp : (after_skip ? cp + w : w);
-  };
-  const int v_dim = per_sample ? w + a.cd : w;
-  // layer offsets in the packed weights (forward order, the same in wf and wb)
-  size_t off[MAX_LAYERS];
-  {
-    size_t o = 0;
-    bool hp;
-    for (int i = 0; i < a.depth; ++i) { off[i] = o; o += (size_t)in_dim_of(i, hp) * w; }
-    off[a.depth] = o;          // alpha
-    off[a.depth + 1] = o + w;  // feature
-    off[a.depth + 2] = o + w + (size_t)w * w;  // views
-  }
-  const T* wf = static_cast<const T*>(a.wf);
-  const T* wb = static_cast<const T*>(a.wb);
+  const int ldp = fwd != nullptr ? depth * W : ldt;
+  float* dpe = t.dpe;
+  float* gs = t.scr;  // [HT][4] cotangents
+  const float* head_a = a.head_a;
+  const auto keep = [](int, int, float v) { return v; };
+  const Mask<T> no_mask{nullptr, 0};
+  const Rows<T> no_rows{nullptr, 0, 0};
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = u * G + gi;
+    if (tile >= tiles) {
+      drain(ring, a.n_slabs);
+      continue;
+    }
+    t.n0 = a.c0 + tile * HT;
+    t.rows = min(HT, lim - t.n0);
+    const int n0 = t.n0;
+    T* tape = static_cast<T*>(a.tape) + (size_t)tile * HT * ldt;
+    auto col = [&](int c) { return Rows<T>{tape + c, ldt, HT}; };
+    // the trunk posts of the tile's first sample: the chunk tape's, or the forward's
+    const T* posts = fwd != nullptr ? fwd + (size_t)n0 * ldp : tape + a.t_post;
 
-  // ---- forward recompute; every value that a dW product reads goes to the tape
-  pe_fill(cur, ld, 0, cp, a.pos, a.px, a.py, a.pz, n0, lim);
-  pe_fill(nxt, ld, 0, cp, a.pos, a.px, a.py, a.pz, n0, lim);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TN * cp; idx += blockDim.x) {
-    const int s = idx / cp, c = idx % cp;
-    tape[(size_t)s * ldt + c] = cur[s * ld + c];
+    // ---- forward; every value a dW product reads goes to the tape
+    pe_fill(t, 0, net.pos, net.px, net.py, net.pz, lim);
+    rows_out(t, 0, 64, col(0));
+    if (fwd == nullptr) trunk<T, W>(t, ring, net, tape + a.t_post, ldt, HT);
+    else rows_in(t, 64, W, posts + (depth - 1) * W, ldp);
+    feature_views<T, W>(t, ring, net, lim, col(a.t_feat), per_sample ? col(a.t_dpe) : no_rows,
+                        col(a.t_h2));
+
+    // ---- backward
+    // cotangents, rounded to the compute dtype as the products take them
+    for (int idx = t.g.tid; idx < HT * 4; idx += t.g.nthr) {
+      const int s = idx / 4, c = idx % 4;
+      const T v = cvt<T>(n0 + s < lim ? a.g[(size_t)c * a.n + n0 + s] : 0.f);
+      gs[idx] = tof(v);
+      tape[(size_t)s * ldt + a.t_g + (c == 0 ? 0 : 7 + c)] = v;
+    }
+    t.g.sync();
+    // d_pre2 = [h2 > 0] (g_rgb . W_rgb), over h2
+    for (int idx = t.g.tid; idx < HT * HALF; idx += t.g.nthr) {
+      const int s = sizeof(T) == 2 ? idx / HALF : idx % HT, o = sizeof(T) == 2 ? idx % HALF : idx / HT;
+      float dh = 0.f;
+      for (int c = 0; c < 3; ++c) dh = fmaf(gs[s * 4 + 1 + c], a.head_rgb[c * HALF + o], dh);
+      T* p = t.act.at(s, 64 + o);
+      *p = cvt<T>(tof(*p) > 0.f ? dh : 0.f);
+    }
+    if (sizeof(T) == 2) fence_async_smem();
+    t.g.sync();
+    rows_out(t, 64, HALF, col(a.t_dpre2));
+    // [d_dirpe, d_feature] = d_pre2 . W_views; d_feature over d_pre2
+    if (per_sample)
+      product<64, false>(t, ring, 1, KB_HALF, 0,
+                         [dpe](int s, int o, float v) { dpe[s * DLD + o] = v; return v; },
+                         no_mask, no_rows);
+    product<W, true>(t, ring, 1, KB_HALF, 64, keep, no_mask, col(a.t_dfeat));
+    if (per_sample) {
+      for (int s = t.g.tid; s < HT; s += t.g.nthr) {
+        const int g = n0 + s;
+        if (g >= lim) continue;
+        float d[3];
+        pe_bwd(net.dir, net.dx[g], net.dy[g], net.dz[g], dpe + s * DLD, d);
+        for (int c = 0; c < 3; ++c) a.d_dir[(size_t)c * a.n + g] = d[c];
+      }
+      t.g.sync();
+    }
+    for (int idx = t.g.tid; idx < HT * DLD; idx += t.g.nthr) dpe[idx] = 0.f;
+    // top of the trunk: d_h = d_feature . W_feature + g_alpha W_alpha
+    product<W, true>(t, ring, 1, W / 64, 64,
+                     [gs, head_a](int s, int o, float v) { return v + gs[s * 4] * head_a[o]; },
+                     Mask<T>{posts + (depth - 1) * W, ldp}, col(a.t_dpre + (depth - 1) * W));
+    // down the trunk: layer i's input gradient; its PE part accumulates in f32
+    for (int i = depth - 1; i >= 0; --i) {
+      if (has_pe(net, i))
+        product<64, false>(t, ring, 1, W / 64, 0,
+                           [dpe](int s, int o, float v) { dpe[s * DLD + o] += v; return v; },
+                           no_mask, no_rows);
+      if (i > 0)
+        product<W, true>(t, ring, 1, W / 64, 64, keep, Mask<T>{posts + (i - 1) * W, ldp},
+                         col(a.t_dpre + (i - 1) * W));
+    }
+    t.g.sync();
+    for (int s = t.g.tid; s < HT; s += t.g.nthr) {
+      const int g = n0 + s;
+      if (g >= lim) continue;
+      float d[3];
+      pe_bwd(net.pos, net.px[g], net.py[g], net.pz[g], dpe + s * DLD, d);
+      for (int c = 0; c < 3; ++c) a.d_planes[(size_t)c * a.n + g] = d[c];
+    }
+    t.g.sync();
   }
-  const float* bias = a.bias;
-  if (fwd == nullptr) {
-    for (int i = 0; i < a.depth; ++i) {
-      bool has_pe;
-      const int in_dim = in_dim_of(i, has_pe);
-      T* dst = nxt;
-      T* trow = tape + a.t_post + i * w;
-      dense(cur, ld, has_pe ? 0 : cp, in_dim, wf + off[i], w, [&](int s, int o, float v) {
-        const T tv = cvt<T>(fmaxf(v + bias[o], 0.f));
-        dst[s * ld + cp + o] = tv;
-        trow[(size_t)s * ldt + o] = tv;
-      });
-      bias += w;
-      __syncthreads();
-      swap();
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1) bwd_chain_kernel(ChainArgs a, int stages) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  Ring ring;
+  unsigned char* rest = ring_setup(ring, stages);
+  const int tiles = (a.lim - a.c0 + HT - 1) / HT, units = (tiles + G - 1) / G;
+  const int warp = threadIdx.x / 32;
+  if (warp >= CONSUMER_WARPS) {
+    producer_registers();
+    if (threadIdx.x == PRODUCER_WARP * 32) {
+      const int reps = (int)blockIdx.x < units ? (units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+      produce(ring, a.img, a.slabs, a.n_slabs, reps);
     }
   } else {
-    // the last layer's posts feed the feature product; both buffers hold the PE
-    const T* last = posts + (a.depth - 1) * w;
-    for (int idx = threadIdx.x; idx < TN * w; idx += blockDim.x) {
-      const int s = idx / w, o = idx % w;
-      cur[s * ld + cp + o] = n0 + s < lim ? last[(size_t)s * ldp + o] : cvt<T>(0.f);
-    }
-    bias += a.depth * w;
-    __syncthreads();
-  }
-  bias += 1;  // alpha
-  {
-    T* dst = nxt;
-    dense(cur, ld, cp, w, wf + off[a.depth + 1], w, [&](int s, int o, float v) {
-      const T tv = cvt<T>(v + bias[o]);
-      dst[s * ld + o] = tv;
-      tape[(size_t)s * ldt + a.t_feat + o] = tv;
-    });
-  }
-  bias += w;
-  if (per_sample) pe_fill(nxt, ld, w, a.cd, a.dir, a.dx, a.dy, a.dz, n0, lim);
-  __syncthreads();
-  swap();
-  if (per_sample) {
-    for (int idx = threadIdx.x; idx < TN * a.cd; idx += blockDim.x) {
-      const int s = idx / a.cd, c = idx % a.cd;
-      tape[(size_t)s * ldt + a.t_dpe + c] = cur[s * ld + w + c];
-    }
-  }
-  dense(cur, ld, 0, v_dim, wf + off[a.depth + 2], half, [&](int s, int o, float v) {
-    v += bias[o];
-    const int gs = n0 + s;
-    if (!per_sample && gs < lim) v += a.dir_part[(size_t)(gs / a.spr) * half + o];
-    tape[(size_t)s * ldt + a.t_h2 + o] = cvt<T>(fmaxf(v, 0.f));
-  });
-  __syncthreads();
-
-  // ---- backward
-  // cotangents (rounded to the compute dtype, as the dots take them), and
-  // d_pre2 = [h2 > 0] * (g_rgb . W_rgb) on CUDA cores
-  for (int idx = threadIdx.x; idx < TN * 4; idx += blockDim.x) {
-    const int s = idx / 4, c = idx % 4, gs = n0 + s;
-    tape[(size_t)s * ldt + a.t_g + c] = cvt<T>(gs < lim ? a.g[(size_t)c * n + gs] : 0.f);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TN * half; idx += blockDim.x) {
-    const int s = idx / half, o = idx % half;
-    const T* row = tape + (size_t)s * ldt;
-    float dh = 0.f;
-    for (int c = 0; c < 3; ++c) dh += tof(row[a.t_g + 1 + c]) * a.head_rgb[c * half + o];
-    const T tv = cvt<T>(tof(row[a.t_h2 + o]) > 0.f ? dh : 0.f);
-    cur[s * ld + o] = tv;
-    tape[(size_t)s * ldt + a.t_dpre2 + o] = tv;
-  }
-  __syncthreads();
-  // [d_feature, d_dirpe] = d_pre2 . W_views
-  {
-    T* dst = nxt;
-    const int dld = a.dld;
-    dense(cur, ld, 0, half, wb + off[a.depth + 2], v_dim, [&](int s, int o, float v) {
-      if (o < w) {
-        const T tv = cvt<T>(v);
-        dst[s * ld + cp + o] = tv;
-        tape[(size_t)s * ldt + a.t_dfeat + o] = tv;
-      } else {
-        dpe[s * dld + o - w] = v;
-      }
-    });
-  }
-  __syncthreads();
-  if (per_sample) {
-    for (int s = threadIdx.x; s < TN; s += blockDim.x) {
-      const int gs = n0 + s;
-      if (gs >= lim) continue;
-      float d[3];
-      pe_bwd(a.dir, a.dx[gs], a.dy[gs], a.dz[gs], dpe + s * a.dld, d);
-      for (int c = 0; c < 3; ++c) a.d_dir[(size_t)c * n + gs] = d[c];
-    }
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < TN * a.dld; idx += blockDim.x) dpe[idx] = 0.f;
-  swap();
-  // top of the trunk: d_h = d_feature . W_feature + g_alpha W_alpha
-  {
-    T* dst = nxt;
-    const T* post = posts + (a.depth - 1) * w;
-    T* dpre = tape + a.t_dpre + (a.depth - 1) * w;
-    dense(cur, ld, cp, w, wb + off[a.depth + 1], w, [&](int s, int o, float v) {
-      v += tof(tape[(size_t)s * ldt + a.t_g]) * a.head_a[o];
-      const bool on = n0 + s < lim && tof(post[(size_t)s * ldp + o]) > 0.f;
-      const T tv = cvt<T>(on ? v : 0.f);
-      dst[s * ld + cp + o] = tv;
-      dpre[(size_t)s * ldt + o] = tv;
-    });
-  }
-  __syncthreads();
-  swap();
-  // down the trunk: layer i's input gradient; its PE part accumulates in f32
-  for (int i = a.depth - 1; i >= 0; --i) {
-    bool has_pe;
-    const int in_dim = in_dim_of(i, has_pe);
-    const int pe_cols = has_pe ? cp : 0;
-    T* dst = nxt;
-    // layer i's input holds post_{i-1} after the PE columns (none for i = 0)
-    const int prev = i > 0 ? i - 1 : 0;
-    const T* post = posts + prev * w;
-    T* dpre = tape + a.t_dpre + prev * w;
-    const int dld = a.dld;
-    dense(cur, ld, cp, w, wb + off[i], in_dim, [&](int s, int o, float v) {
-      if (o < pe_cols) {
-        dpe[s * dld + o] += v;
-      } else {
-        const int h = o - pe_cols;
-        const bool on = n0 + s < lim && tof(post[(size_t)s * ldp + h]) > 0.f;
-        const T tv = cvt<T>(on ? v : 0.f);
-        dst[s * ld + cp + h] = tv;
-        dpre[(size_t)s * ldt + h] = tv;
-      }
-    });
-    __syncthreads();
-    swap();
-  }
-  for (int s = threadIdx.x; s < TN; s += blockDim.x) {
-    const int gs = n0 + s;
-    if (gs >= lim) continue;
-    float d[3];
-    pe_bwd(a.pos, a.px[gs], a.py[gs], a.pz[gs], dpe + s * a.dld, d);
-    for (int c = 0; c < 3; ++c) a.d_planes[(size_t)c * n + gs] = d[c];
+    consumer_registers();
+    chain<T, W>(a, ring, rest, units, tiles);
   }
 }
 
 // per-ray d_dir[r0 + r][o] = sum over the ray's samples of d_pre2, in order
 template <typename T>
-__global__ void bwd_ddir_kernel(const T* tape, int ldt, int t_dpre2, int rays, int spr,
-                                int half, int r0, float* d_dir) {
+__global__ void bwd_ddir_kernel(const T* tape, int ldt, int t_dpre2, int rays, int spr, int half,
+                                int r0, float* d_dir) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= rays * half) return;
   const int r = idx / half, o = idx % half;
@@ -290,157 +200,194 @@ __global__ void bwd_ddir_kernel(const T* tape, int ldt, int t_dpre2, int rays, i
   d_dir[(size_t)(r0 + r) * half + o] = s;
 }
 
+// Columns of a chunk-tape row: every block starts at a multiple of 8
+// columns (16-byte stores; a TMA box starts on 16 bytes): the cotangent of
+// sigma at t_g, those of r, g, b at t_g + 8.
 struct Layout {
-  int cp, cd, ldt, t_post, t_feat, t_dpe, t_h2, t_g, t_dpre, t_dfeat, t_dpre2;
+  int t_post, t_feat, t_dpe, t_h2, t_g, t_dpre, t_dfeat, t_dpre2, ldt;
 };
 
-Layout layout(int depth, int width, int pos_dim, int dir_dim, int per_sample, int bf16) {
+Layout layout(int depth, int width, int per_sample) {
   Layout t;
-  t.cp = bf16 ? round_up(pos_dim, 16) : pos_dim;
-  t.cd = bf16 ? round_up(dir_dim, 16) : dir_dim;
-  t.t_post = t.cp;
+  t.t_post = 64;  // after the PE block
   t.t_feat = t.t_post + depth * width;
   t.t_dpe = t.t_feat + width;
-  t.t_h2 = t.t_dpe + (per_sample ? t.cd : 0);
+  t.t_h2 = t.t_dpe + (per_sample ? 64 : 0);
   t.t_g = t.t_h2 + width / 2;
-  t.t_dpre = t.t_g + 4;
+  t.t_dpre = t.t_g + 16;
   t.t_dfeat = t.t_dpre + depth * width;
   t.t_dpre2 = t.t_dfeat + width;
-  t.ldt = round_up(t.t_dpre2 + width / 2, 8);
+  t.ldt = t.t_dpre2 + width / 2;
   return t;
+}
+
+template <typename T, int W>
+int launch_chain(const ChainArgs& c, int blocks, cudaStream_t st) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  const int tile = tile_bytes(sizeof(T), W, true);
+  const int stages = ring_stages(G, tile);
+  const int smem = block_bytes(G, tile, stages);
+  void (*kernel)(ChainArgs, int) = bwd_chain_kernel<T, W>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int units = (blocks + G - 1) / G;
+  kernel<<<min(units, sm_count()), HOPPER_THREADS, smem, st>>>(c, stages);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int chain_shared_bytes(int width) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  const int tile = tile_bytes(sizeof(T), width, true);
+  return block_bytes(G, tile, ring_stages(G, tile));
 }
 
 }  // namespace
 
-// Columns of one tape row (elements of the compute dtype).
-extern "C" int nerf_mlp_bwd_tape_cols(int depth, int width, int pos_dim, int dir_dim,
-                                      int per_sample, int bf16) {
-  return layout(depth, width, pos_dim, dir_dim, per_sample, bf16).ldt;
+// Dynamic shared memory of the chain pass (kernel 0) or the dW pass (1).
+extern "C" int nerf_mlp_bwd_shared_bytes(int kernel, int width, int half_precision) {
+  if (kernel == 1) return block_bytes(0, 0, MAX_STAGES);
+  return half_precision ? chain_shared_bytes<bf16>(width) : chain_shared_bytes<float>(width);
+}
+
+// Columns of one chunk-tape row (elements of the compute dtype).
+extern "C" int nerf_mlp_bwd_tape_cols(int depth, int width, int per_sample) {
+  return layout(depth, width, per_sample).ldt;
 }
 
 // Planes [N] f32; dir_part [R, W/2] (per-ray) or dx/dy/dz [N] (per-sample);
-// g [4, N]; wf: the forward kernel's packed weights (nerf_mlp.cu); wb: the
-// same layers, same order and sizes, as f32 [out, in] (bf16 == 0) or bf16
-// [in, out] with the PE / dir-PE row blocks padded to multiples of 16
-// (bf16 == 1); bias: forward order; head_a [W] and head_rgb [3, W/2] the
+// g [4, N]; img / slabs: the weight slabs the chain pass reads, in the
+// compute dtype as the wrapper lays them out (the forward's layers, without
+// the trunk when fwd_tape is given, then the transposed layers), and their
+// (offset, bytes); bias: forward order; head_a [W] and head_rgb [3, W/2] the
 // head weights rounded to the compute dtype, f32. fwd_tape: the forward
 // kernel's tape [N, depth * width] in the compute dtype, or null to recompute
 // the trunk.
 // Outputs: d_planes [3, N]; d_dir [R, W/2] or [3, N]; grad: per layer in
 // forward order (trunk, alpha, feature, views, rgb) dW [out, in] then db,
 // f32, `total` floats. Scratch: tape [chunk_rays * spr rounded up to 64,
-// tape_cols], partial [ksplit, total] f32. Chunks hold chunk_rays whole rays.
-// Returns the first CUDA error (0 on success), -1 for an inconsistent layout.
+// tape_cols], partial [max_ranges, total] f32. Chunks hold chunk_rays whole
+// rays; each chunk's dW pass splits its samples into at most max_ranges
+// ranges. Width 64 or 256. Returns the first CUDA error (0 on success), -1
+// for an inconsistent layout or an unsupported width, -2 if the tensor maps
+// cannot be made.
 extern "C" int nerf_mlp_bwd_launch(
     const float* px, const float* py, const float* pz, const float* dx, const float* dy,
-    const float* dz, const float* dir_part, const float* g, const void* fwd_tape,
-    const void* wf, const void* wb,
-    const float* bias, const float* head_a, const float* head_rgb, float* d_planes,
-    float* d_dir, float* grad, void* tape, float* partial, int n, int spr, int depth,
-    int width, int skip_mask, int pos_mapping, int pos_include, int pos_bands, int pos_dim,
-    const float* pos_coef, int dir_mapping, int dir_include, int dir_bands, int dir_dim,
-    const float* dir_coef, int bf16, int chunk_rays, int ksplit, int total, void* stream) {
+    const float* dz, const float* dir_part, const float* g, const void* fwd_tape, const void* img,
+    const void* slabs, int n_slabs, const float* bias, const float* head_a, const float* head_rgb,
+    float* d_planes, float* d_dir, float* grad, void* tape, float* partial, int n, int spr,
+    int depth, int width, int skip_mask, int pos_mapping, int pos_include, int pos_bands,
+    int pos_dim, const float* pos_coef, int dir_mapping, int dir_include, int dir_bands,
+    int dir_dim, const float* dir_coef, int half_precision, int chunk_rays, int max_ranges,
+    int total, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int per_sample = dx != nullptr;
-  const Layout t = layout(depth, width, pos_dim, dir_dim, per_sample, bf16);
+  const bool hbm = fwd_tape != nullptr;
+  const Layout t = layout(depth, width, per_sample);
   const int half = width / 2;
-  if (depth + 4 > MAX_LAYERS) return -1;
+  if (depth + 4 > MAX_LAYERS || (width != 64 && width != 256)) return -1;
 
-  // dW descriptors, forward layer order
-  const int esize = bf16 ? 2 : 4;
-  const bool direct = fwd_tape != nullptr;
+  // dW subs in forward layer order
   DwArgs d;
-  d.tape = tape;
-  d.ldt = t.ldt;
-  d.ldp = direct ? depth * width : t.ldt;
-  d.partial = partial;
-  d.n_layers = depth + 4;
-  int c_off = 0, tiles = 0;
-  // p1, p2: the block is a trunk post, at an offset from `d.post`
-  auto add = [&](int li, int a_off, int m, int b1, int n1, int p1, int b2, int n2, int p2,
-                 int ldc) {
-    DwLayer& l = d.L[li];
-    l.a_off = a_off; l.m = m; l.b_off1 = b1; l.n1 = n1; l.b_off2 = b2; l.n2 = n2;
-    l.p1 = p1; l.p2 = p2;
-    l.ldc = ldc; l.c_off = c_off; l.bias_off = c_off + m * ldc;
-    c_off += m * ldc + m;
-    l.tiles_n = (n1 + n2 + 1 + 63) / 64;
-    l.tile0 = tiles;
-    tiles += ((m + 63) / 64) * l.tiles_n;
+  int c_off = 0, tiles = 0, ns = 0;
+  auto add = [&](int a_col, int m, int b_map, int b_col, int n_cols, int col, int ldc, bool first) {
+    DwSub& s = d.S[ns++];
+    s.a_col = a_col; s.m = m; s.b_map = b_map; s.b_col = b_col; s.n = n_cols;
+    s.c_off = c_off + col; s.ldc = ldc; s.bias_off = first ? c_off + m * ldc : -1;
+    s.tiles_n = (n_cols + DW_TILE - 1) / DW_TILE;
+    s.tile0 = tiles;
+    tiles += (m + DW_TILE - 1) / DW_TILE * s.tiles_n;
   };
+  // the posts of trunk layer i: in the forward's tape, or in the chunk tape
+  const int post_map = hbm ? 1 : 0;
+  auto post_col = [&](int i) { return (hbm ? 0 : t.t_post) + i * width; };
   for (int i = 0; i < depth; ++i) {
-    const int a_off = t.t_dpre + i * width;
-    const bool after_skip = i > 0 && ((skip_mask >> (i - 1)) & 1);
-    const int prev = (i - 1) * width;
-    if (i == 0) add(i, a_off, width, 0, pos_dim, 0, 0, 0, 0, pos_dim);
-    else if (after_skip) add(i, a_off, width, 0, pos_dim, 0, prev, width, 1, pos_dim + width);
-    else add(i, a_off, width, prev, width, 1, 0, 0, 0, width);
+    const bool pe = i == 0 || ((skip_mask >> (i - 1)) & 1);
+    const int pe_cols = pe ? pos_dim : 0, ldc = pe_cols + (i > 0 ? width : 0);
+    const int a_col = t.t_dpre + i * width;
+    if (pe) add(a_col, width, 0, 0, pos_dim, 0, ldc, true);
+    if (i > 0) add(a_col, width, post_map, post_col(i - 1), width, pe_cols, ldc, !pe);
+    c_off += width * ldc + width;
   }
-  const int top = (depth - 1) * width;
-  add(depth, t.t_g, 1, top, width, 1, 0, 0, 0, width);
-  add(depth + 1, t.t_dfeat, width, top, width, 1, 0, 0, 0, width);
-  add(depth + 2, t.t_dpre2, half, t.t_feat, width, 0, t.t_dpe, per_sample ? dir_dim : 0, 0,
-      width + dir_dim);
-  add(depth + 3, t.t_g + 1, 3, t.t_h2, half, 0, 0, 0, 0, half);
+  add(t.t_g, 1, post_map, post_col(depth - 1), width, 0, width, true);  // alpha
+  c_off += width + 1;
+  add(t.t_dfeat, width, post_map, post_col(depth - 1), width, 0, width, true);  // feature
+  c_off += width * width + width;
+  const int ldv = width + dir_dim;  // views: [W/2, W + dir_dim]
+  add(t.t_dpre2, half, 0, t.t_feat, width, 0, ldv, true);
+  if (per_sample) add(t.t_dpre2, half, 0, t.t_dpe, dir_dim, width, ldv, false);
+  c_off += half * ldv + half;
+  add(t.t_g + 8, 3, 0, t.t_h2, half, 0, half, true);  // rgb
+  c_off += 3 * half + 3;
   if (c_off != total) return -1;
+  d.n_subs = ns;
   d.total = total;
+  d.partial = partial;
+  const int ranges = dw_ranges(tiles, max_ranges);
+
+  const int chunk = chunk_rays * spr;
+  const int rows = (chunk + HT - 1) / HT * HT;
+  CUtensorMap tmap, pmap;
+  if (!tape_map(&tmap, tape, rows, t.ldt, half_precision)) return -2;
+  if (hbm && !tape_map(&pmap, fwd_tape, n, depth * width, half_precision)) return -2;
+  if (!hbm) pmap = tmap;
 
   ChainArgs c;
-  c.px = px; c.py = py; c.pz = pz; c.dx = dx; c.dy = dy; c.dz = dz;
-  c.dir_part = dir_part; c.g = g; c.wf = wf; c.wb = wb; c.bias = bias;
-  c.head_a = head_a; c.head_rgb = head_rgb; c.d_planes = d_planes; c.d_dir = d_dir;
+  c.net.px = px; c.net.py = py; c.net.pz = pz;
+  c.net.dx = dx; c.net.dy = dy; c.net.dz = dz;
+  c.net.dir_part = dir_part;
+  c.net.bias = bias;
+  c.net.pos = PE{pos_mapping, pos_include, pos_bands, pos_dim, pos_coef};
+  c.net.dir = PE{dir_mapping, dir_include, dir_bands, dir_dim, dir_coef};
+  c.net.spr = spr; c.net.depth = depth; c.net.skip_mask = skip_mask;
+  c.img = static_cast<const unsigned char*>(img);
+  c.slabs = static_cast<const uint2*>(slabs);
+  c.n_slabs = n_slabs;
+  c.g = g; c.head_a = head_a; c.head_rgb = head_rgb;
+  c.d_planes = d_planes; c.d_dir = d_dir;
   c.tape = tape; c.fwd_tape = fwd_tape;
-  c.pos = PE{pos_mapping, pos_include, pos_bands, pos_dim, pos_coef};
-  c.dir = PE{dir_mapping, dir_include, dir_bands, dir_dim, dir_coef};
-  c.n = n; c.spr = spr; c.depth = depth; c.width = width; c.skip_mask = skip_mask;
-  c.cp = t.cp; c.cd = t.cd;
-  c.dld = t.cp > t.cd ? t.cp : t.cd;
-  int ld = t.cp + width;
-  if (per_sample && width + t.cd > ld) ld = width + t.cd;
-  c.ld = bf16 ? round_up(ld - 8, 64) + 8 : ld;  // bf16: = 8 mod 64, conflict-free fragments
-  c.ldt = t.ldt; c.t_post = t.t_post; c.t_feat = t.t_feat; c.t_dpe = t.t_dpe;
+  c.n = n; c.ldt = t.ldt; c.t_post = t.t_post; c.t_feat = t.t_feat; c.t_dpe = t.t_dpe;
   c.t_h2 = t.t_h2; c.t_g = t.t_g; c.t_dpre = t.t_dpre; c.t_dfeat = t.t_dfeat;
   c.t_dpre2 = t.t_dpre2;
 
-  const int smem = 2 * TN * c.ld * esize + TN * c.dld * 4;
-  void (*chain)(ChainArgs) = bf16 ? bwd_chain_kernel<__nv_bfloat16> : bwd_chain_kernel<float>;
-  cudaError_t err =
-      cudaFuncSetAttribute(chain, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem_dw = block_bytes(0, 0, MAX_STAGES);
+  void (*dw)(const CUtensorMap, const CUtensorMap, const DwArgs) =
+      half_precision ? dw_kernel<bf16> : dw_kernel<float>;
+  cudaError_t err = cudaFuncSetAttribute(dw, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dw);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)total, st)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)total * ksplit, st)) !=
+  if ((err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)total * ranges, st)) !=
       cudaSuccess)
     return (int)err;
 
-  const int chunk = chunk_rays * spr;
   for (int c0 = 0; c0 < n; c0 += chunk) {
     const int cn = n - c0 < chunk ? n - c0 : chunk;
     c.c0 = c0;
     c.lim = c0 + cn;
-    chain<<<(cn + TN - 1) / TN, THREADS, smem, st>>>(c);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int blocks = (cn + HT - 1) / HT;
+    int e = 0;
+    if (width == 256) e = half_precision ? launch_chain<bf16, 256>(c, blocks, st)
+                                         : launch_chain<float, 256>(c, blocks, st);
+    else e = half_precision ? launch_chain<bf16, 64>(c, blocks, st)
+                            : launch_chain<float, 64>(c, blocks, st);
+    if (e != 0) return e;
     d.k = cn;
-    d.post = direct ? static_cast<const char*>(fwd_tape) + (size_t)c0 * d.ldp * esize
-                    : static_cast<const char*>(tape) + (size_t)t.t_post * esize;
-    d.kper = round_up((cn + ksplit - 1) / ksplit, 32);
-    const dim3 grid(tiles, ksplit);
-    if (bf16) bwd_dw_bf16_kernel<<<grid, THREADS, 0, st>>>(d);
-    else bwd_dw_f32_kernel<<<grid, THREADS, 0, st>>>(d);
+    d.kper = round_up((cn + ranges - 1) / ranges, 64);
+    d.post_row = c0;
+    dw<<<dim3(tiles, ranges), HOPPER_THREADS, smem_dw, st>>>(tmap, pmap, d);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, grad, total, ksplit);
+    dw_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, grad, total, ranges);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if (!per_sample) {
       const int rays = cn / spr;
       const int threads = rays * half;
-      if (bf16)
-        bwd_ddir_kernel<__nv_bfloat16><<<(threads + 255) / 256, 256, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(tape), t.ldt, t.t_dpre2, rays, spr, half,
-            c0 / spr, d_dir);
+      if (half_precision)
+        bwd_ddir_kernel<bf16><<<(threads + 255) / 256, 256, 0, st>>>(
+            static_cast<const bf16*>(tape), t.ldt, t.t_dpre2, rays, spr, half, c0 / spr, d_dir);
       else
         bwd_ddir_kernel<float><<<(threads + 255) / 256, 256, 0, st>>>(
-            static_cast<const float*>(tape), t.ldt, t.t_dpre2, rays, spr, half, c0 / spr,
-            d_dir);
+            static_cast<const float*>(tape), t.ldt, t.t_dpre2, rays, spr, half, c0 / spr, d_dir);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
   }

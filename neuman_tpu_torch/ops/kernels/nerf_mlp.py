@@ -12,8 +12,12 @@ the H100 and how the design answers that.
 `nerf_mlp_plain`, the same function in plain PyTorch, for CPU tensors.
 With compute_dtype bfloat16 both round weights and activations to bf16
 at the points the JAX kernel casts them and accumulate in f32; on the
-card that dtype runs the tensor-core (mma.sync) kernel, float32 the FMA
-kernel.
+card that dtype runs on the tensor cores (wgmma), float32 on FMAs.
+
+The kernels read each layer's weights as "slabs" streamed into shared
+memory (`slab_plan`, `pack_slabs`): the wrapper lays every slab out as
+the kernel's shared-memory image of it, and the CPU tests unpack the
+images back to the weights.
 
 emit_tape=True (the `mlp_tape="hbm"` train configuration, the JAX
 kernel's emit_tape) returns ((sigma, rgb), tape): tape [R*S, depth*W] in
@@ -26,14 +30,12 @@ TPU lane layout); the tape is written for every shape the kernel accepts.
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from neuman_tpu_torch.models.embedder import embed
 from neuman_tpu_torch.ops.kernels import _build
 from neuman_tpu_torch.ops.precision import matmul_f32
-
-# the f32 kernel's dynamic shared memory: two [64, LD] f32 buffers <= 227 KB
-_MAX_LD = 232448 // (2 * 64 * 4)
 
 
 def _rounder(compute_dtype):
@@ -89,42 +91,164 @@ def _round16(x):
     return -(-x // 16) * 16
 
 
-def _kernel_layers(spec, net, per_sample):
-    """(weight [out, in], bias, input column blocks) of each layer in the
-    kernel's order. The blocks name the input's parts: "pe" (the position
-    PE), "h" (a hidden layer), "dpe" (the direction PE), "h2" (the views
-    layer's output)."""
-    nspec, w = spec.nerf, spec.nerf.width
-    views = net.views_linears[0]
-    after_skip = lambda i: i > 0 and (i - 1) in nspec.skips
-    trunk_in = lambda i: ["pe"] if i == 0 else (["pe", "h"] if after_skip(i) else ["h"])
-    return [
-        *[(lin.weight, lin.bias, trunk_in(i)) for i, lin in enumerate(net.pts_linears)],
-        (net.alpha_linear.weight, net.alpha_linear.bias, ["h"]),
-        (net.feature_linear.weight, net.feature_linear.bias, ["h"]),
-        (views.weight, views.bias, ["h", "dpe"]) if per_sample
-        else (views.weight[:, :w], views.bias, ["h"]),
-        (net.rgb_linear.weight, net.rgb_linear.bias, ["h2"]),
-    ]
+# a block of activation columns in the kernels' tiles (a bf16 wgmma atom)
+BLOCK = 64
+# bytes of one slab row: 64 bf16 k values, or (f32) 32 k values of one output
+SLAB_ROW_BYTES = 128
+# widths the kernels are built for; PE and direction-PE blocks take <= 64 columns
+KERNEL_WIDTHS = (64, 256)
 
 
-def _pack_weights(spec, layers, compute_dtype, backward=False):
-    """One flat weight buffer in the layout the kernel reads: f32 layers
-    transposed to [in, out]; bf16 layers [out, in] with the PE and dir-PE
-    column blocks zero-padded to multiples of 16 (the MMA's k step).
-    backward=True gives each layer the other way round (f32 [out, in], bf16
-    [in, out] padded likewise), for the backward's input gradients."""
-    if compute_dtype == torch.float32:
-        return torch.cat([(w if backward else w.t()).reshape(-1) for w, _, _ in layers])
-    widths = {"pe": spec.pos_pe.out_dim, "h": spec.nerf.width,
-              "dpe": spec.dir_pe.out_dim, "h2": spec.nerf.width // 2}
-    parts = []
-    for w, _, blocks in layers:
-        cols = w.split([widths[b] for b in blocks], dim=1)
-        cols = [torch.nn.functional.pad(c, (0, _round16(c.shape[1]) - c.shape[1])) for c in cols]
-        padded = torch.cat(cols, dim=1)
-        parts.append((padded.t() if backward else padded).reshape(-1))
-    return torch.cat(parts).to(torch.bfloat16)
+def _block(first, real):
+    """A range of a weight's rows or columns, (first, real, padded): its
+    size zero-padded to whole 64-column blocks of the kernels' tiles."""
+    return first, real, -(-real // BLOCK) * BLOCK
+
+
+def mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward=False):
+    """The tile products of the kernels, in the order they run them:
+    (layer, n_blocks, k_blocks, transposed). layer indexes `_lins` (trunk,
+    alpha, feature, views, rgb); n_blocks are the product's outputs (each
+    block one part, a product of its own in the kernel), k_blocks its
+    inputs, both as `_block`s of the weight [out, in]; transposed: the
+    outputs run over the weight's inputs (the backward's input gradients).
+    The forward: trunk, feature, views (per-sample [feature, dir PE] in f32,
+    the plain version's order; [dir PE, feature] in bf16, whose tiles keep
+    the dir PE in the PE block); the backward then adds the transposed
+    views, feature and trunk layers, top down, each with its PE or dir-PE
+    part first (the other part writes over the product's input)."""
+    half = width // 2
+    skips = tuple(skips)
+
+    def trunk_in(i):
+        if i == 0:
+            return [_block(0, pos_dim)]
+        if (i - 1) in skips:
+            return [_block(0, pos_dim), _block(pos_dim, width)]
+        return [_block(0, width)]
+
+    views_in = [_block(0, width)]
+    if per_sample:
+        views_in = ([_block(width, dir_dim)] + views_in if bf16
+                    else views_in + [_block(width, dir_dim)])
+    full = lambda m: [(0, m, m)]
+    out = [(i, full(width), trunk_in(i), False) for i in range(depth)]
+    out += [(depth + 1, full(width), [_block(0, width)], False),
+            (depth + 2, full(half), views_in, False)]
+    if backward:
+        # the part that writes the tile (feature) comes last
+        views_parts = sorted(views_in, key=lambda b: b[0] == 0)
+        out += [(depth + 2, views_parts, [_block(0, half)], True),
+                (depth + 1, [_block(0, width)], [_block(0, width)], True)]
+        out += [(i, trunk_in(i), [_block(0, width)], True) for i in reversed(range(depth))]
+    return out
+
+
+def layer_shapes(width, depth, skips, pos_dim, dir_dim):
+    """[out, in] of each weight of `_lins`."""
+    ins = [pos_dim if i == 0 else pos_dim + width if (i - 1) in tuple(skips) else width
+           for i in range(depth)]
+    return ([(width, k) for k in ins]
+            + [(1, width), (width, width), (width // 2, width + dir_dim), (3, width // 2)])
+
+
+def _axis(blocks):
+    """Weight index along one axis of a product, -1 for padding."""
+    return np.concatenate([np.r_[np.arange(first, first + real), -np.ones(pad - real, np.int64)]
+                           for first, real, pad in blocks]).astype(np.int64)
+
+
+def swizzle128(rows):
+    """The 128-byte swizzle of `rows` 128-byte rows (16-byte chunk c of row
+    r stored at chunk c ^ (r % 8)): phys[r, c] = the logical chunk there."""
+    r = np.arange(rows)[:, None]
+    return np.arange(8)[None, :] ^ (r & 7)
+
+
+@functools.lru_cache(maxsize=32)
+def slab_plan(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward=False):
+    """The weight image the kernels stream, as (index, slabs, n_trunk):
+    index [elements] into [0, every weight of `_lins` flattened row-major]
+    (0 is a zero, weight w's element (o, i) is 1 + offset_w + o * in + i);
+    slabs [count, 2] int32 (byte offset, bytes) in the order the kernel
+    reads them; n_trunk: how many of them the forward's trunk takes (the
+    first ones). One slab is one stage of the kernel's ring: N outputs x
+    128 bytes of a product part. bf16: [N][64 k], each row 128-byte
+    swizzled (the wgmma K-major layout); f32: [32 k][N]."""
+    shapes = layer_shapes(width, depth, skips, pos_dim, dir_dim)
+    starts = np.cumsum([1] + [o * i for o, i in shapes])
+    esize, kc = (2, 64) if bf16 else (4, 32)
+    parts, slabs, at, n_trunk = [], [], 0, 0
+    for p, (layer, nb, kb, transposed) in enumerate(
+            mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward)):
+        rows, cols = _axis(nb), _axis(kb)
+        out_idx, in_idx = ((cols[None, :], rows[:, None]) if transposed
+                           else (rows[:, None], cols[None, :]))
+        src = np.where((out_idx >= 0) & (in_idx >= 0),
+                       starts[layer] + out_idx * shapes[layer][1] + in_idx, 0)
+        k = src.shape[1]
+        n0 = 0
+        for _, _, npart in nb:
+            sub = src[n0:n0 + npart]
+            n0 += npart
+            if bf16:
+                t = sub.reshape(npart, k // 64, 8, 8).transpose(1, 0, 2, 3)
+                t = t[:, np.arange(npart)[:, None], swizzle128(npart), :]
+            else:
+                t = sub.reshape(npart, k // 32, 32).transpose(1, 2, 0)
+            parts.append(t.reshape(-1))
+            for _ in range(k // kc):
+                slabs.append((at * esize, npart * SLAB_ROW_BYTES))
+                at += npart * SLAB_ROW_BYTES // esize
+                n_trunk += p < depth
+    return np.concatenate(parts), np.array(slabs, dtype=np.int32), n_trunk
+
+
+def _lins(net):
+    return [*net.pts_linears, net.alpha_linear, net.feature_linear, net.views_linears[0],
+            net.rgb_linear]
+
+
+@functools.lru_cache(maxsize=32)
+def _plan_on(device, *key):
+    index, slabs, n_trunk = slab_plan(*key)
+    return torch.from_numpy(index).to(device), torch.from_numpy(slabs).to(device), n_trunk
+
+
+def pack_slabs(spec, net, per_sample, compute_dtype, backward=False):
+    """(image, slabs, n_trunk) of `slab_plan` for the weights of `net`, on
+    their device: the image in the compute dtype, slabs int32 [count, 2]."""
+    nspec = spec.nerf
+    device = net.rgb_linear.weight.device
+    index, slabs, n_trunk = _plan_on(
+        device, nspec.width, nspec.depth, tuple(nspec.skips), spec.pos_pe.out_dim,
+        spec.dir_pe.out_dim, per_sample, compute_dtype == torch.bfloat16, backward)
+    with torch.no_grad():
+        flat = torch.cat([torch.zeros(1, device=device)]
+                         + [lin.weight.reshape(-1).float() for lin in _lins(net)])
+        return flat.to(compute_dtype)[index], slabs, n_trunk
+
+
+def _heads(net, compute_dtype):
+    """The alpha [W] and rgb [3, W/2] weights rounded to the compute dtype
+    (f32), and every bias in the kernels' order (trunk, alpha, feature,
+    views, rgb)."""
+    rnd = _rounder(compute_dtype)
+    with torch.no_grad():
+        head_a = rnd(net.alpha_linear.weight).reshape(-1).float().contiguous()
+        head_rgb = rnd(net.rgb_linear.weight).float().contiguous()
+        bias = torch.cat([lin.bias.reshape(-1) for lin in _lins(net)]).float()
+    return head_a, head_rgb, bias
+
+
+def check_envelope(spec, per_sample, what, max_depth):
+    """Raise ValueError for a net the kernels are not built for."""
+    nspec = spec.nerf
+    if (nspec.width not in KERNEL_WIDTHS or spec.pos_pe.out_dim > BLOCK
+            or (per_sample and spec.dir_pe.out_dim > BLOCK) or not 0 < nspec.depth <= max_depth
+            or any(not 0 <= i < nspec.depth - 1 for i in nspec.skips)):
+        raise ValueError(f"{what} kernel: unsupported net {nspec} (width in {KERNEL_WIDTHS}, "
+                         f"PE widths <= {BLOCK}, depth <= {max_depth})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,9 +269,11 @@ def _lib():
     lib = _build.load("nerf_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nerf_mlp_launch.argtypes = (
-        [p] * 11 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i, p]
+        [p] * 9 + [i] + [p] * 5 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i, p]
     )
     lib.nerf_mlp_launch.restype = ctypes.c_int
+    lib.nerf_mlp_shared_bytes.argtypes = [i, i]
+    lib.nerf_mlp_shared_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -173,20 +299,12 @@ def _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tap
         _check_plane(dir_part, (r, width // 2), device, "dir_part")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
-    bf16 = compute_dtype == torch.bfloat16
-    # the f32 kernel keeps two [64, LD] f32 buffers in shared memory; the
-    # bf16 kernel's MMA tiles need widths that are multiples of 64
-    ld = max(spec.pos_pe.out_dim + width, width + spec.dir_pe.out_dim if per_sample else 0)
-    if (width % 2 or width > 256 or ld > _MAX_LD or not 0 < nspec.depth <= 31
-            or any(not 0 <= i < nspec.depth - 1 for i in nspec.skips) or (bf16 and width % 64)):
-        raise ValueError(f"nerf_mlp kernel: unsupported net {nspec} for {compute_dtype}")
-    layers = _kernel_layers(spec, net, per_sample)
-    if any(w.device != device for w, _, _ in layers):
+    check_envelope(spec, per_sample, "nerf_mlp", 31)
+    if any(lin.weight.device != device for lin in _lins(net)):
         raise ValueError("nerf_mlp: weights and planes must be on one device")
 
-    with torch.no_grad():
-        wt = _pack_weights(spec, layers, compute_dtype)
-        bias = torch.cat([b.reshape(-1) for _, b, _ in layers]).float()
+    img, slabs, _ = pack_slabs(spec, net, per_sample, compute_dtype)
+    head_a, head_rgb, bias = _heads(net, compute_dtype)
     out = torch.empty(4, r * s, device=device, dtype=torch.float32)
     tape = (torch.empty(r * s, nspec.depth * width, device=device, dtype=compute_dtype)
             if emit_tape else None)
@@ -195,10 +313,11 @@ def _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tap
     skip_mask = sum(1 << i for i in nspec.skips)
     err = _lib().nerf_mlp_launch(
         ptr(px), ptr(py), ptr(pz), ptr(d[0]), ptr(d[1]), ptr(d[2]),
-        ptr(None if per_sample else dir_part), ptr(wt), ptr(bias), ptr(out), ptr(tape),
+        ptr(None if per_sample else dir_part), ptr(img), ptr(slabs), slabs.shape[0], ptr(bias),
+        ptr(head_a), ptr(head_rgb), ptr(out), ptr(tape),
         r * s, s, nspec.depth, width, skip_mask,
         *_pe_args(spec.pos_pe, device), *_pe_args(spec.dir_pe, device),
-        int(bf16), torch.cuda.current_stream(device).cuda_stream,
+        int(compute_dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "nerf_mlp")
     nerf_mlp.launches += 1

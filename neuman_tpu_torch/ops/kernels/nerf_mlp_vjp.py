@@ -37,10 +37,14 @@ from neuman_tpu_torch.ops.kernels import _build
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.precision import matmul_f32
 
-# samples of whole rays per chunk of the kernel's tape (~650 MB in f32)
+# samples of whole rays per chunk of the kernel's tape (~10 KB a sample in
+# bf16, ~20 KB in f32 at 8x256). Chunks whose tape stays in the 50 MB L2
+# (4,096 samples in bf16) measured ~3x slower on an H100, and 65,536 2-5%
+# faster for twice the memory (tools/sweep_bwd_chunk.py)
 CHUNK_SAMPLES = 32768
-# contiguous sample ranges of a chunk whose dW partials are summed in order
-KSPLIT = 4
+# the most contiguous sample ranges of a chunk whose dW partials are summed
+# in order (the kernel takes enough to fill the card, at most this many)
+KSPLIT = 16
 
 
 def check_tape_mode(tape_mode):
@@ -166,11 +170,13 @@ def _lib():
     lib = _build.load("nerf_mlp_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nerf_mlp_bwd_launch.argtypes = (
-        [p] * 19 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i] * 4 + [p]
+        [p] * 11 + [i] + [p] * 8 + [i] * 5 + [i, i, i, i, p] + [i, i, i, i, p] + [i] * 4 + [p]
     )
     lib.nerf_mlp_bwd_launch.restype = ctypes.c_int
-    lib.nerf_mlp_bwd_tape_cols.argtypes = [i] * 6
+    lib.nerf_mlp_bwd_tape_cols.argtypes = [i] * 3
     lib.nerf_mlp_bwd_tape_cols.restype = ctypes.c_int
+    lib.nerf_mlp_bwd_shared_bytes.argtypes = [i] * 3
+    lib.nerf_mlp_bwd_shared_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -196,36 +202,23 @@ def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute
         kmlp._check_plane(dir_part, (r, half), device, "dir_part")
     for name, t in planes:
         kmlp._check_plane(t, (r, s), device, name)
-    rnd = kmlp._rounder(compute_dtype)  # raises on another dtype
+    kmlp._rounder(compute_dtype)  # raises on another dtype
     bf16 = compute_dtype == torch.bfloat16
-    pos_dim, dir_dim = spec.pos_pe.out_dim, spec.dir_pe.out_dim
-    # f32: the input-gradient products reach 32 x 10 columns; bf16: the
-    # MMA tiles need every column block a multiple of 32
-    widest = max(pos_dim + width, width + dir_dim if per_sample else 0)
-    padded = [kmlp._round16(pos_dim)] + ([kmlp._round16(dir_dim)] if per_sample else [])
-    if (width % 2 or width > 256 or widest > 320 or widest > kmlp._MAX_LD
-            or not 0 < nspec.depth <= 12
-            or any(not 0 <= i < nspec.depth - 1 for i in nspec.skips)
-            or (bf16 and (width % 64 or any(p % 32 for p in padded)))):
-        raise ValueError(f"nerf_mlp_bwd kernel: unsupported net {nspec} for {compute_dtype}")
-    layers = kmlp._kernel_layers(spec, net, per_sample)
-    if any(w.device != device for w, _, _ in layers):
+    kmlp.check_envelope(spec, per_sample, "nerf_mlp_bwd", 12)
+    if any(lin.weight.device != device for lin in kmlp._lins(net)):
         raise ValueError("nerf_mlp_bwd: weights and planes must be on one device")
 
     if fwd_tape is not None:
         _check_tape(fwd_tape, n, nspec.depth * width, device, compute_dtype, "nerf_mlp_bwd")
-    with torch.no_grad():
-        wf = kmlp._pack_weights(spec, layers, compute_dtype)
-        wb = kmlp._pack_weights(spec, layers, compute_dtype, backward=True)
-        bias = torch.cat([b.reshape(-1) for _, b, _ in layers]).float()
-        head_a = rnd(net.alpha_linear.weight).reshape(-1).contiguous()
-        head_rgb = rnd(net.rgb_linear.weight).contiguous()
+    img, slabs, n_trunk = kmlp.pack_slabs(spec, net, per_sample, compute_dtype, backward=True)
+    if fwd_tape is not None:  # the chain pass reads the trunk's posts instead
+        slabs = slabs[n_trunk:]
+    head_a, head_rgb, bias = kmlp._heads(net, compute_dtype)
     g = torch.stack([g_sigma, *g_rgb]).reshape(4, n)
     shapes = [(w.shape, b.shape) for w, b in net_layers(net)]
     total = sum(ws.numel() + bs.numel() for ws, bs in shapes)
     lib = _lib()
-    cols = lib.nerf_mlp_bwd_tape_cols(nspec.depth, width, pos_dim, dir_dim, int(per_sample),
-                                      int(bf16))
+    cols = lib.nerf_mlp_bwd_tape_cols(nspec.depth, width, int(per_sample))
     chunk_rays = max(1, min(r, CHUNK_SAMPLES // s))
     rows = -(-chunk_rays * s // 64) * 64
     tape = torch.empty(rows * cols, device=device, dtype=compute_dtype)
@@ -237,15 +230,17 @@ def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.nerf_mlp_bwd_launch(
         ptr(px), ptr(py), ptr(pz), ptr(d[0]), ptr(d[1]), ptr(d[2]),
-        ptr(None if per_sample else dir_part), ptr(g), ptr(fwd_tape),
-        ptr(wf), ptr(wb), ptr(bias),
-        ptr(head_a), ptr(head_rgb), ptr(d_planes), ptr(d_dir), ptr(grad), ptr(tape),
-        ptr(partial), n, s, nspec.depth, width, sum(1 << i for i in nspec.skips),
+        ptr(None if per_sample else dir_part), ptr(g), ptr(fwd_tape), ptr(img), ptr(slabs),
+        slabs.shape[0], ptr(bias), ptr(head_a), ptr(head_rgb), ptr(d_planes), ptr(d_dir),
+        ptr(grad), ptr(tape), ptr(partial), n, s, nspec.depth, width,
+        sum(1 << i for i in nspec.skips),
         *kmlp._pe_args(spec.pos_pe, device), *kmlp._pe_args(spec.dir_pe, device),
         int(bf16), chunk_rays, KSPLIT, total, torch.cuda.current_stream(device).cuda_stream,
     )
     if err == -1:
         raise ValueError("nerf_mlp_bwd: the kernel's gradient layout disagrees with the net")
+    if err == -2:
+        raise RuntimeError("nerf_mlp_bwd: could not make the dW pass's tensor maps")
     _build.check(err, "nerf_mlp_bwd")
     nerf_mlp_bwd.launches += 1
     grads, at = [], 0

@@ -31,12 +31,12 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _net(mapping, width, device):
+def _net(mapping, width, device, skips=(4,)):
     spec = nerf.JoinerSpec(
         pos_pe=embedder.make_embedder(3, 9, 10, mapping=mapping),
         dir_pe=embedder.make_embedder(3, 3, 4, mapping=mapping),
         nerf=nerf.NeRFSpec(depth=8, width=width, input_ch=63, input_ch_views=27,
-                           skips=(4,), use_viewdirs=True),
+                           skips=skips, use_viewdirs=True),
     )
     net = nerf.NeRF(spec.nerf, device=device).reset_parameters(torch.Generator().manual_seed(0))
     return spec, net.requires_grad_(False)
@@ -71,7 +71,7 @@ def test_nerf_mlp_kernel_matches_plain(cuda, mode, width):
 @pytest.mark.parametrize("width", [64, 256])
 @pytest.mark.parametrize("per_sample", [False, True])
 def test_nerf_mlp_kernel_bf16_matches_plain(cuda, per_sample, width):
-    """The tensor-core (mma.sync) kernel."""
+    """The tensor-core (wgmma) kernel."""
     spec, net = _net("rotate" if per_sample else "posenc", width, cuda)
     planes, kw = _mlp_inputs(spec, net, per_sample, 37, 24, cuda, torch.bfloat16)
     s_k, rgb_k = kmlp.nerf_mlp(spec, net, *planes, compute_dtype=torch.bfloat16, **kw)
@@ -134,6 +134,56 @@ def test_nerf_mlp_bwd_kernel_matches_plain(cuda, mode, dtype, monkeypatch):
             assert (a - c).abs().max() <= 1e-4 * c.abs().max() + 1e-6, f"output {i}"
         else:
             assert (a - c).norm() <= 5e-2 * c.norm() + 1e-6, f"output {i}"
+
+
+# (direction mode, PE mapping, width, skips, R, S): N = 4099 x 16 = 64k + 48
+# samples is not a multiple of the 64-sample tile nor of the bf16 kernels'
+# 128-sample pair of tiles; S = 256 runs over chunks of 100 rays, the last
+# one 57 rays
+HOPPER_CASES = [
+    ("per_ray", "posenc", 256, (4,), 4099, 16),
+    ("per_sample", "rotate", 256, (4,), 257, 256),
+    ("per_ray", "rotate", 64, (1,), 257, 256),
+    ("per_sample", "posenc", 64, (1,), 4099, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", HOPPER_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-skip{c[3][0]}-S{c[5]}")
+def test_hopper_mlp_pair_ragged(cuda, case, dtype, monkeypatch):
+    """The wgmma / register-tile kernels at ragged sample counts, both
+    direction modes and PE mappings, widths 64 and 256, a skip after layer 1
+    or 4: the forward (and its tape) against the plain version, the
+    backward against the plain version, two backward runs bit-identical,
+    and the backward with the forward's tape equal to the recompute's."""
+    mode, mapping, width, skips, r, s = case
+    monkeypatch.setattr(kvjp, "CHUNK_SAMPLES", 100 * 256)
+    per_sample = mode == "per_sample"
+    spec, net = _net(mapping, width, cuda, skips)
+    planes, kw = _mlp_inputs(spec, net, per_sample, r, s, cuda, dtype)
+    (sig, rgb), tape = kmlp.nerf_mlp(spec, net, *planes, compute_dtype=dtype, emit_tape=True, **kw)
+    (ref_s, ref_rgb), ref_tape = kmlp.nerf_mlp_plain(spec, net, *planes, compute_dtype=dtype,
+                                                      emit_tape=True, **kw)
+    out, ref = torch.stack([sig, *rgb]), torch.stack([ref_s, *ref_rgb])
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        torch.testing.assert_close(tape, ref_tape, atol=1e-4, rtol=0)
+    else:
+        assert (out - ref).abs().max() <= 5e-2 * ref.abs().max()
+        assert (tape.float() - ref_tape.float()).abs().max() <= 5e-2 * ref_tape.float().abs().max()
+    g = torch.Generator().manual_seed(3)
+    cot = [torch.randn(r, s, generator=g).to(cuda) for _ in range(4)]
+    run = lambda fn, t=None: _flat(fn(spec, net, *planes, cot[0], cot[1:], compute_dtype=dtype,
+                                      tape=t, **kw))
+    got, again, taped = run(kvjp.nerf_mlp_bwd), run(kvjp.nerf_mlp_bwd), run(kvjp.nerf_mlp_bwd, tape)
+    want = run(kvjp.nerf_mlp_bwd_plain)
+    for i, (a, b, c, w) in enumerate(zip(got, again, taped, want)):
+        assert torch.equal(a, b), f"output {i} differs between two runs"
+        assert torch.equal(a, c), f"output {i}: tape and recompute differ"
+        if dtype == torch.float32:
+            assert (a - w).abs().max() <= 1e-4 * w.abs().max() + 1e-6, f"output {i}"
+        else:
+            assert (a - w).norm() <= 5e-2 * w.norm() + 1e-6, f"output {i}"
 
 
 def test_nerf_mlp_fn_routes_kernel_gradients(cuda):

@@ -47,6 +47,7 @@ MODULES = (
     "neuman_tpu_torch.trainers.human",
     "neuman_tpu_torch.render.rasterize",
     "neuman_tpu_torch.tools.profile_frame",
+    "neuman_tpu_torch.tools.sweep_bwd_chunk",
     "chip_smoke",
 )
 
