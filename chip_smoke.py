@@ -7,8 +7,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc builds the six kernel libraries (seven kernels) from
      neuman_tpu_torch/csrc/ (sm_90a), all started together; then each
-     kernel of the nerf_mlp pair with its registers, spill bytes and stack
-     (ptxas -v) and the dynamic shared memory it launches with;
+     kernel of the nerf_mlp and offset_mlp pairs (all on mlp_hopper.cuh)
+     with its registers, spill bytes and stack (ptxas -v) and the dynamic
+     shared memory it launches with;
   3. mlp: nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
      PE 10 + 4 bands), R=1024 x S=64: per-ray posenc and per-sample
      rotate, f32 and bf16;
@@ -268,17 +269,25 @@ def phase_build():
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         per_library={k: round(v, 2) for k, v in _build.build_seconds.items()},
         dir=os.path.relpath(_build.BUILD_DIR, ROOT))
-    # dynamic shared memory of the forward, chain-pass and dW kernels
-    smem = {"nerf_mlp_kernel": nerf_mlp._lib().nerf_mlp_shared_bytes,
-            "bwd_chain_kernel": functools.partial(nerf_mlp_vjp._lib().nerf_mlp_bwd_shared_bytes, 0),
-            "dw_kernel": functools.partial(nerf_mlp_vjp._lib().nerf_mlp_bwd_shared_bytes, 1)}
+    # dynamic shared memory of the forward, chain-pass and dW kernels (the
+    # offset pair's at the (x, y, z, t) PE of 84 columns)
+    nbwd, obwd = nerf_mlp_vjp._lib().nerf_mlp_bwd_shared_bytes, offset_mlp._lib_bwd().offset_mlp_bwd_shared_bytes
+    pos_dim = 84
+    smem = {("nerf_mlp", "nerf_mlp_kernel"): nerf_mlp._lib().nerf_mlp_shared_bytes,
+            ("nerf_mlp_bwd", "bwd_chain_kernel"): functools.partial(nbwd, 0),
+            ("nerf_mlp_bwd", "dw_kernel"): functools.partial(nbwd, 1),
+            ("offset_mlp", "offset_mlp_kernel"):
+                lambda w, h: offset_mlp._lib_fwd().offset_mlp_shared_bytes(w, pos_dim, h),
+            ("offset_mlp_bwd", "offset_chain_kernel"): lambda w, h: obwd(0, w, pos_dim, h),
+            ("offset_mlp_bwd", "dw_kernel"): lambda w, h: obwd(1, w, pos_dim, h)}
     spills = []
-    for lib in ("nerf_mlp", "nerf_mlp_bwd"):
+    for lib in ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd"):
         for fn, res in sorted(_build.kernel_resources(lib).items()):
             kernel, dtype, width = _kernel_name(fn)
             if kernel is None or "registers" not in res:
                 continue
-            shared = smem[kernel](width or 256, int(dtype == "bf16")) if kernel in smem else 0
+            size = smem.get((lib, kernel))
+            shared = size(width or 256, int(dtype == "bf16")) if size else 0
             log("ptxas", library=lib, kernel=kernel, dtype=dtype, width=width or "any",
                 registers=res["registers"], spill_stores=res.get("spill_stores", 0),
                 spill_loads=res.get("spill_loads", 0), stack=res.get("stack", 0),
@@ -289,11 +298,12 @@ def phase_build():
 
 
 def _kernel_name(mangled):
-    """(kernel, dtype, width) of a mangled kernel name of the nerf_mlp pair,
-    or (None, None, None) for another function."""
+    """(kernel, dtype, width) of a mangled kernel name of the nerf_mlp or
+    offset_mlp pair, or (None, None, None) for another function."""
     import re
 
-    m = re.search(r"(nerf_mlp_kernel|bwd_chain_kernel|dw_kernel|bwd_ddir_kernel|dw_reduce_kernel)"
+    m = re.search(r"(nerf_mlp_kernel|bwd_chain_kernel|dw_kernel|bwd_ddir_kernel|dw_reduce_kernel"
+                  r"|offset_mlp_kernel|offset_chain_kernel)"
                   r"(I(f|13__nv_bfloat16)(Li(\d+)E)?E)?", mangled)
     if m is None:
         return None, None, None
@@ -919,6 +929,13 @@ def _kernel_counters():
             "bucketed_knn": knn.bucketed_knn}
 
 
+def _cudnn_flags():
+    import torch
+
+    c = torch.backends.cudnn
+    return c.enabled, c.benchmark, c.deterministic, c.allow_tf32
+
+
 def _alive(model):
     """A random canonical net's density is nearly the same everywhere, so it
     can be <= 0 everywhere (a dead net, which the step restarts): shift its
@@ -961,10 +978,10 @@ def phase_human_step(body, device, seed):
 
     Each dtype then trains in both tape configurations (`mlp_tape`) from the
     same seed: after train_human's 2 steps the "hbm" parameters must equal
-    the "recompute" ones bit for bit (those steps run with cuDNN's
-    deterministic convolutions: with its default ones two runs of one
-    configuration already differ in the last bits, through the LPIPS loss's
-    backward); the launches per step are the same.
+    the "recompute" ones bit for bit, with no cuDNN flag set from outside
+    (the train step scopes cuDNN's deterministic convolutions itself and
+    must leave the process's flags as it found them); the launches per
+    step are the same.
     Each train_human's last validation must have written its four PNGs,
     which are read back and decoded. Last, the step's losses with the fused
     signed distance are held to the default's, and 2 steps train with it.
@@ -1082,15 +1099,10 @@ def phase_human_step(body, device, seed):
             torch.cuda.reset_peak_memory_stats()
             for fn in counters.values():
                 fn.launches = 0
-            # cuDNN's default convolution backward (the LPIPS loss) sums in an
-            # order that changes from run to run; for the comparison of the two
-            # configurations' parameters it is asked for its deterministic one
-            torch.backends.cudnn.deterministic = True
-            try:
-                trainer = ttrain.train_human(cfg, scene, train_views, val_views, body,
-                                             device=device)
-            finally:
-                torch.backends.cudnn.deterministic = False
+            # no flag is set here: the train step is deterministic itself
+            flags = _cudnn_flags()
+            trainer = ttrain.train_human(cfg, scene, train_views, val_views, body, device=device)
+            flags_kept = _cudnn_flags() == flags
             before = {k: fn.launches for k, fn in counters.items()}
             val_ok = all(math.isfinite(v) for v in trainer.last_val_losses.values())
             # the validation's images, read back and decoded
@@ -1121,11 +1133,11 @@ def phase_human_step(body, device, seed):
             median = (ms[(HUMAN_STEPS - 1) // 2] + ms[HUMAN_STEPS // 2]) / 2
             losses = torch.stack(losses)
             gib = torch.cuda.max_memory_allocated() / 2**30
-            ok = (val_ok and same_2 and bool(torch.isfinite(losses).all())
+            ok = (val_ok and same_2 and flags_kept and bool(torch.isfinite(losses).all())
                   and bool((losses != 0).all()) and per_step == HUMAN_LAUNCHES
                   and all(v > 0 for k, v in before.items() if HUMAN_LAUNCHES[k]))
             log("human_train", dtype=dtype, mlp_tape=tape,
-                params_equal_recompute_after_2_steps=same_2,
+                params_equal_recompute_after_2_steps=same_2, cudnn_flags_kept=flags_kept,
                 val_pngs=json.dumps({k: list(v.shape) for k, v in pngs.items()},
                                     separators=(",", ":")),
                 rays=cfg.rays_per_batch, S=cfg.samples_per_ray,
@@ -1137,9 +1149,30 @@ def phase_human_step(body, device, seed):
             if not ok:
                 raise RuntimeError(f"human train {dtype} {tape}: a loss is not finite or is zero, "
                                    f"the kernels' launches per step are not {HUMAN_LAUNCHES}, a "
-                                   f"validation PNG is missing or of another size, or the tape "
-                                   f"configuration's parameters differ from recompute's")
+                                   f"validation PNG is missing or of another size, the tape "
+                                   f"configuration's parameters differ from recompute's, or the "
+                                   f"step changed the process's cuDNN flags")
             results[dtype if tape == "recompute" else f"{dtype}_hbm"] = (median, launches, gib)
+
+        # what the train step's cuDNN scope costs: the LPIPS loss on the
+        # step's 32 x 32 patch pair and its gradient (the only convolutions
+        # of the step), under the flags the step ran with before the scope
+        # (cuDNN's default algorithms, TF32 off) and under the scope
+        gen = torch.Generator().manual_seed(seed + 7)
+        lp = lpips_module.init_lpips_params(seed, device)
+        pair = [(torch.rand(1, 3, 32, 32, generator=gen) * 2 - 1).to(device) for _ in range(2)]
+        x = pair[0].requires_grad_(True)
+        run = lambda: torch.autograd.grad(lpips_module.lpips(lp, x, pair[1]).sum(), x)
+        flags = {"default": dict(deterministic=False, allow_tf32=False),
+                 "scope": dict(enabled=True, benchmark=False, deterministic=True,
+                               allow_tf32=False)}
+        scope_ms = {"default": math.inf, "scope": math.inf}
+        for name in ("default", "scope", "scope", "default") * 2:  # in turns: the least of each
+            with lpips_module.cudnn_scope(**flags[name]):
+                scope_ms[name] = min(scope_ms[name], cuda_ms_min(run))
+        log("human_cudnn_scope", lpips_fwd_bwd_default_ms=f"{scope_ms['default']:.4f}",
+            lpips_fwd_bwd_scope_ms=f"{scope_ms['scope']:.4f}",
+            cost_ms=f"{scope_ms['scope'] - scope_ms['default']:.4f}")
 
         # the fused signed distance: one step's losses against the default
         # on one batch, then 2 train steps of a trainer that runs it (the

@@ -19,9 +19,10 @@ Layer map, entry points first:
     ops/mesh.py          vertex KNN, closest point, signed distance, warp
     ops/kernels/         the seven hand-written CUDA kernels (sm_90a, sources
                          in csrc/) with their plain PyTorch twins: nerf_mlp and
-                         nerf_mlp_bwd (mlp_hopper.cuh: wgmma + TMA in bf16,
-                         register tiles in f32), offset_mlp and offset_mlp_bwd,
-                         ericson_select and ericson_signed_select, bucketed_knn
+                         nerf_mlp_bwd, offset_mlp and offset_mlp_bwd (both
+                         pairs on mlp_hopper.cuh: wgmma + TMA in bf16, register
+                         tiles in f32), ericson_select and
+                         ericson_signed_select, bucketed_knn
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict

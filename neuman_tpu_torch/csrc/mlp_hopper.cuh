@@ -1,8 +1,11 @@
-// Device code of the Hopper NeRF-MLP kernels (nerf_mlp.cu, nerf_mlp_bwd.cu),
-// which replace neuman_tpu/ops/pallas/raymarch.py `nerf_mlp_pallas` (:105)
-// and raymarch_vjp.py `_mlp_bwd` (:76): one tile-product building block per
-// compute dtype, shared by the forward, its tape and the backward's chain
-// pass, and the weight-gradient (dW) pass.
+// Device code of the Hopper fused-MLP kernels: the NeRF pair (nerf_mlp.cu,
+// nerf_mlp_bwd.cu), which replaces neuman_tpu/ops/pallas/raymarch.py
+// `nerf_mlp_pallas` (:105) and raymarch_vjp.py `_mlp_bwd` (:76), and the
+// offset-net pair (offset_mlp.cu, offset_mlp_bwd.cu), which replaces
+// raymarch_vjp.py `_offset_fwd_impl` (:506) and `_offset_bwd` (:620): the
+// positional encodings and their derivatives, one tile-product building
+// block per compute dtype, shared by the forwards, their tapes and the
+// backwards' chain passes, and the weight-gradient (dW) pass.
 //
 // What bounds these kernels on an H100: the MLP's multiply-adds (0.59 M a
 // sample forward at 8 x 256, ~3x that backward) against 989 TFLOP/s (bf16
@@ -35,9 +38,11 @@
 //   each thread accumulates 8 samples x N/32 outputs (64 at N = 256).
 //
 // A layer writes its output over its input (the epilogue starts after the
-// group's last read of the input), so a tile holds one 64-column PE block
-// (block 0) and W columns of hidden values (blocks 1 .. W/64): the skip
-// input [PE, h] is blocks 0 .. W/64, one contiguous range. The per-sample
+// group's last read of the input), so a tile holds its PE in `pb` 64-column
+// blocks (the NeRF's 63 columns in one, the offset net's 84 in two, zero
+// past the PE's width) and W columns of hidden values after them (blocks
+// pb .. pb + W/64 - 1): the skip input [PE, h] is blocks 0 .. pb + W/64 - 1,
+// one contiguous range. The per-sample
 // views layer reads [feature, dir PE] in f32, the plain version's order (a
 // pre-activation within an ulp of 0 then rounds to the same side), from a
 // block after h; bf16, whose shared memory has no room for it, reads
@@ -48,10 +53,37 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
-
-#include "mlp_tiles.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
+typedef __nv_bfloat16 bf16;
+
+constexpr int MAX_LAYERS = 16;
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ float tof(float v) { return v; }
+__device__ __forceinline__ float tof(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T cvt(float v);
+template <> __device__ __forceinline__ float cvt<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 cvt<bf16>(float v) { return __float2bfloat16(v); }
+
+struct PE {
+  int mapping;  // 0 posenc, 1 rotate (3 inputs)
+  int include_input;
+  int n_bands;
+  int out_dim;
+  const float* coef;  // posenc: [n_bands] bands; rotate: [3 n_bands, 3] basis
+};
+
+// D <= 4 input planes [N] of a PE: (x, y, z) or the offset net's (x, y, z, t)
+struct Planes {
+  const float* p[4];
+  int d;
+};
 
 constexpr int HT = 64;  // samples of a tile
 constexpr int CONSUMER_WARPS = 8;
@@ -61,25 +93,27 @@ constexpr int STAGE_BYTES = 32768;  // a ring stage: a slab is at most 256 rows 
 constexpr int MAX_STAGES = 4;
 constexpr int ATOM = HT * 128;      // a 64-column block of a bf16 tile
 constexpr int DLD = 65;             // row stride of the f32 d_pe scratch
-constexpr int SCR_FLOATS = 4 * 3 * HT;  // head partial sums; the chain pass's cotangents
+constexpr int SCR_FLOATS = 4 * 4 * HT;  // head partial sums; the chain pass's cotangents
 constexpr int SMEM_LIMIT = 232448;  // shared memory a block can have on the H100
 constexpr int DW_TILE = 128;        // dW output tiles are 128 x 128
 constexpr int MAX_SUBS = 2 * MAX_LAYERS;
 
 __host__ __device__ constexpr int round1024(int x) { return (x + 1023) / 1024 * 1024; }
 
-// Shared memory of one tile (activations, head scratch, d_pe in the chain
-// pass) and of a whole block, for `groups` tiles and `stages` ring stages.
-// Columns of a tile: PE block, h, and in f32 the dir-PE block after h.
-__host__ __device__ constexpr int tile_cols(int esize, int width) {
-  return 64 + width + (esize == 4 ? 64 : 0);
+// Shared memory of one tile (activations, head scratch, d_pe in the NeRF
+// chain pass) and of a whole block, for `groups` tiles and `stages` ring
+// stages. Columns of a tile: pb PE blocks, h, and in f32 the NeRF's dir-PE
+// block after h (views: the net has the view-direction head).
+__host__ __device__ constexpr int tile_cols(int esize, int width, int pb = 1, bool views = true) {
+  return 64 * pb + width + (esize == 4 && views ? 64 : 0);
 }
 // The block the per-sample views layer's dir PE is in.
 __host__ __device__ constexpr int dpe_block(int esize, int width) {
   return esize == 4 ? 1 + width / 64 : 0;
 }
-__host__ __device__ constexpr int tile_bytes(int esize, int width, bool chain) {
-  return round1024(tile_cols(esize, width) * HT * esize + SCR_FLOATS * 4 +
+__host__ __device__ constexpr int tile_bytes(int esize, int width, bool chain, int pb = 1,
+                                             bool views = true) {
+  return round1024(tile_cols(esize, width, pb, views) * HT * esize + SCR_FLOATS * 4 +
                    (chain ? HT * DLD * 4 : 0));
 }
 __host__ __device__ constexpr int block_bytes(int groups, int tile, int stages) {
@@ -365,12 +399,13 @@ template <typename T> struct Tile {
 
 // Tile `gi` of the block in the memory after the ring.
 template <typename T, int W>
-__device__ Tile<T> make_tile(unsigned char* rest, int gi, bool chain) {
+__device__ Tile<T> make_tile(unsigned char* rest, int gi, bool chain, int pb = 1,
+                             bool views = true) {
   Tile<T> t;
-  unsigned char* p = rest + gi * tile_bytes(sizeof(T), W, chain);
+  unsigned char* p = rest + gi * tile_bytes(sizeof(T), W, chain, pb, views);
   t.act.p = reinterpret_cast<decltype(t.act.p)>(p);
   t.act.s = smem_addr(p);
-  t.scr = reinterpret_cast<float*>(p + tile_cols(sizeof(T), W) * HT * sizeof(T));
+  t.scr = reinterpret_cast<float*>(p + tile_cols(sizeof(T), W, pb, views) * HT * sizeof(T));
   t.dpe = t.scr + SCR_FLOATS;
   const int warp = threadIdx.x / 32;
   if (sizeof(T) == 2) t.g = Group{(int)threadIdx.x % 128, 128, 1 + gi, warp % 4};
@@ -437,36 +472,94 @@ __device__ void rows_in(const Tile<float>& t, int c0, int n, const float* base, 
   t.g.sync();
 }
 
-// Column c of the PE of v: the arithmetic of mlp_tiles.cuh's pe_fill and of
-// the plain PyTorch PE; columns from pe.out_dim on are 0.
-__device__ __forceinline__ float pe_col(const PE& pe, const float v[3], int c) {
-  const int base = pe.include_input ? 3 : 0;
+// b . v as the FMA chain fma(b2, v2, fma(b1, v1, b0 v0)), spelled out so
+// that the compiler cannot reorder it: the operations of the plain PyTorch
+// version (`embedder.rotate_projection`), so both take the sin and cos of
+// the same argument, which reaches ~10^3 at the top band.
+__device__ __forceinline__ float rot_proj(const float* b, const float* v) {
+  return __fmaf_rn(b[2], v[2], __fmaf_rn(b[1], v[1], __fmul_rn(b[0], v[0])));
+}
+
+// v[i] of a 4-vector without a dynamic index (which would put v in local memory)
+__device__ __forceinline__ float pick(const float v[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// Column c of the PE of the d inputs v, as the plain PyTorch PE computes it
+// (`embedder.embed`): posenc [v (d), sin(f0 v) (d), cos(f0 v) (d), sin(f1
+// v), ...], each argument v f rounded to f32; rotate (d = 3) [v, sin(B v)
+// all, cos(B v) all]. Columns from pe.out_dim on are 0.
+__device__ __forceinline__ float pe_col(const PE& pe, const float v[4], int d, int c) {
+  const int base = pe.include_input ? d : 0;
   if (c >= pe.out_dim) return 0.f;
-  if (c < base) return v[c];
+  if (c < base) return pick(v, c);
   if (pe.mapping == 0) {
-    const int r = c - base, band = r / 6, k = r % 6;
-    const float a = v[k % 3] * pe.coef[band];
-    return k < 3 ? sinf(a) : cosf(a);
+    const int r = c - base, band = r / (2 * d), k = r % (2 * d);
+    const float a = pick(v, k < d ? k : k - d) * pe.coef[band];
+    return k < d ? sinf(a) : cosf(a);
   }
   const int f = 3 * pe.n_bands, r = c - base, j = r < f ? r : r - f;
   const float a = rot_proj(pe.coef + 3 * j, v);
   return r < f ? sinf(a) : cosf(a);
 }
 
-// The PE of (x, y, z) into block `blk`; samples at or past lim get zero inputs.
+// The PE of the planes into blocks blk .. blk + nblk - 1; samples at or past
+// lim get zero inputs.
 template <typename T>
-__device__ void pe_fill(const Tile<T>& t, int blk, const PE& pe, const float* x, const float* y,
-                        const float* z, int lim) {
-  for (int idx = t.g.tid; idx < HT * 64; idx += t.g.nthr) {
+__device__ void pe_fill(const Tile<T>& t, int blk, int nblk, const PE& pe, const Planes& in,
+                        int lim) {
+  const int cols = 64 * nblk;
+  for (int idx = t.g.tid; idx < HT * cols; idx += t.g.nthr) {
     // bf16: neighbouring threads on neighbouring columns; f32 on samples
-    const int s = sizeof(T) == 2 ? idx / 64 : idx % HT, c = sizeof(T) == 2 ? idx % 64 : idx / HT;
+    const int s = sizeof(T) == 2 ? idx / cols : idx % HT;
+    const int c = sizeof(T) == 2 ? idx % cols : idx / HT;
     const int g = t.n0 + s;
-    float v[3] = {0.f, 0.f, 0.f};
-    if (g < lim) { v[0] = x[g]; v[1] = y[g]; v[2] = z[g]; }
-    *t.act.at(s, 64 * blk + c) = cvt<T>(pe_col(pe, v, c));
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      if (a < in.d && g < lim) v[a] = in.p[a][g];
+    *t.act.at(s, 64 * blk + c) = cvt<T>(pe_col(pe, v, in.d, c));
   }
   if (sizeof(T) == 2) fence_async_smem();
   t.g.sync();
+}
+
+// d(x, y, z) of one sample from d_pe [out_dim], in f32 (the plain
+// version's `pe_bwd`).
+__device__ void pe_bwd(const PE& pe, float x, float y, float z, const float* d, float out[3]) {
+  const float v[4] = {x, y, z, 0.f};
+  const int base = pe.include_input ? 3 : 0;
+  for (int a = 0; a < 3; ++a) out[a] = pe.include_input ? d[a] : 0.f;
+  if (pe.mapping == 0) {
+    for (int b = 0; b < pe.n_bands; ++b) {
+      const float f = pe.coef[b];
+      for (int a = 0; a < 3; ++a) {
+        const float s = sinf(v[a] * f), c = cosf(v[a] * f);
+        out[a] += f * (c * d[base + 6 * b + a] - s * d[base + 6 * b + 3 + a]);
+      }
+    }
+  } else {
+    const int f = 3 * pe.n_bands;
+    for (int j = 0; j < f; ++j) {
+      const float* b = pe.coef + 3 * j;
+      const float p = rot_proj(b, v);
+      const float dp = cosf(p) * d[base + j] - sinf(p) * d[base + f + j];
+      for (int a = 0; a < 3; ++a) out[a] += b[a] * dp;
+    }
+  }
+}
+
+// d(input a) of one sample of the posenc PE of d inputs, from d_pe [out_dim]
+// (`ld` floats apart), in f32: the plain version's `pe_bwd`, band by band.
+__device__ float pe_bwd_axis(const PE& pe, float x, int d, int a, const float* dpe, int ld) {
+  const int base = pe.include_input ? d : 0;
+  float acc = pe.include_input ? dpe[a * ld] : 0.f;
+  for (int b = 0; b < pe.n_bands; ++b) {
+    const float f = pe.coef[b];
+    const float s = sinf(x * f), c = cosf(x * f);
+    acc = acc + f * (c * dpe[(base + 2 * d * b + a) * ld] - s * dpe[(base + 2 * d * b + d + a) * ld]);
+  }
+  return acc;
 }
 
 // ------------------------------------------------------------ tile products
@@ -652,21 +745,25 @@ struct Net {
   int spr, depth, skip_mask;
 };
 
-__device__ __forceinline__ bool has_pe(const Net& a, int i) {
-  return i == 0 || ((a.skip_mask >> (i - 1)) & 1);
+// whether trunk layer i's input starts with the PE (layer 0, and the layer
+// after each skip)
+__device__ __forceinline__ bool has_pe(int skip_mask, int i) {
+  return i == 0 || ((skip_mask >> (i - 1)) & 1);
 }
 
-// The ReLU trunk on the tile's PE (block 0), leaving h in blocks 1 .. W/64;
-// layer i's posts also go to tape rows at column i W (posts non-null).
+// The ReLU trunk on the tile's PE (blocks 0 .. pb - 1), leaving h in blocks
+// pb .. pb + W/64 - 1; layer i's posts also go to tape rows at column i W
+// (posts non-null). bias: the trunk's, layer by layer.
 template <typename T, int W>
-__device__ void trunk(const Tile<T>& t, Ring& ring, const Net& a, T* posts, int ld, int rows) {
-  const float* bias = a.bias;
-  for (int i = 0; i < a.depth; ++i) {
-    const bool pe = has_pe(a, i);
-    const int kb = i == 0 ? 1 : (pe ? 1 + W / 64 : W / 64);
+__device__ void trunk(const Tile<T>& t, Ring& ring, const float* bias, int depth, int skip_mask,
+                      int pb, T* posts, int ld, int rows) {
+  for (int i = 0; i < depth; ++i) {
+    const bool pe = has_pe(skip_mask, i);
+    const int kb = i == 0 ? pb : (pe ? pb + W / 64 : W / 64);
     product<W, true>(
-        t, ring, pe ? 0 : 1, kb, 64, [bias](int, int o, float v) { return fmaxf(v + bias[o], 0.f); },
-        Mask<T>{nullptr, 0}, Rows<T>{posts == nullptr ? nullptr : posts + i * W, ld, rows});
+        t, ring, pe ? 0 : pb, kb, 64 * pb,
+        [bias](int, int o, float v) { return fmaxf(v + bias[o], 0.f); }, Mask<T>{nullptr, 0},
+        Rows<T>{posts == nullptr ? nullptr : posts + i * W, ld, rows});
     bias += W;
   }
 }
@@ -683,7 +780,7 @@ __device__ void feature_views(const Tile<T>& t, Ring& ring, const Net& a, int li
   const bool per_sample = a.dx != nullptr;
   constexpr int DB = dpe_block(sizeof(T), W);
   if (per_sample) {
-    pe_fill(t, DB, a.dir, a.dx, a.dy, a.dz, lim);
+    pe_fill(t, DB, 1, a.dir, Planes{{a.dx, a.dy, a.dz, nullptr}, 3}, lim);
     if (dpe.base != nullptr) rows_out(t, 64 * DB, 64, dpe);
   }
   const float* bv = bf + W;
@@ -941,6 +1038,17 @@ int ring_stages(int groups, int tile) {
   int s = MAX_STAGES;
   while (s > 2 && block_bytes(groups, tile, s) > SMEM_LIMIT) --s;
   return s;
+}
+
+// Dynamic shared memory of a block of the tile kernels (bf16: two tiles,
+// f32: one) of this shape with as many ring stages as fit, which go to
+// *stages.
+template <typename T>
+int launch_smem(int width, bool chain, int pb, bool views, int* stages) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  const int tile = tile_bytes(sizeof(T), width, chain, pb, views);
+  *stages = ring_stages(G, tile);
+  return block_bytes(G, tile, *stages);
 }
 
 }  // namespace

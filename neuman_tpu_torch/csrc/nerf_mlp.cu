@@ -70,8 +70,8 @@ __device__ void forward(const FwdArgs& a, Ring& ring, unsigned char* rest, int u
     t.n0 = tile * HT;
     t.rows = min(HT, a.n - t.n0);
     T* tape = a.tape != nullptr ? static_cast<T*>(a.tape) + (size_t)t.n0 * ldp : nullptr;
-    pe_fill(t, 0, net.pos, net.px, net.py, net.pz, a.n);
-    trunk<T, W>(t, ring, net, tape, ldp, t.rows);
+    pe_fill(t, 0, 1, net.pos, Planes{{net.px, net.py, net.pz, nullptr}, 3}, a.n);
+    trunk<T, W>(t, ring, net.bias, net.depth, net.skip_mask, 1, tape, ldp, t.rows);
     head<T, 1>(t, 64, W, a.head_a, b_alpha, a.out, a.n);
     feature_views<T, W>(t, ring, net, a.n, Rows<T>{nullptr, 0, 0}, Rows<T>{nullptr, 0, 0},
                         Rows<T>{nullptr, 0, 0});
@@ -102,9 +102,8 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1) nerf_mlp_kernel(FwdArgs a, 
 template <typename T, int W>
 int launch(const FwdArgs& a, void* stream) {
   constexpr int G = sizeof(T) == 2 ? 2 : 1;
-  const int tile = tile_bytes(sizeof(T), W, false);
-  const int stages = ring_stages(G, tile);
-  const int smem = block_bytes(G, tile, stages);
+  int stages = 0;
+  const int smem = launch_smem<T>(W, false, 1, true, &stages);
   void (*kernel)(FwdArgs, int) = nerf_mlp_kernel<T, W>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -113,18 +112,13 @@ int launch(const FwdArgs& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int shared_bytes(int width) {
-  constexpr int G = sizeof(T) == 2 ? 2 : 1;
-  const int tile = tile_bytes(sizeof(T), width, false);
-  return block_bytes(G, tile, ring_stages(G, tile));
-}
-
 }  // namespace
 
 // Dynamic shared memory of the kernel at this width and dtype.
 extern "C" int nerf_mlp_shared_bytes(int width, int half_precision) {
-  return half_precision ? shared_bytes<bf16>(width) : shared_bytes<float>(width);
+  int stages = 0;
+  return half_precision ? launch_smem<bf16>(width, false, 1, true, &stages)
+                        : launch_smem<float>(width, false, 1, true, &stages);
 }
 
 // Planes px/py/pz (and dx/dy/dz) [N] f32; dir_part [R, W/2] f32 or null;

@@ -98,9 +98,10 @@ __device__ void chain(const ChainArgs& a, Ring& ring, unsigned char* rest, int u
     const T* posts = fwd != nullptr ? fwd + (size_t)n0 * ldp : tape + a.t_post;
 
     // ---- forward; every value a dW product reads goes to the tape
-    pe_fill(t, 0, net.pos, net.px, net.py, net.pz, lim);
+    pe_fill(t, 0, 1, net.pos, Planes{{net.px, net.py, net.pz, nullptr}, 3}, lim);
     rows_out(t, 0, 64, col(0));
-    if (fwd == nullptr) trunk<T, W>(t, ring, net, tape + a.t_post, ldt, HT);
+    if (fwd == nullptr)
+      trunk<T, W>(t, ring, net.bias, depth, net.skip_mask, 1, tape + a.t_post, ldt, HT);
     else rows_in(t, 64, W, posts + (depth - 1) * W, ldp);
     feature_views<T, W>(t, ring, net, lim, col(a.t_feat), per_sample ? col(a.t_dpe) : no_rows,
                         col(a.t_h2));
@@ -148,7 +149,7 @@ __device__ void chain(const ChainArgs& a, Ring& ring, unsigned char* rest, int u
                      Mask<T>{posts + (depth - 1) * W, ldp}, col(a.t_dpre + (depth - 1) * W));
     // down the trunk: layer i's input gradient; its PE part accumulates in f32
     for (int i = depth - 1; i >= 0; --i) {
-      if (has_pe(net, i))
+      if (has_pe(net.skip_mask, i))
         product<64, false>(t, ring, 1, W / 64, 0,
                            [dpe](int s, int o, float v) { dpe[s * DLD + o] += v; return v; },
                            no_mask, no_rows);
@@ -224,9 +225,8 @@ Layout layout(int depth, int width, int per_sample) {
 template <typename T, int W>
 int launch_chain(const ChainArgs& c, int blocks, cudaStream_t st) {
   constexpr int G = sizeof(T) == 2 ? 2 : 1;
-  const int tile = tile_bytes(sizeof(T), W, true);
-  const int stages = ring_stages(G, tile);
-  const int smem = block_bytes(G, tile, stages);
+  int stages = 0;
+  const int smem = launch_smem<T>(W, true, 1, true, &stages);
   void (*kernel)(ChainArgs, int) = bwd_chain_kernel<T, W>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -235,19 +235,14 @@ int launch_chain(const ChainArgs& c, int blocks, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int chain_shared_bytes(int width) {
-  constexpr int G = sizeof(T) == 2 ? 2 : 1;
-  const int tile = tile_bytes(sizeof(T), width, true);
-  return block_bytes(G, tile, ring_stages(G, tile));
-}
-
 }  // namespace
 
 // Dynamic shared memory of the chain pass (kernel 0) or the dW pass (1).
 extern "C" int nerf_mlp_bwd_shared_bytes(int kernel, int width, int half_precision) {
   if (kernel == 1) return block_bytes(0, 0, MAX_STAGES);
-  return half_precision ? chain_shared_bytes<bf16>(width) : chain_shared_bytes<float>(width);
+  int stages = 0;
+  return half_precision ? launch_smem<bf16>(width, true, 1, true, &stages)
+                        : launch_smem<float>(width, true, 1, true, &stages);
 }
 
 // Columns of one chunk-tape row (elements of the compute dtype).

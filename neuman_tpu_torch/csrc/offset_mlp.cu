@@ -1,126 +1,151 @@
 // Fused positional encoding + no-viewdirs MLP (the offset net) over planar
 // samples: PE of D <= 4 input planes (x, y, z, t), the ReLU trunk with the
-// skip concat [PE, h], and the linear head, to O raw output planes [O, N].
+// skip concat [PE, h], and the linear head, to O <= 4 raw output planes
+// [O, N].
 //
 // Replaces neuman_tpu/ops/pallas/raymarch_vjp.py `_offset_fwd_impl` (kernel
 // body :558, pallas_call :605). The output scaling of the offset net
 // (linear / tanh times a per-step scalar) stays outside, as there.
 //
-// The plan is nerf_mlp.cu's: one block of 256 threads runs a tile of 64
-// samples through the whole net; the tile's activations live in two
-// ping-pong [64][LD] shared-memory buffers whose columns [0, Cp) hold the
-// tile's PE, so the skip concat is a column range; the weights (~2 MB in
-// f32 at 8 x 256) stay in global memory, where the 50 MB L2 and each SM's
-// L1 hold them. f32: FMAs on CUDA cores (bound by FMA issue, ~0.57 M
-// multiply-adds a sample). bf16: mma.sync m16n8k16 with f32 accumulation,
-// activations and weights rounded to bf16 where the TPU kernel casts them,
-// the PE block (84 columns for D = 4, 10 bands) zero-padded to 96 for the
-// MMA's k step with matching zero weight columns from the wrapper. The
-// O-wide head runs on CUDA cores in both.
+// What bounds it on an H100: the multiply-adds, ~0.50 M a sample at 8 x 256
+// with the 84-column PE of (x, y, z, t) (0.52 M as run, the PE padded to 128
+// columns), at 989 TFLOP/s in bf16 and 67 TFLOP/s in f32; in bf16 also the
+// ~1.1 MB of weights a block streams from L2 for every 128 samples.
+//
+// Design: nerf_mlp.cu's, on mlp_hopper.cuh's building blocks: persistent
+// blocks of 8 consumer warps and a producer warp that streams the trunk's
+// weights, laid out by the wrapper as 32 KB slab images, into a
+// shared-memory ring with cp.async.bulk on mbarriers. bf16: each consumer
+// warpgroup runs its own 64-sample tile through every layer with wgmma
+// m64n256k16 (m64n64k16 at width 64), so every slab serves 128 samples; f32:
+// the 8 warps share a 64-sample tile, 8 samples x W/32 outputs a thread from
+// 128-bit shared loads. The PE takes two 64-column blocks of the tile (84
+// columns, zero-padded to 128, with zero weight columns from the wrapper:
+// 4.5% more multiply-adds on layers 0 and 5), so the skip input [PE, h] is
+// one range. The O-wide head runs on CUDA cores. Activations are rounded to
+// bf16 where the JAX kernel casts them (PE, trunk outputs).
 //
 // With a tape pointer (the `mlp_tape="hbm"` train configuration; the TPU
 // kernel's emit_tape) every trunk layer also writes its post-ReLU output, in
-// the compute dtype, to tape[n][i * W + o]: what offset_mlp_bwd.cu's chain
-// pass otherwise recomputes, bit for bit (the same tile products).
+// the compute dtype, to tape[n][i * W + o]: in bf16 16 bytes a store from
+// the shared-memory tile, in f32 from the accumulators. The trunk is
+// offset_mlp_bwd.cu's chain pass's (`trunk`), so the tape is what the
+// backward otherwise recomputes, bit for bit.
 
-#include "mlp_tiles.cuh"
+#include "mlp_hopper.cuh"
 
 namespace {
 
 struct OffsetArgs {
-  Axes ax;            // D input planes [N]
-  const void* wt;     // trunk weights: f32 [in, out] per layer; bf16 [out, in], PE block padded
-  const float* bias;  // trunk biases, then the head's
-  const float* head;  // [O, W] head weights rounded to the compute dtype, f32
-  float* out;         // [O, N]
-  void* tape;         // [N, depth * W] trunk posts, compute dtype, or null
+  Planes ax;                 // D input planes [N]
+  const unsigned char* img;  // trunk weight slab images
+  const uint2* slabs;        // (byte offset, bytes) of each slab in the order the layers read them
+  int n_slabs;
+  const float* bias;         // trunk biases, then the head's
+  const float* head;         // [O, W] head weights rounded to the compute dtype, f32
+  float* out;                // [O, N]
+  void* tape;                // [N, depth * W] trunk posts, compute dtype, or null
   PE pos;
-  int n, depth, width, skip_mask, n_out;
-  int ld, cp;
+  int n, depth, skip_mask, n_out, pb;
 };
 
-// TAPE: the trunk posts also go to a.tape; a template flag, so that the
-// tape-less kernel keeps its code.
-template <typename T, bool TAPE>
-__global__ void __launch_bounds__(THREADS) offset_mlp_kernel(OffsetArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* nxt = cur + TN * a.ld;
-  const int n0 = blockIdx.x * TN;
-  const int cp = a.cp, w = a.width, ld = a.ld;
-  const T* wt = static_cast<const T*>(a.wt);
-  const float* bias = a.bias;
-  T* tape = static_cast<T*>(a.tape);
-  const int ldtape = a.depth * w, n = a.n;
-
-  pe_fill_nd(cur, ld, 0, cp, a.pos, a.ax, n0, a.n);
-  pe_fill_nd(nxt, ld, 0, cp, a.pos, a.ax, n0, a.n);
-  __syncthreads();
-  for (int i = 0; i < a.depth; ++i) {
-    const bool after_skip = i > 0 && ((a.skip_mask >> (i - 1)) & 1);
-    const int in_off = (i == 0 || after_skip) ? 0 : cp;
-    const int in_dim = i == 0 ? cp : (after_skip ? cp + w : w);
-    T* dst = nxt;
-    T* trow = TAPE ? tape + (size_t)n0 * ldtape + i * w : nullptr;
-    dense(cur, ld, in_off, in_dim, wt, w, [&](int s, int o, float v) {
-      const T tv = cvt<T>(fmaxf(v + bias[o], 0.f));
-      dst[s * ld + cp + o] = tv;
-      if (TAPE && n0 + s < n) trow[(size_t)s * ldtape + o] = tv;
-    });
-    wt += (size_t)in_dim * w;
-    bias += w;
-    __syncthreads();
-    T* t = cur; cur = nxt; nxt = t;
-  }
-  for (int idx = threadIdx.x; idx < TN * a.n_out; idx += blockDim.x) {
-    const int s = idx / a.n_out, o = idx % a.n_out, g = n0 + s;
-    const T* x = cur + s * ld + cp;
-    const float* hw = a.head + (size_t)o * w;
-    float acc = 0.f;
-    for (int k = 0; k < w; ++k) acc += tof(x[k]) * hw[k];
-    if (g < a.n) a.out[(size_t)o * a.n + g] = acc + bias[o];
+template <typename T, int W>
+__device__ void forward(const OffsetArgs& a, Ring& ring, unsigned char* rest, int units,
+                        int tiles) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  const int gi = threadIdx.x / 32 / (CONSUMER_WARPS / G);
+  Tile<T> t = make_tile<T, W>(rest, gi, false, a.pb, false);
+  const int ldp = a.depth * W, h0 = 64 * a.pb;
+  const float* b_head = a.bias + a.depth * W;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = u * G + gi;
+    if (tile >= tiles) {
+      drain(ring, a.n_slabs);
+      continue;
+    }
+    t.n0 = tile * HT;
+    t.rows = min(HT, a.n - t.n0);
+    T* tape = a.tape != nullptr ? static_cast<T*>(a.tape) + (size_t)t.n0 * ldp : nullptr;
+    pe_fill(t, 0, a.pb, a.pos, a.ax, a.n);
+    trunk<T, W>(t, ring, a.bias, a.depth, a.skip_mask, a.pb, tape, ldp, t.rows);
+    switch (a.n_out) {
+      case 1: head<T, 1>(t, h0, W, a.head, b_head, a.out, a.n); break;
+      case 2: head<T, 2>(t, h0, W, a.head, b_head, a.out, a.n); break;
+      case 3: head<T, 3>(t, h0, W, a.head, b_head, a.out, a.n); break;
+      default: head<T, 4>(t, h0, W, a.head, b_head, a.out, a.n); break;
+    }
   }
 }
 
-template <typename T>
+template <typename T, int W>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1) offset_mlp_kernel(OffsetArgs a, int stages) {
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;  // tiles a block runs at once
+  Ring ring;
+  unsigned char* rest = ring_setup(ring, stages);
+  const int tiles = (a.n + HT - 1) / HT, units = (tiles + G - 1) / G;
+  const int warp = threadIdx.x / 32;
+  if (warp >= CONSUMER_WARPS) {
+    producer_registers();
+    if (threadIdx.x == PRODUCER_WARP * 32) {
+      const int reps = (int)blockIdx.x < units ? (units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+      produce(ring, a.img, a.slabs, a.n_slabs, reps);
+    }
+  } else {
+    consumer_registers();
+    forward<T, W>(a, ring, rest, units, tiles);
+  }
+}
+
+template <typename T, int W>
 int launch(const OffsetArgs& a, void* stream) {
-  const int smem = 2 * TN * a.ld * (int)sizeof(T);
-  void (*kernel)(OffsetArgs) =
-      a.tape != nullptr ? offset_mlp_kernel<T, true> : offset_mlp_kernel<T, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int G = sizeof(T) == 2 ? 2 : 1;
+  int stages = 0;
+  const int smem = launch_smem<T>(W, false, a.pb, false, &stages);
+  void (*kernel)(OffsetArgs, int) = offset_mlp_kernel<T, W>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(a.n + TN - 1) / TN, THREADS, smem, (cudaStream_t)stream>>>(a);
+  const int units = ((a.n + HT - 1) / HT + G - 1) / G;
+  kernel<<<min(units, sm_count()), HOPPER_THREADS, smem, (cudaStream_t)stream>>>(a, stages);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Planes ax0..ax3 [N] f32 (the first `d_in` are read); bias: f32, trunk
-// layers in order, then the head; head [O, W] f32, rounded to the compute
-// dtype by the caller.
-// bf16 == 0: wt f32, each trunk layer [in, out] (transposed), unpadded.
-// bf16 == 1: wt bf16, each trunk layer [out, in] with the PE column block
-//            padded to a multiple of 16; needs width % 64 == 0.
+// Dynamic shared memory of the kernel at this width, dtype and PE width.
+extern "C" int offset_mlp_shared_bytes(int width, int pos_dim, int half_precision) {
+  int stages = 0;
+  const int pb = (pos_dim + 63) / 64;
+  return half_precision ? launch_smem<bf16>(width, false, pb, false, &stages)
+                        : launch_smem<float>(width, false, pb, false, &stages);
+}
+
+// Planes ax0..ax3 [N] f32 (the first `d_in` are read); img / slabs: the trunk
+// layers' weight slabs in the compute dtype as the wrapper lays them out
+// (`nerf_mlp.slab_plan`, the PE blocks zero-padded to 64 columns each), and
+// their (offset, bytes); bias: f32, trunk layers in order, then the head;
+// head [O, W] f32, rounded to the compute dtype by the caller.
 // out [O, N] f32; tape [N, depth * width] of the compute dtype, or null.
-// Returns the cudaError_t of the launch (0 on success).
+// Width 64 or 256, a PE of at most 128 columns, O <= 4. Returns the
+// cudaError_t of the launch (0 on success), -1 for a net it does not take.
 extern "C" int offset_mlp_launch(
     const float* ax0, const float* ax1, const float* ax2, const float* ax3, int d_in,
-    const void* wt, const float* bias, const float* head, float* out, void* tape, int n, int depth,
-    int width, int skip_mask, int n_out, int pos_include, int pos_bands, int pos_dim,
-    const float* pos_coef, int bf16, void* stream) {
+    const void* img, const void* slabs, int n_slabs, const float* bias, const float* head,
+    float* out, void* tape, int n, int depth, int width, int skip_mask, int n_out,
+    int pos_include, int pos_bands, int pos_dim, const float* pos_coef, int half_precision,
+    void* stream) {
   if (n == 0) return 0;
+  if (d_in < 1 || d_in > 4 || n_out < 1 || n_out > 4 || pos_dim > 128 || depth > MAX_LAYERS)
+    return -1;
   OffsetArgs a;
-  a.ax = Axes{{ax0, ax1, ax2, ax3}, d_in};
-  a.wt = wt; a.bias = bias; a.head = head; a.out = out; a.tape = tape;
+  a.ax = Planes{{ax0, ax1, ax2, ax3}, d_in};
+  a.img = static_cast<const unsigned char*>(img);
+  a.slabs = static_cast<const uint2*>(slabs);
+  a.n_slabs = n_slabs;
+  a.bias = bias; a.head = head; a.out = out; a.tape = tape;
   a.pos = PE{0, pos_include, pos_bands, pos_dim, pos_coef};
-  a.n = n; a.depth = depth; a.width = width; a.skip_mask = skip_mask; a.n_out = n_out;
-  a.cp = bf16 ? round_up(pos_dim, 16) : pos_dim;
-  const int ld = a.cp + width;
-  if (!bf16) {
-    a.ld = ld;
-    return launch<float>(a, stream);
-  }
-  a.ld = round_up(ld - 8, 64) + 8;  // = 8 mod 64: conflict-free A fragments
-  return launch<__nv_bfloat16>(a, stream);
+  a.n = n; a.depth = depth; a.skip_mask = skip_mask; a.n_out = n_out;
+  a.pb = (pos_dim + 63) / 64;
+  if (width == 256) return half_precision ? launch<bf16, 256>(a, stream) : launch<float, 256>(a, stream);
+  if (width == 64) return half_precision ? launch<bf16, 64>(a, stream) : launch<float, 64>(a, stream);
+  return -1;
 }

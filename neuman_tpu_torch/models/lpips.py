@@ -67,10 +67,27 @@ def _unit_normalize(f, eps=1e-10):
     return f / (torch.sqrt((f * f).sum(dim=1, keepdim=True)) + eps)
 
 
+def cudnn_scope(**flags):
+    """`torch.backends.cudnn.flags` with the given flags and the caller's
+    others: a scope that restores every flag on exit. ATen reads the flags
+    when a convolution (or its backward) runs, so a scope that should cover
+    a backward encloses the `backward` / `autograd.grad` call too."""
+    cudnn = torch.backends.cudnn
+    now = dict(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+               deterministic=cudnn.deterministic, allow_tf32=cudnn.allow_tf32)
+    return cudnn.flags(**{**now, **flags})
+
+
 def lpips(params, img0, img1):
     """Perceptual distance [B] between images in [-1, 1], NCHW. f32
-    convolutions run in full f32 (TF32 off), as the f32 matmuls do."""
-    torch.backends.cudnn.allow_tf32 = False
+    convolutions run in full f32 (TF32 off, in a scope), as the f32
+    matmuls do; the train step's scope (`cudnn_scope` in
+    trainers/human.py) also keeps TF32 off for their backward."""
+    with cudnn_scope(allow_tf32=False):
+        return _lpips(params, img0, img1)
+
+
+def _lpips(params, img0, img1):
     shift = torch.tensor(_SHIFT, device=img0.device)[None, :, None, None]
     scale = torch.tensor(_SCALE, device=img0.device)[None, :, None, None]
     f0 = _features(params, (img0 - shift) / scale)

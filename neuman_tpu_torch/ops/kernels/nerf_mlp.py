@@ -87,15 +87,12 @@ def nerf_mlp_plain(spec, net, px, py, pz, dir_part=None, dir_planes=None,
     return out
 
 
-def _round16(x):
-    return -(-x // 16) * 16
-
-
 # a block of activation columns in the kernels' tiles (a bf16 wgmma atom)
 BLOCK = 64
 # bytes of one slab row: 64 bf16 k values, or (f32) 32 k values of one output
 SLAB_ROW_BYTES = 128
-# widths the kernels are built for; PE and direction-PE blocks take <= 64 columns
+# widths the kernels are built for; the NeRF's PE and direction-PE blocks
+# take <= 64 columns, the offset net's PE <= 2 blocks (128 columns)
 KERNEL_WIDTHS = (64, 256)
 
 
@@ -105,18 +102,22 @@ def _block(first, real):
     return first, real, -(-real // BLOCK) * BLOCK
 
 
-def mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward=False):
+def mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward=False,
+                 views=True):
     """The tile products of the kernels, in the order they run them:
     (layer, n_blocks, k_blocks, transposed). layer indexes `_lins` (trunk,
     alpha, feature, views, rgb); n_blocks are the product's outputs (each
     block one part, a product of its own in the kernel), k_blocks its
-    inputs, both as `_block`s of the weight [out, in]; transposed: the
-    outputs run over the weight's inputs (the backward's input gradients).
+    inputs, both as `_block`s of the weight [out, in] (a PE of 84 columns
+    is one part of two blocks); transposed: the outputs run over the
+    weight's inputs (the backward's input gradients).
     The forward: trunk, feature, views (per-sample [feature, dir PE] in f32,
     the plain version's order; [dir PE, feature] in bf16, whose tiles keep
     the dir PE in the PE block); the backward then adds the transposed
     views, feature and trunk layers, top down, each with its PE or dir-PE
-    part first (the other part writes over the product's input)."""
+    part first (the other part writes over the product's input).
+    views=False (the offset net: the trunk and a head on CUDA cores): the
+    trunk alone, and backward its transposed layers."""
     half = width // 2
     skips = tuple(skips)
 
@@ -133,6 +134,10 @@ def mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backwa
                     else views_in + [_block(width, dir_dim)])
     full = lambda m: [(0, m, m)]
     out = [(i, full(width), trunk_in(i), False) for i in range(depth)]
+    if not views:
+        if backward:
+            out += [(i, trunk_in(i), [_block(0, width)], True) for i in reversed(range(depth))]
+        return out
     out += [(depth + 1, full(width), [_block(0, width)], False),
             (depth + 2, full(half), views_in, False)]
     if backward:
@@ -144,12 +149,14 @@ def mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backwa
     return out
 
 
-def layer_shapes(width, depth, skips, pos_dim, dir_dim):
-    """[out, in] of each weight of `_lins`."""
+def layer_shapes(width, depth, skips, pos_dim, dir_dim, views=True):
+    """[out, in] of each weight of `_lins` (views=False: of the trunk)."""
     ins = [pos_dim if i == 0 else pos_dim + width if (i - 1) in tuple(skips) else width
            for i in range(depth)]
-    return ([(width, k) for k in ins]
-            + [(1, width), (width, width), (width // 2, width + dir_dim), (3, width // 2)])
+    trunk = [(width, k) for k in ins]
+    if not views:
+        return trunk
+    return trunk + [(1, width), (width, width), (width // 2, width + dir_dim), (3, width // 2)]
 
 
 def _axis(blocks):
@@ -166,21 +173,24 @@ def swizzle128(rows):
 
 
 @functools.lru_cache(maxsize=32)
-def slab_plan(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward=False):
+def slab_plan(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward=False,
+              views=True):
     """The weight image the kernels stream, as (index, slabs, n_trunk):
-    index [elements] into [0, every weight of `_lins` flattened row-major]
+    index [elements] into [0, every weight of `_lins` (views=False: of the
+    trunk) flattened row-major]
     (0 is a zero, weight w's element (o, i) is 1 + offset_w + o * in + i);
     slabs [count, 2] int32 (byte offset, bytes) in the order the kernel
     reads them; n_trunk: how many of them the forward's trunk takes (the
     first ones). One slab is one stage of the kernel's ring: N outputs x
     128 bytes of a product part. bf16: [N][64 k], each row 128-byte
     swizzled (the wgmma K-major layout); f32: [32 k][N]."""
-    shapes = layer_shapes(width, depth, skips, pos_dim, dir_dim)
+    shapes = layer_shapes(width, depth, skips, pos_dim, dir_dim, views)
     starts = np.cumsum([1] + [o * i for o, i in shapes])
     esize, kc = (2, 64) if bf16 else (4, 32)
     parts, slabs, at, n_trunk = [], [], 0, 0
     for p, (layer, nb, kb, transposed) in enumerate(
-            mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward)):
+            mlp_products(width, depth, skips, pos_dim, dir_dim, per_sample, bf16, backward,
+                         views)):
         rows, cols = _axis(nb), _axis(kb)
         out_idx, in_idx = ((cols[None, :], rows[:, None]) if transposed
                            else (rows[:, None], cols[None, :]))
@@ -217,15 +227,19 @@ def _plan_on(device, *key):
 
 def pack_slabs(spec, net, per_sample, compute_dtype, backward=False):
     """(image, slabs, n_trunk) of `slab_plan` for the weights of `net`, on
-    their device: the image in the compute dtype, slabs int32 [count, 2]."""
+    their device: the image in the compute dtype, slabs int32 [count, 2].
+    A net without the view-direction head (the offset net) packs its trunk."""
     nspec = spec.nerf
-    device = net.rgb_linear.weight.device
+    views = nspec.use_viewdirs
+    lins = _lins(net) if views else list(net.pts_linears)
+    device = lins[0].weight.device
     index, slabs, n_trunk = _plan_on(
         device, nspec.width, nspec.depth, tuple(nspec.skips), spec.pos_pe.out_dim,
-        spec.dir_pe.out_dim, per_sample, compute_dtype == torch.bfloat16, backward)
+        spec.dir_pe.out_dim if views else 0, per_sample, compute_dtype == torch.bfloat16,
+        backward, views)
     with torch.no_grad():
         flat = torch.cat([torch.zeros(1, device=device)]
-                         + [lin.weight.reshape(-1).float() for lin in _lins(net)])
+                         + [lin.weight.reshape(-1).float() for lin in lins])
         return flat.to(compute_dtype)[index], slabs, n_trunk
 
 
@@ -241,14 +255,15 @@ def _heads(net, compute_dtype):
     return head_a, head_rgb, bias
 
 
-def check_envelope(spec, per_sample, what, max_depth):
-    """Raise ValueError for a net the kernels are not built for."""
+def check_envelope(spec, per_sample, what, max_depth, max_pe=BLOCK):
+    """Raise ValueError for a net the kernels are not built for (PE of at
+    most `max_pe` columns: the NeRF pair's one block, the offset pair's two)."""
     nspec = spec.nerf
-    if (nspec.width not in KERNEL_WIDTHS or spec.pos_pe.out_dim > BLOCK
+    if (nspec.width not in KERNEL_WIDTHS or spec.pos_pe.out_dim > max_pe
             or (per_sample and spec.dir_pe.out_dim > BLOCK) or not 0 < nspec.depth <= max_depth
             or any(not 0 <= i < nspec.depth - 1 for i in nspec.skips)):
         raise ValueError(f"{what} kernel: unsupported net {nspec} (width in {KERNEL_WIDTHS}, "
-                         f"PE widths <= {BLOCK}, depth <= {max_depth})")
+                         f"PE widths <= {max_pe}, depth <= {max_depth})")
 
 
 @functools.lru_cache(maxsize=None)

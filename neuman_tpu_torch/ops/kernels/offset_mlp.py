@@ -7,8 +7,11 @@ Replaces neuman_tpu/ops/pallas/raymarch_vjp.py `_offset_fwd_impl` (kernel
 [R, S] ((x, y, z, t) for the offset nets), a 'posenc' PE, the ReLU trunk
 with the skip concat [PE, h] and the linear head; returns the O raw output
 planes [R, S] (the offset net's output scaling is the caller's). Sources:
-neuman_tpu_torch/csrc/offset_mlp.cu and offset_mlp_bwd.cu, whose headers
-say what bounds them on the H100 and how the design answers that.
+neuman_tpu_torch/csrc/offset_mlp.cu and offset_mlp_bwd.cu, on the building
+blocks of csrc/mlp_hopper.cuh that the nerf_mlp pair runs on too; their
+headers say what bounds them on the H100 and how the design answers that.
+The trunk's weights stream as `nerf_mlp.pack_slabs` lays them out, the PE
+(84 columns for (x, y, z, t)) zero-padded to two 64-column blocks.
 
 `offset_mlp` and `offset_mlp_bwd` launch the kernels for CUDA tensors (or
 raise) and run `offset_mlp_plain` / `offset_mlp_bwd_plain`, the same
@@ -37,10 +40,14 @@ from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import _check_tape, check_tape_mode, pe_bwd
 from neuman_tpu_torch.ops.precision import matmul_f32
 
-# samples per chunk of the backward kernel's tape (~550 MB in f32 at 8 x 256)
+# samples per chunk of the backward kernel's tape (~17 KB a sample in f32,
+# ~8.5 KB in bf16 at 8 x 256: ~550 MB in f32)
 CHUNK_SAMPLES = 32768
-# contiguous sample ranges of a chunk whose dW partials are summed in order
-KSPLIT = 4
+# the most contiguous sample ranges of a chunk whose dW partials are summed
+# in order (the kernel takes enough to fill the card, at most this many)
+KSPLIT = 16
+# the widest PE the kernels take: two 64-column blocks of the tiles
+MAX_PE = 2 * kmlp.BLOCK
 
 
 def net_layers(net):
@@ -118,49 +125,48 @@ def offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype=torch.float32, t
     return trunk_grads + [head_grad], [d_x[:, a].reshape(r, s) for a in range(x.shape[1])]
 
 
-def _pack_trunk(spec, net, compute_dtype, backward=False):
-    """The trunk's weights in one flat buffer as the kernels read them: f32
-    layers transposed to [in, out]; bf16 layers [out, in] with the PE column
-    block zero-padded to a multiple of 16 (the MMA's k step). backward=True
-    gives each layer the other way round, for the input gradients."""
-    if compute_dtype == torch.float32:
-        return torch.cat([(lin.weight if backward else lin.weight.t()).reshape(-1)
-                          for lin in net.pts_linears])
-    cp, width = spec.pos_pe.out_dim, spec.nerf.width
-    parts = []
-    for lin in net.pts_linears:
-        w = lin.weight
-        if w.shape[1] != width:  # the input starts with the PE block
-            pad = torch.nn.functional.pad(w[:, :cp], (0, kmlp._round16(cp) - cp))
-            w = torch.cat([pad, w[:, cp:]], dim=1)
-        parts.append((w.t() if backward else w).reshape(-1))
-    return torch.cat(parts).to(torch.bfloat16)
-
-
 def _check(spec, net, axes, compute_dtype, what):
-    """Raise on what the kernels do not take; returns (rounder, bf16)."""
+    """Raise ValueError on what the kernels do not take (widths other than
+    `nerf_mlp.KERNEL_WIDTHS`, a PE wider than two 64-column blocks, another
+    mapping than 'posenc', over 4 input planes or outputs); returns
+    whether the compute dtype is bf16."""
     nspec, pe = spec.nerf, spec.pos_pe
     r, s = axes[0].shape
     device = axes[0].device
     for a, t in enumerate(axes):
         kmlp._check_plane(t, (r, s), device, f"axes[{a}]")
-    rnd = kmlp._rounder(compute_dtype)  # raises on another dtype
-    bf16 = compute_dtype == torch.bfloat16
-    width = nspec.width
-    cp = kmlp._round16(pe.out_dim) if bf16 else pe.out_dim
-    # two [64, LD] buffers (+ the backward's [64, Cp] f32) within 227 KB;
-    # the f32 tile products reach 32 x 11 columns
-    smem = 2 * 64 * (cp + width) * (2 if bf16 else 4) + 64 * cp * 4
+    kmlp._rounder(compute_dtype)  # raises on another dtype
     if (pe.mapping != "posenc" or not 1 <= len(axes) <= 4 or pe.input_dims != len(axes)
-            or nspec.use_viewdirs or width > 256 or cp + width > 352 or smem > 232448
-            or not 0 < nspec.depth <= 15 or not 1 <= nspec.output_ch <= 4
-            or any(not 0 <= i < nspec.depth - 1 for i in nspec.skips)
-            or (bf16 and width % 64)):
+            or nspec.use_viewdirs or not 1 <= nspec.output_ch <= 4):
         raise ValueError(f"{what} kernel: unsupported net {nspec} / {pe.mapping} PE of "
                          f"{len(axes)} planes for {compute_dtype}")
+    kmlp.check_envelope(spec, False, what, 15, max_pe=MAX_PE)
     if any(w.device != device for w, _ in net_layers(net)):
         raise ValueError(f"{what}: weights and planes must be on one device")
-    return rnd, bf16
+    return compute_dtype == torch.bfloat16
+
+
+def tape_layout(depth, width, pos_dim):
+    """Columns of the backward kernel's chunk-tape row (elements of the
+    compute dtype): the PE (zero-padded to 64-column blocks), the trunk's
+    posts, the O <= 4 cotangents (a block of 8), every layer's d_pre, and
+    the row's length. Every block starts on 8 columns: 16-byte stores, and
+    a TMA box of the dW pass must start on 16 bytes."""
+    t_post = -(-pos_dim // kmlp.BLOCK) * kmlp.BLOCK
+    t_g = t_post + depth * width
+    t_dpre = t_g + 8
+    return {"t_post": t_post, "t_g": t_g, "t_dpre": t_dpre, "ldt": t_dpre + depth * width}
+
+
+def _lib_args(spec, net, compute_dtype, backward):
+    """The slab image and table, the biases (trunk, head) and the head's
+    weights rounded to the compute dtype, on the weights' device."""
+    rnd = kmlp._rounder(compute_dtype)
+    img, slabs, n_trunk = kmlp.pack_slabs(spec, net, False, compute_dtype, backward=backward)
+    with torch.no_grad():
+        bias = torch.cat([b.reshape(-1) for _, b in net_layers(net)]).float()
+        head = rnd(net.output_linear.weight).float().contiguous()
+    return img, slabs, n_trunk, bias, head
 
 
 def _pe_args(pe_spec, device):
@@ -176,8 +182,11 @@ def _axes_ptrs(axes):
 def _lib_fwd():
     lib = _build.load("offset_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.offset_mlp_launch.argtypes = [p] * 4 + [i] + [p] * 5 + [i] * 5 + [i, i, i, p] + [i, p]
+    lib.offset_mlp_launch.argtypes = (
+        [p] * 4 + [i] + [p] * 2 + [i] + [p] * 4 + [i] * 5 + [i, i, i, p] + [i, p])
     lib.offset_mlp_launch.restype = ctypes.c_int
+    lib.offset_mlp_shared_bytes.argtypes = [i] * 3
+    lib.offset_mlp_shared_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -186,30 +195,29 @@ def _lib_bwd():
     lib = _build.load("offset_mlp_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.offset_mlp_bwd_launch.argtypes = (
-        [p] * 4 + [i] + [p] * 10 + [i] * 5 + [i, i, i, p] + [i] * 4 + [p])
+        [p] * 4 + [i] + [p] * 4 + [i] + [p] * 7 + [i] * 5 + [i, i, i, p] + [i] * 8 + [p])
     lib.offset_mlp_bwd_launch.restype = ctypes.c_int
-    lib.offset_mlp_bwd_tape_cols.argtypes = [i] * 4
-    lib.offset_mlp_bwd_tape_cols.restype = ctypes.c_int
+    lib.offset_mlp_bwd_shared_bytes.argtypes = [i] * 4
+    lib.offset_mlp_bwd_shared_bytes.restype = ctypes.c_int
     return lib
 
 
 def _launch_fwd(spec, net, axes, compute_dtype, emit_tape):
     nspec = spec.nerf
-    rnd, bf16 = _check(spec, net, axes, compute_dtype, "offset_mlp")
+    bf16 = _check(spec, net, axes, compute_dtype, "offset_mlp")
     r, s = axes[0].shape
     device = axes[0].device
-    with torch.no_grad():
-        wt = _pack_trunk(spec, net, compute_dtype)
-        bias = torch.cat([b.reshape(-1) for _, b in net_layers(net)]).float()
-        head = rnd(net.output_linear.weight).contiguous()
+    img, slabs, _, bias, head = _lib_args(spec, net, compute_dtype, False)
     out = torch.empty(nspec.output_ch, r * s, device=device, dtype=torch.float32)
     tape = (torch.empty(r * s, nspec.depth * nspec.width, device=device, dtype=compute_dtype)
             if emit_tape else None)
     err = _lib_fwd().offset_mlp_launch(
-        *_axes_ptrs(axes), wt.data_ptr(), bias.data_ptr(), head.data_ptr(), out.data_ptr(),
-        None if tape is None else tape.data_ptr(),
+        *_axes_ptrs(axes), img.data_ptr(), slabs.data_ptr(), slabs.shape[0], bias.data_ptr(),
+        head.data_ptr(), out.data_ptr(), None if tape is None else tape.data_ptr(),
         r * s, nspec.depth, nspec.width, sum(1 << i for i in nspec.skips), nspec.output_ch,
         *_pe_args(spec.pos_pe, device), int(bf16), torch.cuda.current_stream(device).cuda_stream)
+    if err == -1:
+        raise ValueError("offset_mlp: the kernel does not take this net")
     _build.check(err, "offset_mlp")
     offset_mlp.launches += 1
     planes = [out[c].reshape(r, s) for c in range(nspec.output_ch)]
@@ -232,7 +240,7 @@ offset_mlp.launches = 0
 
 def _launch_bwd(spec, net, axes, g_rows, compute_dtype, fwd_tape):
     nspec = spec.nerf
-    rnd, bf16 = _check(spec, net, axes, compute_dtype, "offset_mlp_bwd")
+    bf16 = _check(spec, net, axes, compute_dtype, "offset_mlp_bwd")
     r, s = axes[0].shape
     n, device = r * s, axes[0].device
     if len(g_rows) != nspec.output_ch:
@@ -242,30 +250,33 @@ def _launch_bwd(spec, net, axes, g_rows, compute_dtype, fwd_tape):
     if fwd_tape is not None:
         _check_tape(fwd_tape, n, nspec.depth * nspec.width, device, compute_dtype,
                     "offset_mlp_bwd")
-    with torch.no_grad():
-        wf = _pack_trunk(spec, net, compute_dtype)
-        wb = _pack_trunk(spec, net, compute_dtype, backward=True)
-        bias = torch.cat([lin.bias.reshape(-1) for lin in net.pts_linears]).float()
-        head = rnd(net.output_linear.weight).contiguous()
+    img, slabs, n_trunk, bias, head = _lib_args(spec, net, compute_dtype, True)
+    if fwd_tape is not None:  # the chain pass reads the trunk's posts instead
+        slabs = slabs[n_trunk:]
     g = torch.stack(list(g_rows)).reshape(len(g_rows), n)
     shapes = [(w.shape, b.shape) for w, b in net_layers(net)]
     total = sum(ws.numel() + bs.numel() for ws, bs in shapes)
     lib = _lib_bwd()
-    cols = lib.offset_mlp_bwd_tape_cols(nspec.depth, nspec.width, spec.pos_pe.out_dim, int(bf16))
+    pos_dim = spec.pos_pe.out_dim
+    lay = tape_layout(nspec.depth, nspec.width, pos_dim)
     chunk = min(CHUNK_SAMPLES, -(-n // 64) * 64)
-    tape = torch.empty(chunk * cols, device=device, dtype=compute_dtype)
+    tape = torch.empty(chunk * lay["ldt"], device=device, dtype=compute_dtype)
+    dpe = torch.empty(chunk * -(-pos_dim // 64) * 64, device=device)
     partial = torch.empty(KSPLIT * total, device=device)
     grad = torch.empty(total, device=device)
     d_axes = torch.empty(len(axes), n, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.offset_mlp_bwd_launch(
-        *_axes_ptrs(axes), g.data_ptr(), None if fwd_tape is None else fwd_tape.data_ptr(),
-        wf.data_ptr(), wb.data_ptr(), bias.data_ptr(),
-        head.data_ptr(), d_axes.data_ptr(), grad.data_ptr(), tape.data_ptr(),
-        partial.data_ptr(), n, nspec.depth, nspec.width, sum(1 << i for i in nspec.skips),
-        nspec.output_ch, *_pe_args(spec.pos_pe, device), int(bf16), chunk, KSPLIT, total,
+        *_axes_ptrs(axes), ptr(g), ptr(fwd_tape), ptr(img), ptr(slabs), slabs.shape[0],
+        ptr(bias), ptr(head), ptr(d_axes), ptr(grad), ptr(tape), ptr(dpe), ptr(partial), n,
+        nspec.depth, nspec.width, sum(1 << i for i in nspec.skips), nspec.output_ch,
+        *_pe_args(spec.pos_pe, device), int(bf16), chunk, KSPLIT, total,
+        *(lay[k] for k in ("t_post", "t_g", "t_dpre", "ldt")),
         torch.cuda.current_stream(device).cuda_stream)
     if err == -1:
         raise ValueError("offset_mlp_bwd: the kernel's gradient layout disagrees with the net")
+    if err == -2:
+        raise RuntimeError("offset_mlp_bwd: could not make the dW pass's tensor maps")
     _build.check(err, "offset_mlp_bwd")
     offset_mlp_bwd.launches += 1
     grads, at = [], 0

@@ -465,11 +465,23 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
     the optimiser state in place. state: {"opt_state", "iteration" (int),
     "generator" (the device draws), "init_generator" (a CPU generator for
     the dead-net restart)}. The step reads one scalar back (whether the
-    canonical net died); the skip itself is decided on the device."""
+    canonical net died); the skip itself is decided on the device. The
+    step is deterministic: two runs from one seed give the same bits (on
+    the card too: cuDNN's deterministic convolutions, TF32 off), and the
+    caller's cuDNN flags are as they were after it."""
     lpips_skipped = warn_lpips_divergence(opt, ctx)
     loss_fn = make_human_loss_fn(model, opt, ctx, parity_inject, ops)
 
     def train_step(state, batch):
+        # the whole step (loss, autograd.grad, the update) in one scope:
+        # cuDNN's default convolution backward (the LPIPS loss) sums in an
+        # order that changes from run to run, and ATen reads the flags when
+        # the backward runs; the caller's flags come back on exit
+        with lpips_module.cudnn_scope(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False):
+            return _step(state, batch)
+
+    def _step(state, batch):
         it = state["iteration"]
         anneals = compute_anneals(opt, it)
         total, aux = loss_fn(batch, state["generator"], anneals)

@@ -249,15 +249,27 @@ def _offset_inputs(r, s, device):
     return axes, [torch.randn(r, s, generator=g).to(device) for _ in range(3)]
 
 
+# (R, S, chunk samples): 888 samples over 4 chunks of 256 (the last 120),
+# and 65,584 (not a multiple of the bf16 kernels' 128-sample pair of tiles)
+# over 3 chunks of 25,600 (the last 14,384)
+OFFSET_SHAPES = [(37, 24, 256), (4099, 16, 25600)]
+
+
+def _offset_case_net(net, device):
+    return _offset_net(256, 8, (4,), device) if net == "8x256" else _offset_net(64, 4, (1,), device)
+
+
+@pytest.mark.parametrize("shape", OFFSET_SHAPES, ids=lambda c: f"N{c[0] * c[1]}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("net", ["8x256", "4x64"])
-def test_offset_mlp_kernels_match_plain(cuda, net, dtype, monkeypatch):
+def test_offset_mlp_kernels_match_plain(cuda, net, dtype, shape, monkeypatch):
     """Forward and backward at a sample count that is not a tile multiple,
     the backward over several tape chunks (the last one ragged); two
     backward runs are bit-identical. Tolerances as for the nerf_mlp pair."""
-    monkeypatch.setattr(koff, "CHUNK_SAMPLES", 256)
-    spec, net = _offset_net(256, 8, (4,), cuda) if net == "8x256" else _offset_net(64, 4, (1,), cuda)
-    axes, cot = _offset_inputs(37, 24, cuda)
+    r, s, chunk = shape
+    monkeypatch.setattr(koff, "CHUNK_SAMPLES", chunk)
+    spec, net = _offset_case_net(net, cuda)
+    axes, cot = _offset_inputs(r, s, cuda)
     before = (koff.offset_mlp.launches, koff.offset_mlp_bwd.launches)
     out = torch.stack(koff.offset_mlp(spec, net, axes, dtype))
     ref = torch.stack(koff.offset_mlp_plain(spec, net, axes, dtype))
@@ -322,12 +334,12 @@ def test_bucketed_knn_kernel_matches_plain(cuda, case):
     assert diff.float().mean() <= 1e-2
 
 
-def _tape_case(kind, dtype, device):
+def _tape_case(kind, dtype, device, r=37, s=24):
     """(forward with tape, backward(tape), plain forward with tape) of one
     net at a sample count that is not a tile multiple."""
-    if kind == "offset":
-        spec, net = _offset_net(256, 8, (4,), device)
-        axes, cot = _offset_inputs(37, 24, device)
+    if kind.startswith("offset"):
+        spec, net = _offset_case_net(kind.split("-")[1], device)
+        axes, cot = _offset_inputs(r, s, device)
         fwd = lambda fn: fn(spec, net, axes, dtype, emit_tape=True)
         bwd = lambda tape: koff.offset_mlp_bwd(spec, net, axes, cot, dtype, tape=tape)
         flat = lambda o: [t for wb in o[0] for t in wb] + list(o[1])
@@ -343,19 +355,27 @@ def _tape_case(kind, dtype, device):
     return fwd, kmlp.nerf_mlp, kmlp.nerf_mlp_plain, bwd, _flat
 
 
+TAPE_CASES = [("per_ray", 37, 24, 256), ("per_sample", 37, 24, 256),
+              ("offset-8x256", 37, 24, 256), ("offset-8x256", 4099, 16, 25600),
+              ("offset-4x64", 4099, 16, 25600)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("kind", ["per_ray", "per_sample", "offset"])
-def test_tape_backward_is_bit_identical_to_recompute(cuda, kind, dtype, monkeypatch):
+@pytest.mark.parametrize("case", TAPE_CASES, ids=lambda c: f"{c[0]}-N{c[1] * c[2]}")
+def test_tape_backward_is_bit_identical_to_recompute(cuda, case, dtype, monkeypatch):
     """The forward kernels' tape holds what the backward's chain pass
     recomputes, bit for bit, so every gradient with the tape equals the
     recompute configuration's exactly, over several ragged chunks; the tape
     agrees with the plain version's at the forward's tolerances."""
+    kind, r, s, chunk = case
     monkeypatch.setattr(kvjp, "CHUNK_SAMPLES", 240)
-    monkeypatch.setattr(koff, "CHUNK_SAMPLES", 256)
-    fwd, kernel, plain, bwd, flat = _tape_case(kind, dtype, cuda)
+    monkeypatch.setattr(koff, "CHUNK_SAMPLES", chunk)
+    fwd, kernel, plain, bwd, flat = _tape_case(kind, dtype, cuda, r, s)
     _, tape = fwd(kernel)
     _, ref_tape = fwd(plain)
-    assert tape.dtype == dtype and tape.shape == (37 * 24, 8 * 256)
+    width = 64 if kind.endswith("4x64") else 256
+    depth = 4 if kind.endswith("4x64") else 8
+    assert tape.dtype == dtype and tape.shape == (r * s, depth * width)
     if dtype == torch.float32:
         torch.testing.assert_close(tape, ref_tape, atol=1e-4, rtol=0)
     else:
@@ -466,3 +486,32 @@ def test_render_frames_kernels_match_plain(cuda, frame):
     assert out[0].shape == (h, w, 3) and all(torch.isfinite(x).all() for x in out)
     psnr = -10.0 * math.log10(max(torch.mean((out[0] - ref[0]) ** 2).item(), 1e-20))
     assert psnr >= 40.0, psnr
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_human_is_deterministic_without_outside_flags(cuda, dtype, tmp_path):
+    """Two train_human runs of 2 steps (and their validations) from one seed
+    give the same parameters bit for bit, with no cuDNN flag set from
+    outside: the step scopes cuDNN's deterministic convolutions (the LPIPS
+    loss's backward) itself, and leaves the process's flags as it found
+    them. A narrow net and a small scene keep it short."""
+    from neuman_tpu_torch import train as ttrain
+    from neuman_tpu_torch.datasets import arrays as darrays
+    from neuman_tpu_torch.options.config import NeuManConfig, apply_mode_defaults
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.enabled, cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32)
+    body = body_proxy_smpl_model(subdivisions=3, device=cuda)
+    scene = darrays.synthetic_human_scene(body, 4, 64, 96, seed=0, device=cuda)
+    params = []
+    for run in range(2):
+        cfg = apply_mode_defaults(NeuManConfig(), "smpl_and_offset")
+        fields = dict(out_dir=str(tmp_path), name=f"run{run}", seed=0, max_iter=2,
+                      valid_iter=1000, compute_dtype=dtype, nerf_depth=6, nerf_width=64,
+                      rays_per_batch=1024 + 32, samples_per_ray=16, geo_threshold=0.25)
+        for k, v in fields.items():
+            setattr(cfg, k, v)
+        trainer = ttrain.train_human(cfg.finalize(), scene, [0, 1, 2], [3], body, device=cuda)
+        params.append([p.detach().clone() for p in trainer.model.parameters()])
+        assert (cudnn.enabled, cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32) == flags
+    assert all(torch.equal(a, b) for a, b in zip(*params))

@@ -635,3 +635,42 @@ def test_overlay_smpl_matches_jax():
     assert 0.01 < (got != cap.image).any(-1).mean() < 0.9
     np.testing.assert_array_equal(trast.rasterize_mesh(verts, faces[:, :3], cap),
                                   jrast.rasterize_mesh(verts, faces[:, :3], cap))
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_train_step_is_deterministic_and_keeps_the_cudnn_flags(flag):
+    """The step scopes cuDNN's deterministic convolutions (TF32 off) itself:
+    after a step the process's `deterministic`, `benchmark` and
+    `allow_tf32` are what the caller set, True or False, and the step's
+    losses and parameters do not depend on them (two steps from one state
+    give the same bits)."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    jcfg, tcfg = _configs()
+    params, lpips_params = _jax_loss_and_grads(False)[:2]
+    runs = []
+    try:
+        for _ in range(2):
+            cudnn.deterministic = cudnn.benchmark = cudnn.allow_tf32 = flag
+            model, ctx = _torch_side(tcfg, params, lpips_params)
+            optimizer = thuman.make_optimizer()
+            state = {"opt_state": optimizer.init(thuman.trained_params(model)), "iteration": 0,
+                     "generator": torch.Generator().manual_seed(0),
+                     "init_generator": torch.Generator().manual_seed(1)}
+            step = thuman.make_human_train_step(model, tcfg, optimizer, ctx,
+                                                parity_inject=_inject())
+            # a copy: another test writes a NaN into its batch 0
+            batch = _torch_batch({k: np.array(v) for k, v in _batches()[1].items()})
+            _, metrics = step(state, batch)
+            assert (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32) == (flag,) * 3
+            runs.append(([metrics[k] for k in thuman.LOSS_NAMES + ["total_loss"]],
+                         [p.detach().clone() for p in model.parameters()]))
+            # LPIPS alone (the validation's) keeps TF32 off in its own scope
+            img = torch.rand(1, 3, 32, 32) * 2 - 1
+            tlpips.lpips(ctx["lpips_params"], img, -img)
+            assert cudnn.allow_tf32 == flag
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved
+    assert float(runs[0][0][-1]) > 0
+    for a, b in zip(*[r[0] + r[1] for r in runs]):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))

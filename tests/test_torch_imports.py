@@ -3,9 +3,11 @@
 Neither `neuman_tpu` (not even its numpy-only modules: the port keeps its
 own copies) nor jax, flax, imageio, PIL or joblib, which the machine with
 the GPU does not have. `m.split('.')[0]` keeps `neuman_tpu_torch` apart
-from `neuman_tpu`.
+from `neuman_tpu`. One interpreter imports every module in turn (a
+subprocess a module took ~5 s each, most of it importing torch).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -52,18 +54,35 @@ MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", MODULES)
-def test_imports_without_jax_stack(module):
+@pytest.fixture(scope="module")
+def import_errors():
+    """{module: error or None}: every module imported in turn by one fresh
+    interpreter in which the blocked packages cannot be imported (each entry
+    of sys.modules set to None, so an import of one raises wherever it
+    happens, whichever module came first), and the blocked packages found
+    in sys.modules after each import."""
     code = (
-        "import sys\n"
+        "import json, sys\n"
         f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
-        f"import {module}\n"
-        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "out = {}\n"
+        f"for name in {MODULES!r}:\n"
+        "    try:\n"
+        "        __import__(name)\n"
+        "        leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None)\n"
-        "assert not leaked, leaked\n"
+        "        out[name] = f'leaked {leaked}' if leaked else None\n"
+        "    except Exception as e:\n"
+        "        out[name] = repr(e)\n"
+        "print(json.dumps(out))\n"
     )
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_imports_without_jax_stack(module, import_errors):
+    assert import_errors[module] is None, import_errors[module]

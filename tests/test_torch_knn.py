@@ -185,7 +185,7 @@ def test_vertex_forward_values_and_pose_gradient_match_jax():
         v, ts = jhn.vertex_forward(None, p, jbody, da, 1.3, 1)
         return jnp.sum(v[0] * wv) + jnp.sum(ts[0] * wt), (v, ts)
 
-    (_, (jv, jts)), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    (_, (jv, jts)), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     model = _Smpl(poses, betas, align)
     v, ts = thn.vertex_forward(model, tbody, thn.da_pose_params(24), 1.3, torch.tensor(1))
     assert v.shape == (1, 64, 3) and ts.shape == (1, 64, 4, 4)

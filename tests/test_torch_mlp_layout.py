@@ -1,10 +1,12 @@
-"""The layouts the Hopper NeRF-MLP kernels read, checked on the CPU.
+"""The layouts the Hopper fused-MLP kernels read, checked on the CPU.
 
 The kernels (neuman_tpu_torch/csrc/nerf_mlp.cu, nerf_mlp_bwd.cu,
-mlp_hopper.cuh) cannot run here, so what surrounds them is held exact in
-numpy: the weight slab images the wrappers pack (`slab_plan`,
-`pack_slabs`) unpack to the weights they came from, with the PE and
-direction-PE blocks zero-padded; the shared-memory addresses a wgmma
+offset_mlp.cu, offset_mlp_bwd.cu, mlp_hopper.cuh) cannot run here, so what
+surrounds them is held exact in numpy: the weight slab images the wrappers
+pack (`slab_plan`, `pack_slabs`) unpack to the weights they came from, with
+the PE and direction-PE blocks zero-padded (the offset net's 84-column PE
+of (x, y, z, t) in two blocks); the offset backward's tape columns start on
+8; the shared-memory addresses a wgmma
 descriptor reads (128-byte swizzle, K-major for the layers, MN-major for
 the dW pass) hold the element the kernel means; the persistent tile
 schedule and the dW pass's sample ranges cover every sample once,
@@ -18,10 +20,13 @@ import torch
 from neuman_tpu_torch.models import embedder, nerf
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
+from neuman_tpu_torch.ops.kernels import offset_mlp as koff
 
 torch.set_num_threads(1)
 
 NETS = {"8x256-skip4": (256, 8, (4,)), "6x64-skip1": (64, 6, (1,))}
+# the offset nets of the card tests: (x, y, z, t), PE 4 + 4 x 2 x 10 = 84 columns
+OFFSET_NETS = {"8x256-skip4": (256, 8, (4,)), "4x64-skip1": (64, 4, (1,))}
 
 
 def _net(width, depth, skips, mapping="posenc"):
@@ -31,6 +36,15 @@ def _net(width, depth, skips, mapping="posenc"):
         nerf=nerf.NeRFSpec(depth=depth, width=width, input_ch=63, input_ch_views=27,
                            skips=skips, use_viewdirs=True),
     )
+    net = nerf.NeRF(spec.nerf).reset_parameters(torch.Generator().manual_seed(0))
+    return spec, net.requires_grad_(False)
+
+
+def _offset_net(width, depth, skips, n_freqs=10, planes=4):
+    pe = embedder.make_embedder(planes, 9, n_freqs)
+    spec = nerf.OffsetNetSpec(pos_pe=pe, nerf=nerf.NeRFSpec(
+        depth=depth, width=width, input_ch=pe.out_dim, input_ch_views=0, output_ch=3,
+        skips=skips, use_viewdirs=False, scale_type="linear"))
     net = nerf.NeRF(spec.nerf).reset_parameters(torch.Generator().manual_seed(0))
     return spec, net.requires_grad_(False)
 
@@ -69,12 +83,15 @@ def test_slab_images_unpack_to_weights(net_name, dtype, per_sample, backward):
     the image in order and the trunk's forward slabs come first."""
     width, depth, skips = NETS[net_name]
     spec, net = _net(width, depth, skips)
+    products = kmlp.mlp_products(width, depth, skips, 63, 27, per_sample,
+                                 dtype == torch.bfloat16, backward)
+    _check_image(spec, net, kmlp._lins(net), products, per_sample, dtype, backward, depth)
+
+
+def _check_image(spec, net, lins, products, per_sample, dtype, backward, depth):
     img, slabs, n_trunk = kmlp.pack_slabs(spec, net, per_sample, dtype, backward=backward)
     esize = 2 if dtype == torch.bfloat16 else 4
     raw = img.view(torch.uint8).numpy() if dtype == torch.bfloat16 else img.numpy().view(np.uint8)
-    lins = kmlp._lins(net)
-    products = kmlp.mlp_products(width, depth, skips, 63, 27, per_sample,
-                                 dtype == torch.bfloat16, backward)
     at, slab_i, trunk_slabs = 0, 0, 0
     for p, (layer, nb, kb, transposed) in enumerate(products):
         want = _padded(lins[layer].weight, nb, kb, transposed).to(dtype)
@@ -276,3 +293,74 @@ def test_envelope_raises_outside_the_kernels(width):
         kmlp.check_envelope(wide, False, "nerf_mlp", 31)
     with pytest.raises(ValueError):
         kmlp.check_envelope(spec, False, "nerf_mlp_bwd", 4)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("net_name", list(OFFSET_NETS))
+def test_offset_slab_images_unpack_to_weights(net_name, dtype, backward):
+    """The offset net's image (`pack_slabs` of a net without the view head:
+    its trunk; the 3-output head runs on CUDA cores from its own array),
+    read as the kernels read it: the PE of 84 columns is one part of two
+    64-column blocks, zero-padded to 128, in the forward's layer 0 and skip
+    layer and in the transposed layers' PE parts, which come before the h
+    parts; the forward's trunk slabs lead the backward's image."""
+    width, depth, skips = OFFSET_NETS[net_name]
+    spec, net = _offset_net(width, depth, skips)
+    bf16 = dtype == torch.bfloat16
+    products = kmlp.mlp_products(width, depth, skips, 84, 0, False, bf16, backward, views=False)
+    pe = (0, 84, 128)
+    assert products[0][2] == [pe] and products[skips[0] + 1][2] == [pe, (84, width, width)]
+    if backward:
+        top_down = products[depth:]
+        assert [p[0] for p in top_down] == list(reversed(range(depth)))
+        assert all(p[3] and p[2] == [(0, width, width)] for p in top_down)
+        assert top_down[depth - 1 - (skips[0] + 1)][1] == [pe, (84, width, width)]
+        assert top_down[-1][1] == [pe]
+    else:
+        assert len(products) == depth and not any(p[3] for p in products)
+    _check_image(spec, net, list(net.pts_linears), products, False, dtype, backward, depth)
+    _, _, n_trunk, bias, head = koff._lib_args(spec, net, dtype, backward)
+    assert head.shape == (3, width) and head.dtype == torch.float32
+    assert torch.equal(head, net.output_linear.weight.to(dtype).float())
+    assert bias.numel() == depth * width + 3
+
+
+@pytest.mark.parametrize("width,pos_dim", [(256, 84), (64, 84), (256, 63), (64, 128)])
+def test_offset_tape_layout_starts_blocks_on_8_columns(width, pos_dim):
+    """The offset backward's chunk tape (`offset_mlp.tape_layout`): PE, posts,
+    cotangents (8 columns for O <= 4), d_pre, in that order, without
+    overlap; every block and every dW operand (a layer's d_pre, a post, the
+    PE, the cotangents) starts on a multiple of 8 columns, so the 16-byte
+    stores and each TMA box start on 16 bytes in bf16 and f32."""
+    depth = 8
+    lay = koff.tape_layout(depth, width, pos_dim)
+    assert lay["t_post"] >= pos_dim and lay["t_post"] == -(-pos_dim // 64) * 64
+    assert lay["t_g"] == lay["t_post"] + depth * width
+    assert lay["t_dpre"] >= lay["t_g"] + 4
+    assert lay["ldt"] == lay["t_dpre"] + depth * width
+    starts = [0, lay["t_g"], lay["ldt"]]
+    starts += [lay["t_post"] + i * width for i in range(depth)]
+    starts += [lay["t_dpre"] + i * width for i in range(depth)]
+    assert all(c % 8 == 0 for c in starts)
+    for esize in (2, 4):
+        assert all(c * esize % 16 == 0 for c in starts)
+
+
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
+def test_offset_envelope_raises_outside_the_kernels(width):
+    """Widths 64 and 256 and PEs of up to two blocks pass; another width, a
+    PE wider than 128 columns, or a view head: ValueError (never a
+    fallback) on the card's path."""
+    spec, net = _offset_net(width, 4, (1,))
+    axes = [torch.zeros(2, 3) for _ in range(4)]
+    if width in kmlp.KERNEL_WIDTHS:
+        koff._check(spec, net, axes, torch.bfloat16, "offset_mlp")
+    else:
+        with pytest.raises(ValueError):
+            koff._check(spec, net, axes, torch.float32, "offset_mlp")
+    wide, wnet = _offset_net(64, 4, (1,), n_freqs=16)  # 4 + 128 columns
+    with pytest.raises(ValueError):
+        koff._check(wide, wnet, axes, torch.float32, "offset_mlp_bwd")
+    three, tnet = _offset_net(64, 4, (1,), planes=3)  # 63 columns: one block
+    koff._check(three, tnet, axes[:3], torch.float32, "offset_mlp")
