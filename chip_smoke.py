@@ -7,14 +7,16 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc builds the six kernel libraries (seven kernels) from
      neuman_tpu_torch/csrc/ (sm_90a), all started together; then each
-     kernel of the nerf_mlp and offset_mlp pairs (all on mlp_hopper.cuh)
-     with its registers, spill bytes and stack (ptxas -v) and the dynamic
-     shared memory it launches with;
+     kernel of the nerf_mlp and offset_mlp pairs (all on mlp_hopper.cuh),
+     of bucketed_knn and of ericson_select with its registers, spill bytes,
+     stack and static shared memory (ptxas -v) and the dynamic shared
+     memory it launches with;
   3. mlp: nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
      PE 10 + 4 bands), R=1024 x S=64: per-ray posenc and per-sample
      rotate, f32 and bf16;
   4. mesh: ericson_select kernel vs its plain version, N=65,536 ray samples
-     on the body-proxy mesh (V=10,242), k=4, stride 1 and 4;
+     on the body-proxy mesh (V=10,242), k=4, stride 1 and 4, and the human
+     step's N=196,608, stride 4 and 1;
   5. slice: the render slice at full width: one 4096-ray hybrid chunk in
      f32, kernels vs plain, then a 270x480 frame through render_hybrid_nerf
      at its default bf16 (the render path; launch counts reset just before
@@ -34,7 +36,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      two backward runs bit-identical; bucketed_knn vs its plain version at
      Nq=49,152 and 196,608 on the V=10,242 proxy, k=4 (scores everywhere,
      indices outside score ties; recall of the exact nearest vertex
-     printed);
+     printed), on integer grids full of exact ties at V=10,242 and 40,962
+     (indices and scores equal) and on ray samples at V=40,962 (a table
+     over the shared-memory budget);
   9. human: the human train slice at the smpl_and_offset defaults (1536
      rays, 128 samples, all seven losses, V=10,242 body) on the same
      synthetic scene: a step's losses and every parameter gradient
@@ -60,7 +64,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
  12. renders: a 270x480 render_smpl_nerf frame, canonical and posed, and a
      two-actor render_hybrid_nerf_multi_persons frame, bf16, kernels vs the
      plain path.
-Then one JSON line of per-kernel results, and last the device line.
+Then one JSON line of per-kernel results (`ms` by CUDA events around the
+wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
+own time by torch.profiler, else null), and last the device line.
 --phases runs a subset (for work on one kernel); the contract is the run
 with no arguments.
 
@@ -117,6 +123,10 @@ STEP_TOL = {"float32": (1e-4, 5e-3), "bfloat16": (5e-3, BWD_BF16_L2)}
 OFFSET_RAYS, OFFSET_SAMPLES = 1536, 128
 KNN_QUERIES = (49152, 196608)
 KNN_K = 4
+# the table over the shared-memory budget: the proxy at subdivision 6 (V = 40,962)
+KNN_BIG_SUBDIVISIONS = 6
+# query points of the integer-grid cases, where most scores tie exactly
+KNN_TIE_QUERIES = 8192
 # scores: both sides take the same f32 operations; indices may differ only
 # where the two picked vertices' scores agree to this (a tie)
 KNN_SCORE_ATOL = 1e-5
@@ -187,6 +197,29 @@ def cuda_ms_min(fn, repeats=5, iters=20, warmup=20):
     return min(cuda_ms(fn, iters, warmup if i == 0 else 0) for i in range(repeats))
 
 
+def device_ms(fn, kernel, iters=20):
+    """Mean device time in ms of the kernels whose name holds `kernel` over
+    `iters` calls of fn, by torch.profiler: for the mesh kernels, whose
+    wrappers' host time is longer than the kernel at these sizes, so that
+    CUDA events around the calls time the host. Raises if the profiler saw
+    no device time of that kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0) or 0 for e in events)
+    count = sum(e.count for e in events)
+    if not (total and count):
+        raise RuntimeError(f"torch.profiler saw no device time of {kernel}")
+    return total / count / 1e3
+
+
 def bound_ms(flops, nbytes, dtype):
     """(least ms for the work, "operations" or "bytes"): the larger of the
     operations at the card's peak for `dtype` and the bytes at its HBM rate."""
@@ -231,6 +264,13 @@ def mlp_bound(spec, net, per_sample, r, s, dtype, backward, tape=False):
         nbytes += tape_bytes(spec, n, dtype)
         macs -= trunk_macs_per_sample(spec) if backward else 0
     return bound_ms(2 * macs * n, nbytes, dtype)
+
+
+def knn_bound(nq, num_verts):
+    """Points in, vertices in, k indices and scores out; a score for every
+    (point, vertex)."""
+    return bound_ms(KNN_OPS_PER_SCORE * nq * num_verts,
+                    3 * nq * 4 + 3 * num_verts * 4 + 2 * KNN_K * nq * 4, "f32")
 
 
 def ericson_bound(n, c, stride):
@@ -294,6 +334,23 @@ def phase_build():
                 dynamic_smem=shared)
             if res.get("spill_stores", 0) or res.get("spill_loads", 0):
                 spills.append(f"{lib}:{kernel}<{dtype},{width}>")
+    # the mesh kernels, every instantiation (bucketed_knn: 4 points a thread
+    # for k <= 4, else 2; its dynamic shared memory the resident table of the
+    # main path's body)
+    knn_smem = knn.knn_plan(KNN_QUERIES[0], 10 * 4 ** BODY_SUBDIVISIONS + 2, KNN_K, 132)
+    for lib in ("bucketed_knn", "ericson_select"):
+        for fn, res in sorted(_build.kernel_resources(lib).items()):
+            kernel, args = _mesh_kernel_name(fn)
+            if kernel is None or "registers" not in res:
+                continue
+            if res.get("spill_stores", 0) or res.get("spill_loads", 0):
+                spills.append(f"{lib}:{kernel}<{','.join(map(str, args))}>")
+            names = {"bucketed_knn_kernel": ("queries", "k"), "ericson_select_kernel": ("members",)}
+            log("ptxas", library=lib, kernel=kernel,
+                **dict(zip(names.get(kernel, ()), args)), registers=res["registers"],
+                spill_stores=res.get("spill_stores", 0), spill_loads=res.get("spill_loads", 0),
+                stack=res.get("stack", 0), static_smem=res.get("static_smem", 0),
+                dynamic_smem=knn_smem["smem_bytes"] if lib == "bucketed_knn" else 0)
     log("ptxas_spills", kernels=",".join(spills) or "none")
 
 
@@ -309,6 +366,18 @@ def _kernel_name(mangled):
         return None, None, None
     dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}.get(m.group(3), "f32")
     return m.group(1), dtype, int(m.group(5)) if m.group(5) else None
+
+
+def _mesh_kernel_name(mangled):
+    """(kernel, template ints) of a mangled mesh-query kernel name, or
+    (None, ()) for another function."""
+    import re
+
+    m = re.search(r"(bucketed_knn_kernel|ericson_signed_select_kernel|ericson_select_kernel)"
+                  r"((?:I|E)?(?:Li\d+E)*)", mangled)
+    if m is None:
+        return None, ()
+    return m.group(1), tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(2)))
 
 
 def _fwd_compare(spec, net, planes, kw, dtype):
@@ -398,33 +467,44 @@ def _ray_samples(verts, num_rays, s, gen, band=0.3):
 def phase_mesh(verts, topo, seed):
     """Built with --fmad=false the kernel runs the same IEEE operations as
     the plain version, so d2 and cp agree to 1e-6 (expected: exactly); the
-    face id may differ only where another face ties within 1e-6."""
+    face id may differ only where another face ties within 1e-6. Shapes:
+    the hybrid frame's N=65,536 (stride 1 and 4) and the human step's
+    N=196,608 (stride 4, and 1), C=24; each with its plan (points a thread,
+    candidate slices)."""
     import torch
     from neuman_tpu_torch.ops import mesh as mesh_ops
     from neuman_tpu_torch.ops.kernels import meshquery as kmq
 
     gen = torch.Generator().manual_seed(seed + 1)
-    pts = _ray_samples(verts, MESH_RAYS, MESH_SAMPLES, gen)
     results = {}
-    for stride in (1, 4):
-        ops = mesh_ops.candidate_operands(pts, verts, topo, k=4, knn_stride=stride)
-        run_k = lambda: kmq.ericson_select(*ops)
-        run_p = lambda: kmq.ericson_select_plain(*ops)
-        (kd2, kf, kcp), (pd2, pf, pcp) = run_k(), run_p()
-        torch.cuda.synchronize()
-        err = max((kd2 - pd2).abs().max().item(),
-                  max((a - b).abs().max().item() for a, b in zip(kcp, pcp)))
-        diff = kf != pf
-        ties_only = bool((kmq.tie_gap(*ops)[diff] <= MESH_ATOL).all())
-        k_ms, p_ms = cuda_ms_min(run_k), cuda_ms_min(run_p, repeats=2, iters=5, warmup=2)
-        b_ms, b_by = ericson_bound(pts.shape[0], ops[2].shape[0], stride)
-        ok = err <= MESH_ATOL and ties_only and bool(torch.isfinite(kd2).all())
-        log("ericson", N=pts.shape[0], C=ops[2].shape[0], stride=stride,
-            max_abs_err=f"{err:.3e}", f_id_diff=int(diff.sum()), kernel_ms=f"{k_ms:.3f}",
-            plain_ms=f"{p_ms:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by, ok=ok)
-        if not ok:
-            raise RuntimeError(f"ericson_select stride {stride}: kernel disagrees")
-        results[stride] = (err, k_ms, p_ms, b_ms, b_by)
+    for rays, samples in ((MESH_RAYS, MESH_SAMPLES), (SIGNED_RAYS, SIGNED_SAMPLES)):
+        pts = _ray_samples(verts, rays, samples, gen)
+        for stride in (1, 4) if rays == MESH_RAYS else (4, 1):
+            ops = mesh_ops.candidate_operands(pts, verts, topo, k=4, knn_stride=stride)
+            run_k = lambda: kmq.ericson_select(*ops)
+            run_p = lambda: kmq.ericson_select_plain(*ops)
+            (kd2, kf, kcp), (pd2, pf, pcp) = run_k(), run_p()
+            torch.cuda.synchronize()
+            err = max((kd2 - pd2).abs().max().item(),
+                      max((a - b).abs().max().item() for a, b in zip(kcp, pcp)))
+            diff = kf != pf
+            ties_only = bool((kmq.tie_gap(*ops)[diff] <= MESH_ATOL).all())
+            bit_equal = (torch.equal(kd2, pd2) and torch.equal(kf, pf)
+                         and all(torch.equal(a, b) for a, b in zip(kcp, pcp)))
+            k_ms, p_ms = cuda_ms_min(run_k), cuda_ms_min(run_p, repeats=2, iters=5, warmup=2)
+            k_dev = device_ms(run_k, "ericson_select_kernel")
+            n, num_cands = pts.shape[0], ops[2].shape[0]
+            b_ms, b_by = ericson_bound(n, num_cands, stride)
+            plan = kmq.select_plan(n, num_cands, stride)
+            ok = err <= MESH_ATOL and ties_only and bool(torch.isfinite(kd2).all())
+            log("ericson", N=n, C=num_cands, stride=stride, members=plan["members"],
+                slices=plan["slices"], max_abs_err=f"{err:.3e}", f_id_diff=int(diff.sum()),
+                bit_equal_plain=bit_equal, kernel_ms=f"{k_ms:.4f}",
+                kernel_device_ms=f"{k_dev:.4f}", plain_ms=f"{p_ms:.3f}",
+                bound_ms=f"{b_ms:.4f}", bound_by=b_by, ok=ok)
+            if not ok:
+                raise RuntimeError(f"ericson_select N={n} stride {stride}: kernel disagrees")
+            results[(n, stride)] = (err, k_ms, p_ms, b_ms, b_by, k_dev)
     return results
 
 
@@ -864,47 +944,99 @@ def phase_offset(model, spec, device, seed):
     return results
 
 
+def _knn_check(verts, pts, plain_iters):
+    """bucketed_knn vs its plain version on one input: (scores' max abs
+    error, index mismatches, all of them at score ties, bit-equal, kernel
+    ms, plain ms or None)."""
+    import torch
+    from neuman_tpu_torch.ops.kernels import knn as kknn
+
+    run_k = lambda: kknn.bucketed_knn(pts, verts, KNN_K)
+    run_p = lambda: kknn.bucketed_knn_plain(pts, verts, KNN_K)
+    (ki, ks), (pi_, ps) = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = (ks - ps).abs().max().item()
+    diff = ki != pi_
+    ties_only = bool(((ks - ps).abs()[diff] <= KNN_SCORE_ATOL).all())
+    in_range = bool(((ki >= 0) & (ki < verts.shape[0])).all())
+    bit_equal = torch.equal(ki, pi_) and torch.equal(ks, ps)
+    k_ms, k_dev = cuda_ms_min(run_k), device_ms(run_k, "bucketed_knn_kernel")
+    p_ms = cuda_ms(run_p, iters=plain_iters, warmup=1) if plain_iters else None
+    return {"err": err, "idx_diff": int(diff.sum()), "ties_only": ties_only and in_range,
+            "bit_equal": bit_equal, "k_ms": k_ms, "k_dev": k_dev, "p_ms": p_ms, "idx": ki}
+
+
 def phase_knn(verts, seed):
-    """Kernel and plain take each score by the same f32 operations (an
-    explicit FMA chain), so the k scores agree to 1e-5 everywhere (expected:
-    exactly, or one rounding where the plain version's f64 emulation of an
-    FMA rounds twice) and the indices agree except where the two picked
-    vertices' scores tie within that. The recall of the exact nearest
-    vertex (a top-k over all V vertices) is printed, not held: the bucketed
-    KNN is approximate by design, as in the JAX package."""
+    """Kernel and plain take each score by the same f32 operations (three
+    FMAs seeded with |v|^2, which the plain version rounds once each), so
+    the k scores agree to 1e-5 everywhere (expected: exactly) and the
+    indices agree except where the two picked vertices' scores tie within
+    that. At the human step's Nq=49,152 and 196,608 on the V=10,242 proxy
+    (the table resident in shared memory); on a coarse integer grid, where
+    most scores tie exactly, indices and scores must be equal (the earliest
+    position in a bucket, the lower bucket across buckets), at V=10,242 and
+    at V=40,962 (subdivision 6: the table over the shared-memory budget,
+    staged in groups of buckets); and Nq=49,152 ray samples on V=40,962.
+    The recall of the exact nearest vertex (a top-k over all V vertices) is
+    printed, not held: the bucketed KNN is approximate by design, as in the
+    JAX package."""
     import torch
     from neuman_tpu_torch.ops import mesh as mesh_ops
     from neuman_tpu_torch.ops.kernels import knn as kknn
+    from neuman_tpu_torch.utils.synthetic_body import synthetic_body_mesh
 
     gen = torch.Generator().manual_seed(seed + 5)
-    results = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = torch.tensor(synthetic_body_mesh(subdivisions=KNN_BIG_SUBDIVISIONS)[0],
+                       dtype=torch.float32, device=verts.device)
+    results, failed = {}, []
     for nq in KNN_QUERIES:
         pts = _ray_samples(verts, nq // OFFSET_SAMPLES, OFFSET_SAMPLES, gen)
-        run_k = lambda: kknn.bucketed_knn(pts, verts, KNN_K)
-        run_p = lambda: kknn.bucketed_knn_plain(pts, verts, KNN_K)
-        (ki, ks), (pi_, ps) = run_k(), run_p()
-        torch.cuda.synchronize()
-        err = (ks - ps).abs().max().item()
-        diff = ki != pi_
-        ties_only = bool(((ks - ps).abs()[diff] <= KNN_SCORE_ATOL).all())
-        in_range = bool(((ki >= 0) & (ki < verts.shape[0])).all())
+        r = _knn_check(verts, pts, plain_iters=2)
         exact = torch.cat([mesh_ops._query_knn(c, verts, KNN_K)[0] for c in pts.split(16384)])
+        ki = r.pop("idx")
         recall1 = (ki[:, 0] == exact[:, 0]).float().mean().item()
         recall_k = (ki[:, :, None] == exact[:, None, :]).any(1).float().mean().item()
         del exact
-        k_ms, p_ms = cuda_ms(run_k, iters=5, warmup=1), cuda_ms(run_p, iters=2, warmup=1)
-        v_pad = kknn.bucket_table(verts)[..., 0].numel()
-        b_ms, b_by = bound_ms(KNN_OPS_PER_SCORE * nq * verts.shape[0],
-                              3 * nq * 4 + 3 * verts.shape[0] * 4 + 2 * KNN_K * nq * 4, "f32")
-        ok = err <= KNN_SCORE_ATOL and ties_only and in_range
-        log("bucketed_knn", Nq=nq, V=verts.shape[0], V_pad=v_pad, k=KNN_K,
-            score_max_abs_err=f"{err:.3e}", idx_diff=int(diff.sum()), ties_only=ties_only,
+        plan = kknn.knn_plan(nq, verts.shape[0], KNN_K, sms)
+        b_ms, b_by = knn_bound(nq, verts.shape[0])
+        ok = r["err"] <= KNN_SCORE_ATOL and r["ties_only"]
+        log("bucketed_knn", case="rays", Nq=nq, V=verts.shape[0], V_pad=64 * plan["bucket_size"],
+            k=KNN_K, resident=plan["resident"], smem_bytes=plan["smem_bytes"],
+            queries_a_thread=plan["queries"], grid=plan["grid"],
+            score_max_abs_err=f"{r['err']:.3e}", idx_diff=r["idx_diff"],
+            ties_only=r["ties_only"], bit_equal_plain=r["bit_equal"],
             recall_nearest=f"{recall1:.4f}", recall_top_k=f"{recall_k:.4f}",
-            kernel_ms=f"{k_ms:.3f}", plain_ms=f"{p_ms:.3f}", bound_ms=f"{b_ms:.4f}",
-            bound_by=b_by, ok=ok)
+            kernel_ms=f"{r['k_ms']:.4f}", kernel_device_ms=f"{r['k_dev']:.4f}",
+            plain_ms=f"{r['p_ms']:.3f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by, ok=ok)
         if not ok:
-            raise RuntimeError(f"bucketed_knn Nq={nq}: kernel disagrees with its plain version")
-        results[nq] = (err, k_ms, p_ms, b_ms, b_by)
+            failed.append(f"rays Nq={nq}")
+        results[nq] = (r["err"], r["k_ms"], r["p_ms"], b_ms, b_by, r["k_dev"])
+    # exact ties on an integer grid, resident and over the budget; ray
+    # samples over the budget
+    for case, table_verts in (("grid", verts), ("grid", big), ("rays", big)):
+        nv = table_verts.shape[0]
+        if case == "grid":
+            grid_verts = torch.randint(-3, 4, (nv, 3), generator=gen).float().to(verts.device)
+            pts = torch.randint(-4, 5, (KNN_TIE_QUERIES, 3), generator=gen).float()
+            table_verts, pts = grid_verts, pts.to(verts.device)
+        else:
+            pts = _ray_samples(table_verts, KNN_QUERIES[0] // OFFSET_SAMPLES, OFFSET_SAMPLES, gen)
+        r = _knn_check(table_verts, pts, plain_iters=0)
+        plan = kknn.knn_plan(pts.shape[0], nv, KNN_K, sms)
+        b_ms, b_by = knn_bound(pts.shape[0], nv)
+        ok = (r["bit_equal"] if case == "grid"
+              else r["err"] <= KNN_SCORE_ATOL and r["ties_only"])
+        log("bucketed_knn", case=case, Nq=pts.shape[0], V=nv, resident=plan["resident"],
+            group=plan["group"], stages=plan["stages"], smem_bytes=plan["smem_bytes"],
+            score_max_abs_err=f"{r['err']:.3e}", idx_diff=r["idx_diff"],
+            ties_only=r["ties_only"], bit_equal_plain=r["bit_equal"],
+            kernel_ms=f"{r['k_ms']:.4f}", kernel_device_ms=f"{r['k_dev']:.4f}",
+            bound_ms=f"{b_ms:.4f}", ok=ok)
+        if not ok:
+            failed.append(f"{case} V={nv}")
+    if failed:
+        raise RuntimeError(f"bucketed_knn disagrees with its plain version: {failed}")
     return results
 
 
@@ -1466,6 +1598,7 @@ def phase_signed(verts, topo, seed):
         del grads, psd, pcp
         full = lambda fused: mesh_ops.signed_distance(pts, verts, topo, fused=fused, **kw)
         times = {"kernel": cuda_ms_min(run_k), "unsigned_kernel": cuda_ms_min(run_u),
+                 "kernel_device": device_ms(run_k, "ericson_signed_select_kernel"),
                  "plain": cuda_ms(run_p, iters=3, warmup=1),
                  "query_fused": cuda_ms(lambda: full(True)),
                  "query_unfused": cuda_ms(lambda: full(False))}
@@ -1476,11 +1609,12 @@ def phase_signed(verts, topo, seed):
             max_abs_err=f"{err:.3e}", bit_equal_plain=plain_equal, f_id_diff=int(diff.sum()),
             bit_equal_ericson_select=unsigned_equal, sign_flips_vs_unfused=int(flips.sum()),
             flips_within_dot_bound=excused, grad_bit_equal_plain=grad_equal,
-            inside_share=f"{inside:.4f}", **{f"{k}_ms": f"{v:.3f}" for k, v in times.items()},
+            inside_share=f"{inside:.4f}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in times.items()},
             bound_ms=f"{b_ms:.4f}", bound_by=b_by, ok=ok)
         if not ok:
             raise RuntimeError(f"ericson_signed_select stride {st}: kernel disagrees")
-        results[st] = (err, times["kernel"], times["plain"], b_ms, b_by)
+        results[st] = (err, times["kernel"], times["plain"], b_ms, b_by, times["kernel_device"])
     return results
 
 
@@ -1634,8 +1768,9 @@ def main(argv=None):
     offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
                                                             "renders"))
 
-    # timings: nerf_mlp the render path's bf16 per-ray case (phase 3),
-    # ericson_select stride 4 (phase 4), nerf_mlp_bwd the fine pass of the
+    # timings (CUDA events; the three mesh kernels also by the profiler's
+    # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
+    # ericson_select N=65,536 stride 4 (phase 4), nerf_mlp_bwd the fine pass of the
     # f32 background step (phase 6), offset_mlp and offset_mlp_bwd the f32
     # human step's shape and bucketed_knn its 49,152 groups (phase 8),
     # ericson_signed_select the human step's stride-4 query (phase 11).
@@ -1647,11 +1782,12 @@ def main(argv=None):
     # 2 steps with the fused signed distance, and the three frames of phase
     # 12. No single PyTorch call computes any of the seven functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
-        ms, plain_ms, b_ms, b_by = timing
+        ms, plain_ms, b_ms, b_by, *dev = timing
         return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": max_abs_err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "device_ms": dev[0] if dev else None, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
 
     def by_path(name):
         paths = {"render_frame": launches.get(name, 0)}
@@ -1667,7 +1803,8 @@ def main(argv=None):
               max(mlp[(m, "bf16")][0] for m in ("per_ray", "per_sample")),
               mlp[("per_ray", "bf16")][1:]),
         entry("ericson_select", "ericson_select", "neuman_tpu/ops/pallas/meshquery.py:314",
-              by_path("ericson_select"), max(r[0] for r in mesh.values()), mesh[4][1:]),
+              by_path("ericson_select"), max(r[0] for r in mesh.values()),
+              mesh[(MESH_RAYS * MESH_SAMPLES, 4)][1:]),
         entry("nerf_mlp_bwd", "nerf_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:76",
               by_path("nerf_mlp_bwd"), bwd[("per_ray", 256, "f32")][0],
               bwd[("per_ray", 256, "f32")][1:]),

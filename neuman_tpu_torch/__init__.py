@@ -21,13 +21,17 @@ Layer map, entry points first:
                          in csrc/) with their plain PyTorch twins: nerf_mlp and
                          nerf_mlp_bwd, offset_mlp and offset_mlp_bwd (both
                          pairs on mlp_hopper.cuh: wgmma + TMA in bf16, register
-                         tiles in f32), ericson_select and
-                         ericson_signed_select, bucketed_knn
+                         tiles in f32), ericson_select (points of a group
+                         in one thread, candidates in slices) and
+                         ericson_signed_select, bucketed_knn (the bucket
+                         table built in the kernel, resident in shared
+                         memory)
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict
     options/config.py    the config fields the port reads
-    tools/               per-kernel device-time profiles of a step or a frame
+    tools/               per-kernel device-time profiles of a step or a frame,
+                         timings over tape chunks and of the mesh kernels
 """
 
 __version__ = "0.1.0"

@@ -10,25 +10,44 @@
 // Both call one device function for the region test, so on the same
 // operands their d2, closest point and face id are equal bit for bit.
 //
-// One thread per query point n. Its group g = n / stride shares one
-// candidate set with the stride-1 points next to it (group-KNN). The thread
-// loops over the C candidates, reading the nine corner coordinates from the
-// coordinate-major rows9 [9C, Nq] (row j*C + ci, column g: neighbouring
-// threads read neighbouring columns), runs the region test and keeps the
-// first minimum (strict <, the JAX earliest-candidate tie-break).
-// Candidates with face id < 0 count as +inf; candidate 0 is taken first
-// unconditionally so an all-invalid set returns candidate 0, as in JAX.
+// Operands: p3 [3, N]; rows9 [9C, Nq] coordinate-major (row j*C + ci, column
+// g: coordinate j of candidate ci of group g); cand [C, Nq] face ids, -1 =
+// invalid; `stride` consecutive points form one group (group-KNN) and share
+// its C candidates. Result per point: the first candidate with the least d2
+// (strict <, the JAX earliest-candidate tie-break); invalid candidates count
+// as +inf; an all-invalid group returns candidate 0.
 //
-// What bounds it on the H100: the rows9/cand reads, 40 bytes per candidate
-// per group (~2 KB per group at C = 48), read once per member; the region
-// test is ~60 FLOPs per candidate. The design streams each candidate once
-// through registers and writes 5 words per point; no shared memory.
+// What bounds `ericson_select` on the H100: the rows9/cand reads, 40 bytes a
+// candidate and group, against ~60 f32 operations a candidate and point; the
+// operands mostly come from L2, written just before by the gather.
+// Its design:
+// - Members folded into one thread: a thread takes M consecutive points of
+//   one group (M = 4, 2 or 1, the largest that divides the stride), loads
+//   each candidate's nine corners and face id once and runs the region test
+//   for its M points, kept in registers (the TPU kernel's [C, TN] planes
+//   read them once per point).
+// - Coalesced: consecutive lanes take consecutive units of M points, so a
+//   warp reads 128 contiguous bytes of each rows9 / cand row.
+// - Candidates split across threads: the C candidates go in S contiguous
+//   slices (S from N and C: 2 at least where C >= 12, two slices beat one
+//   on the card even with a full grid; doubled, up to 8 and no slice under
+//   6 candidates, until 131,072 threads are in flight; 1 for C < 12).
+//   Slice 0 takes its first candidate unconditionally, as the sequential
+//   scan takes candidate 0; the other slices keep their first candidate
+//   with d2 below +inf. Slice 0's thread merges the others' results in
+//   slice order through shared memory with the same strict <: the first
+//   candidate with the least d2, bit for bit the sequential result. The
+//   plan (M, S, the slice bounds) is made in
+//   Python (meshquery.select_plan) and passed to the launch.
+// - A unit's M results are consecutive: one 16-byte store (M = 4) of each
+//   output row.
 //
 // Build with --fmad=false: every a*b+c then rounds twice, exactly as the
 // plain PyTorch version's separate elementwise ops do, so region decisions
 // on an edge and the selected face agree with it bit for bit.
 //
-// The signed kernel adds, for the selected candidate, the barycentric
+// `ericson_signed_select_kernel` runs one thread a point over all C
+// candidates. It adds, for the selected candidate, the barycentric
 // weights (u, v, w) of the closest point and the dot of (p - closest) with
 // the blend u na + v nb + w nc of the corner pseudonormals (vn9, laid out as
 // rows9); sd = (dot < 0 ? -1 : 1) * sqrt(max(d2, 0)). The TPU kernel
@@ -42,6 +61,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -93,43 +114,129 @@ __device__ __forceinline__ void ericson_closest(
   }
 }
 
-__global__ void ericson_select_kernel(const float* __restrict__ p3,
-                                      const float* __restrict__ rows9,
-                                      const int* __restrict__ cand,
-                                      float* __restrict__ d2_out,
-                                      int* __restrict__ fid_out,
-                                      float* __restrict__ cp_out, int n,
-                                      int nq, int num_cands, int stride) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int g = i / stride;
-  const float px = p3[i], py = p3[n + i], pz = p3[2 * (size_t)n + i];
+constexpr int SELECT_THREADS = 256;
+constexpr int MAX_SLICES = 8;
+
+struct SlicePlan {
+  int bounds[MAX_SLICES + 1];  // slice s: candidates [bounds[s], bounds[s + 1])
+};
+
+// M consecutive values of a unit: one vector access for M = 4 or 2.
+template <int M, typename T>
+__device__ __forceinline__ void load_unit(const T* __restrict__ src, int u, T (&v)[M]) {
+  if constexpr (M == 4) {
+    using V4 = typename std::conditional<std::is_same<T, int>::value, int4, float4>::type;
+    const V4 x = reinterpret_cast<const V4*>(src)[u];
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else if constexpr (M == 2) {
+    using V2 = typename std::conditional<std::is_same<T, int>::value, int2, float2>::type;
+    const V2 x = reinterpret_cast<const V2*>(src)[u];
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = src[u];
+  }
+}
+
+template <int M, typename T>
+__device__ __forceinline__ void store_unit(T* __restrict__ dst, int u, const T (&v)[M]) {
+  if constexpr (M == 4) {
+    using V4 = typename std::conditional<std::is_same<T, int>::value, int4, float4>::type;
+    V4 x;
+    x.x = v[0]; x.y = v[1]; x.z = v[2]; x.w = v[3];
+    reinterpret_cast<V4*>(dst)[u] = x;
+  } else if constexpr (M == 2) {
+    using V2 = typename std::conditional<std::is_same<T, int>::value, int2, float2>::type;
+    V2 x;
+    x.x = v[0]; x.y = v[1];
+    reinterpret_cast<V2*>(dst)[u] = x;
+  } else {
+    dst[u] = v[0];
+  }
+}
+
+// One thread per (unit of M points, candidate slice); SELECT_THREADS / S
+// units a block, slice s in threads [s * units, (s + 1) * units).
+template <int M>
+__global__ void __launch_bounds__(SELECT_THREADS) ericson_select_kernel(
+    const float* __restrict__ p3, const float* __restrict__ rows9, const int* __restrict__ cand,
+    float* __restrict__ d2_out, int* __restrict__ fid_out, float* __restrict__ cp_out, int n,
+    int nq, int num_cands, int stride, int slices, SlicePlan plan) {
+  // the results of slices 1..S-1: [5 fields][M][(slice - 1) * units + unit]
+  __shared__ float merge[5][M][SELECT_THREADS];
+  const int units_per_block = SELECT_THREADS / slices;
+  const int s = threadIdx.x / units_per_block, ul = threadIdx.x % units_per_block;
+  const int u = blockIdx.x * units_per_block + ul;
+  const bool live = u < n / M;
+  const int g = live ? u * M / stride : 0;
   const size_t plane = (size_t)num_cands * nq;  // one coordinate's block
 
-  float best = INFINITY, bx = 0.f, by = 0.f, bz = 0.f;
-  int best_f = 0;
-  for (int ci = 0; ci < num_cands; ++ci) {
+  float px[M], py[M], pz[M];
+  if (live) {
+    load_unit<M>(p3, u, px);
+    load_unit<M>(p3 + n, u, py);
+    load_unit<M>(p3 + 2 * (size_t)n, u, pz);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M; ++m) px[m] = py[m] = pz[m] = 0.f;
+  }
+  float best[M], bx[M], by[M], bz[M];
+  int best_f[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    best[m] = INFINITY; bx[m] = by[m] = bz[m] = 0.f; best_f[m] = 0;
+  }
+  const int c0 = plan.bounds[s], c1 = plan.bounds[s + 1];
+  for (int ci = c0; live && ci < c1; ++ci) {
     const int f = cand[(size_t)ci * nq + g];
     const float* r = rows9 + (size_t)ci * nq + g;
     const float ax = r[0], ay = r[plane], az = r[2 * plane];
     const float bx_ = r[3 * plane], by_ = r[4 * plane], bz_ = r[5 * plane];
     const float cx = r[6 * plane], cy = r[7 * plane], cz = r[8 * plane];
-
-    float ox, oy, oz;
-    ericson_closest(px, py, pz, ax, ay, az, bx_, by_, bz_, cx, cy, cz, ox, oy, oz);
-    const float ex = ox - px, ey = oy - py, ez = oz - pz;
-    const float dist2 = f >= 0 ? ex * ex + ey * ey + ez * ez : INFINITY;
-    if (ci == 0 || dist2 < best) {
-      best = dist2;
-      best_f = f > 0 ? f : 0;
-      bx = ox; by = oy; bz = oz;
+    const bool first = s == 0 && ci == c0;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float ox, oy, oz;
+      ericson_closest(px[m], py[m], pz[m], ax, ay, az, bx_, by_, bz_, cx, cy, cz, ox, oy, oz);
+      const float ex = ox - px[m], ey = oy - py[m], ez = oz - pz[m];
+      const float dist2 = f >= 0 ? ex * ex + ey * ey + ez * ez : INFINITY;
+      if (first || dist2 < best[m]) {
+        best[m] = dist2;
+        best_f[m] = f > 0 ? f : 0;
+        bx[m] = ox; by[m] = oy; bz[m] = oz;
+      }
     }
   }
-  d2_out[i] = best;
-  fid_out[i] = best_f;
-  cp_out[i] = bx;
-  cp_out[n + i] = by;
-  cp_out[2 * (size_t)n + i] = bz;
+  if (slices > 1) {
+    if (s > 0) {
+      const int at = (s - 1) * units_per_block + ul;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        merge[0][m][at] = best[m];
+        merge[1][m][at] = __int_as_float(best_f[m]);
+        merge[2][m][at] = bx[m]; merge[3][m][at] = by[m]; merge[4][m][at] = bz[m];
+      }
+    }
+    __syncthreads();
+    if (s > 0) return;
+    for (int o = 1; o < slices; ++o) {
+      const int at = (o - 1) * units_per_block + ul;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float d = merge[0][m][at];
+        if (d < best[m]) {
+          best[m] = d;
+          best_f[m] = __float_as_int(merge[1][m][at]);
+          bx[m] = merge[2][m][at]; by[m] = merge[3][m][at]; bz[m] = merge[4][m][at];
+        }
+      }
+    }
+  }
+  if (!live) return;
+  store_unit<M>(d2_out, u, best);
+  store_unit<M>(fid_out, u, best_f);
+  store_unit<M>(cp_out, u, bx);
+  store_unit<M>(cp_out + n, u, by);
+  store_unit<M>(cp_out + 2 * (size_t)n, u, bz);
 }
 
 __global__ void ericson_signed_select_kernel(const float* __restrict__ p3,
@@ -197,17 +304,40 @@ __global__ void ericson_signed_select_kernel(const float* __restrict__ p3,
 }  // namespace
 
 // p3 [3, N] f32; rows9 [9C, N/stride] f32; cand [C, N/stride] int32.
-// Writes d2 [N] f32, f_id [N] int32, cp [3, N] f32 on `stream`.
-// Returns the cudaError_t of the launch (0 on success).
+// Writes d2 [N] f32, f_id [N] int32, cp [3, N] f32 on `stream`. The plan
+// (meshquery.select_plan): `members` points a thread (1, 2 or 4, dividing
+// the stride; the pointers 4 x members-byte aligned), `slices` candidate
+// slices (1, 2, 4 or 8) with bounds[0..slices], 0 = bounds[0] < ... <
+// bounds[slices] = C. Returns the cudaError_t of the launch (0 on
+// success), -1 for a bad plan.
 extern "C" int ericson_select_launch(const float* p3, const float* rows9,
                                      const int* cand, float* d2, int* f_id,
                                      float* cp, int n, int num_cands,
-                                     int stride, void* stream) {
+                                     int stride, int members, int slices,
+                                     const int* bounds, void* stream) {
   if (n == 0) return 0;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  ericson_select_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p3, rows9, cand, d2, f_id, cp, n, n / stride, num_cands, stride);
+  if (stride < 1 || n % stride || (members != 1 && members != 2 && members != 4) ||
+      stride % members || slices < 1 || slices > MAX_SLICES || SELECT_THREADS % slices ||
+      bounds[0] != 0 || bounds[slices] != num_cands)
+    return -1;
+  SlicePlan plan = {};
+  for (int i = 0; i <= slices; ++i) {
+    if (i > 0 && bounds[i] <= bounds[i - 1]) return -1;
+    plan.bounds[i] = bounds[i];
+  }
+  const int units_per_block = SELECT_THREADS / slices;
+  const int blocks = (n / members + units_per_block - 1) / units_per_block;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int nq = n / stride;
+  if (members == 4)
+    ericson_select_kernel<4><<<blocks, SELECT_THREADS, 0, st>>>(
+        p3, rows9, cand, d2, f_id, cp, n, nq, num_cands, stride, slices, plan);
+  else if (members == 2)
+    ericson_select_kernel<2><<<blocks, SELECT_THREADS, 0, st>>>(
+        p3, rows9, cand, d2, f_id, cp, n, nq, num_cands, stride, slices, plan);
+  else
+    ericson_select_kernel<1><<<blocks, SELECT_THREADS, 0, st>>>(
+        p3, rows9, cand, d2, f_id, cp, n, nq, num_cands, stride, slices, plan);
   return (int)cudaGetLastError();
 }
 

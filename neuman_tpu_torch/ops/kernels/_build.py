@@ -76,8 +76,9 @@ def load(name, extra_flags=()):
 
 
 def kernel_resources(name):
-    """{kernel: {"registers", "spill_stores", "spill_loads", "stack"}} of a
-    built library, from what ptxas said (function names as mangled)."""
+    """{kernel: {"registers", "static_smem", "spill_stores", "spill_loads",
+    "stack"}} of a built library, from what ptxas said (function names as
+    mangled)."""
     out, fn = {}, None
     for line in build_logs.get(name, "").splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -97,6 +98,8 @@ def kernel_resources(name):
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             out.setdefault(fn, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["static_smem"] = int(m.group(1)) if m else 0
     return out
 
 

@@ -12,10 +12,14 @@ what bounds it on the H100 and how the design answers that.
 
 `bucketed_knn` launches the kernel for CUDA tensors (or raises) and runs
 `bucketed_knn_plain`, the same function in plain PyTorch, for CPU
-tensors. Both take the score as the chain
-fma(vz, -2 pz, fma(vy, -2 py, vx * -2 px)) + |v|^2 with a rounding to
-f32 after each step, so they pick the same vertices unless two scores lie
-within a rounding of each other.
+tensors. Both take |v|^2 as (x*x + y*y) + z*z and the score as three
+FMAs seeded with it, fma(vz, qz, fma(vy, qy, fma(vx, qx, |v|^2))) with
+q = -2p, each rounded once to f32, so they give the same scores bit for
+bit and pick the same vertices.
+
+`knn_plan` is the kernel's shared-memory plan (the whole table resident,
+or groups of whole buckets, or parts of 8 buckets), computed here and
+passed to the launch.
 """
 
 import ctypes
@@ -29,30 +33,62 @@ NUM_BUCKETS = 64
 # queries per chunk of the plain version's [chunk, V_pad] f64 score matrix
 PLAIN_CHUNK = 2048
 
+# the kernel's layout (csrc/bucketed_knn.cu): 16 warps a block; a warp's 32
+# lanes are 4 query lanes x 8 bucket slices; a bucket's least score is
+# tracked by chunks of 8 entries
+KNN_WARPS = 16
+KNN_SLICES = 8
+KNN_QUERY_LANES = 4
+KNN_CHUNK = 8
+# dynamic shared memory a block may have on the H100 (227 KB)
+SMEM_LIMIT = 232448
+TABLE_ENTRY_BYTES = 16
+
+
+def bucket_size(num_verts, num_buckets=NUM_BUCKETS):
+    """Entries of one bucket: ceil(V / B) rounded up to a multiple of 8, as
+    in the JAX package."""
+    return -(-(-(-num_verts // num_buckets)) // 8) * 8
+
 
 def bucket_table(verts, num_buckets=NUM_BUCKETS):
     """[B, VB, 4] rows (x, y, z, |v|^2) of the vertices, bucket-major:
-    entry (b, j) is vertex j * B + b; the bucket size VB is rounded up to a
-    multiple of 8 as in the JAX package, and padding rows are (0, 0, 0,
-    1e30): big and finite."""
+    entry (b, j) is vertex j * B + b; |v|^2 = (x*x + y*y) + z*z in f32;
+    padding rows are (0, 0, 0, 1e30): big and finite."""
     v = verts.shape[0]
-    vb = -(-(-(-v // num_buckets)) // 8) * 8
-    tab = torch.cat([verts, (verts * verts).sum(-1, keepdim=True)], dim=-1)
+    vb = bucket_size(v, num_buckets)
+    x, y, z = verts.unbind(-1)
+    tab = torch.cat([verts, ((x * x + y * y) + z * z)[:, None]], dim=-1)
     pad = torch.zeros(num_buckets * vb - v, 4, dtype=tab.dtype, device=tab.device)
     pad[:, 3] = 1e30
     tab = torch.cat([tab, pad])
     return tab.reshape(vb, num_buckets, 4).permute(1, 0, 2).contiguous()
 
 
+def fma_f32(a, b, c):
+    """fma(a, b, c) of f32 tensors rounded once to f32. The product of two
+    f32 values is exact in f64; the f64 sum is made round-to-odd (its
+    rounding error, by TwoSum, moves an even last bit one step towards the
+    exact value), after which rounding to f32 equals rounding the exact
+    a*b + c."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
 def _scores(points, table):
-    """[n, B, VB] f32 scores, each step of the chain an exact f64 product
-    and sum rounded once to f32 (what an f32 FMA gives)."""
+    """[n, B, VB] f32 scores: fma(vz, qz, fma(vy, qy, fma(vx, qx, |v|^2)))
+    with q = -2p, each FMA rounded once (what the kernel's FFMAs give)."""
     q = (-2.0 * points)[:, None, None, :]  # [n, 1, 1, 3]
-    f64 = lambda t: t.double()
-    acc = table[None, ..., 0] * q[..., 0]
-    for a in (1, 2):
-        acc = (f64(table[None, ..., a]) * f64(q[..., a]) + f64(acc)).float()
-    return acc + table[None, ..., 3]
+    acc = table[None, ..., 3]
+    for a in range(3):
+        acc = fma_f32(table[None, ..., a], q[..., a], acc)
+    return acc
 
 
 def bucketed_knn_plain(points, verts, k, num_buckets=NUM_BUCKETS):
@@ -71,34 +107,80 @@ def bucketed_knn_plain(points, verts, k, num_buckets=NUM_BUCKETS):
     return torch.cat(idx_out), torch.cat(sc_out)
 
 
+def knn_plan(nq, num_verts, k, num_sms, group=None, part=None):
+    """The kernel's launch plan for Nq queries among V vertices on a card
+    with `num_sms` SMs (group and part may be given, to reach the staged
+    paths with a small table): a dict of
+
+    - queries: query points a thread holds, fixed by k in the kernel (4
+      for k <= 4, else 2: the thread's k-lists stay in registers);
+    - resident: the whole table stays in shared memory for the block's
+      life, and each warp walks over its own tiles of 4 x queries points;
+      else the block stages the table in stages, each `group` whole
+      buckets (a multiple of 8) times `part` entries of each (the whole
+      bucket, or for very large V a multiple of 8 of it), for each tile of
+      16 x 4 x queries points;
+    - group, part, bucket_size; smem_bytes: group x (part + 1) x 16, one
+      padding entry a bucket row so that the 8 slices read 8 distinct
+      banks; stages: the stages of one pass over the table;
+    - grid: persistent blocks, one an SM at most, none idle."""
+    vb = bucket_size(num_verts)
+    row = lambda part: (part + 1) * TABLE_ENTRY_BYTES
+    if group is not None:
+        part = part or vb
+    elif NUM_BUCKETS * row(vb) <= SMEM_LIMIT:
+        group, part = NUM_BUCKETS, vb
+    elif KNN_SLICES * row(vb) <= SMEM_LIMIT:
+        group, part = SMEM_LIMIT // row(vb) // KNN_SLICES * KNN_SLICES, vb
+    else:
+        group = KNN_SLICES
+        part = (SMEM_LIMIT // (KNN_SLICES * TABLE_ENTRY_BYTES) - 1) // KNN_CHUNK * KNN_CHUNK
+    queries = 4 if k <= 4 else 2
+    warp_tiles = -(-nq // (KNN_QUERY_LANES * queries))
+    stages = -(-NUM_BUCKETS // group) * -(-vb // part)
+    return {"queries": queries, "resident": stages == 1, "group": group, "part": part,
+            "bucket_size": vb, "smem_bytes": group * row(part), "stages": stages,
+            "grid": max(1, min(num_sms, -(-warp_tiles // KNN_WARPS)))}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("bucketed_knn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bucketed_knn_launch.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.bucketed_knn_launch.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.bucketed_knn_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(points, verts, k, num_buckets):
+@functools.lru_cache(maxsize=None)
+def _num_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(points, verts, k, num_buckets, plan=None):
     device = points.device
     nq = points.shape[0]
     for t, what in ((points, "points"), (verts, "verts")):
         if t.device != device or t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] != 3:
             raise ValueError(f"bucketed_knn: {what} must be f32 [N, 3] on {device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not 1 <= k <= min(8, num_buckets):
-        raise ValueError(f"bucketed_knn kernel: k={k} outside 1..{min(8, num_buckets)}")
-    points = points.contiguous()
-    table = bucket_table(verts, num_buckets)
+    if num_buckets != NUM_BUCKETS:
+        raise ValueError(f"bucketed_knn kernel: {NUM_BUCKETS} buckets, not {num_buckets}")
+    if not 1 <= k <= 8:
+        raise ValueError(f"bucketed_knn kernel: k={k} outside 1..8")
+    if verts.shape[0] == 0:
+        raise ValueError("bucketed_knn kernel: no vertices")
+    points, verts = points.contiguous(), verts.contiguous()
+    if plan is None:
+        plan = knn_plan(nq, verts.shape[0], k, _num_sms(device.index or 0))
     idx = torch.empty(nq, k, device=device, dtype=torch.int32)
     score = torch.empty(nq, k, device=device, dtype=torch.float32)
     err = _lib().bucketed_knn_launch(
-        points.data_ptr(), table.data_ptr(), idx.data_ptr(), score.data_ptr(), nq,
-        verts.shape[0], num_buckets, table.shape[1], k,
-        torch.cuda.current_stream(device).cuda_stream)
+        points.data_ptr(), verts.data_ptr(), idx.data_ptr(), score.data_ptr(), nq,
+        verts.shape[0], k, plan["group"], plan["part"], plan["bucket_size"],
+        plan["smem_bytes"], plan["grid"], torch.cuda.current_stream(device).cuda_stream)
     if err == -1:
-        raise ValueError(f"bucketed_knn kernel: unsupported k={k}")
+        raise ValueError(f"bucketed_knn kernel: unsupported k={k} or plan {plan}")
     _build.check(err, "bucketed_knn")
     bucketed_knn.launches += 1
     return idx, score

@@ -11,7 +11,9 @@ invalid; `stride` consecutive points share one candidate set. Returns
 (d2 [N], f_id [N] int32, closest (x, y, z) of [N]): the first candidate
 with the least squared distance. Source:
 neuman_tpu_torch/csrc/ericson_select.cu, whose header says what bounds it
-on the H100 and how the design answers that.
+on the H100 and how the design answers that; `select_plan` is its launch
+plan (points a thread, candidate slices), computed here and passed to the
+launch.
 
 The gradient is the envelope formula of the JAX custom VJP: d(d2)/dp =
 2 (p - cp); the closest point and face id carry none, and nothing flows
@@ -163,19 +165,56 @@ def tie_gap(p3, rows9, cand, stride=1):
     return torch.stack(gaps, dim=1).reshape(-1)
 
 
+# the kernel's threads a block; the threads to aim for, the least
+# candidates a slice and the most slices (csrc/ericson_select.cu)
+SELECT_THREADS = 256
+SELECT_TARGET_THREADS = 131072
+SELECT_MIN_SLICE = 6
+SELECT_MAX_SLICES = 8
+
+
+def select_plan(n, num_cands, stride):
+    """The `ericson_select` kernel's plan for N points in groups of `stride`
+    over C candidates: a dict of `members` (points a thread: 4, 2 or 1, the
+    largest that divides the stride; the thread loads each candidate once
+    for all of them), `slices` (S, a power of two: the least >= 2 that puts
+    >= 131,072 threads in flight, but no more than 8 and none with fewer
+    than 6 candidates; 1 for C < 12) and `bounds` (S + 1 ints: slice s
+    takes candidates [bounds[s], bounds[s + 1]), contiguous, in order,
+    sizes within one of each other)."""
+    members = 4 if stride % 4 == 0 else 2 if stride % 2 == 0 else 1
+    units = n // members
+    most = 1
+    while most * 2 <= min(SELECT_MAX_SLICES, num_cands // SELECT_MIN_SLICE):
+        most *= 2
+    slices = min(2, most)
+    while slices < most and units * slices < SELECT_TARGET_THREADS:
+        slices *= 2
+    bounds = [s * num_cands // slices for s in range(slices + 1)]
+    return {"members": members, "slices": slices, "bounds": bounds}
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_args(n, num_cands, stride):
+    """`select_plan` and its bounds as the C array the launch takes."""
+    plan = select_plan(n, num_cands, stride)
+    return plan, (ctypes.c_int * (plan["slices"] + 1))(*plan["bounds"])
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("ericson_select", extra_flags=("--fmad=false",))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ericson_select_launch.argtypes = [p] * 6 + [i, i, i, p]
+    lib.ericson_select_launch.argtypes = [p] * 6 + [i] * 5 + [p, p]
     lib.ericson_select_launch.restype = ctypes.c_int
     lib.ericson_signed_select_launch.argtypes = [p] * 7 + [i, i, i, p]
     lib.ericson_signed_select_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(p3, rows9, cand, stride, vn9=None):
-    """Launch `ericson_select`, or with vn9 `ericson_signed_select`."""
+def _launch(p3, rows9, cand, stride, vn9=None, plan=None):
+    """Launch `ericson_select` (by `plan`, default `select_plan`), or with
+    vn9 `ericson_signed_select`."""
     what = "ericson_select" if vn9 is None else "ericson_signed_select"
     device = p3.device
     n = p3.shape[1]
@@ -200,9 +239,17 @@ def _launch(p3, rows9, cand, stride, vn9=None):
     cp = torch.empty(3, n, device=device, dtype=torch.float32)
     stream = torch.cuda.current_stream(device).cuda_stream
     if vn9 is None:
+        plan, bounds = _plan_args(n, num_cands, stride) if plan is None else (plan, None)
+        if bounds is None:
+            bounds = (ctypes.c_int * (plan["slices"] + 1))(*plan["bounds"])
+        if p3.data_ptr() % (4 * plan["members"]):  # the kernel loads a thread's points at once
+            p3 = p3.clone()
         err = _lib().ericson_select_launch(
             p3.data_ptr(), rows9.data_ptr(), cand.data_ptr(), dist.data_ptr(),
-            f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride, stream)
+            f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride, plan["members"],
+            plan["slices"], bounds, stream)
+        if err == -1:
+            raise ValueError(f"{what}: bad plan {plan} for N={n}, C={num_cands}, stride={stride}")
         _build.check(err, what)
         ericson_select.launches += 1
     else:

@@ -1,0 +1,89 @@
+"""Time the mesh-query kernels at the main path's shapes, on the GPU.
+
+    python -m neuman_tpu_torch.tools.sweep_mesh_kernels [--plans] [--seed 0]
+
+Run from the repo root: the timers and the ray samples are chip_smoke.py's
+(`cuda_ms_min`, `device_ms`, `_ray_samples`). On the body-proxy mesh at
+subdivision 5 (V=10,242): `bucketed_knn` at Nq=49,152 and 196,608 ray
+samples with k=4; `ericson_select` at N=65,536 and 196,608, strides 4 and
+1, C=24; `ericson_signed_select` at N=196,608, stride 4. Each through its
+public wrapper, timed two ways: `ms` by CUDA events (the least of 5 means
+of 20 calls after 20 warm-ups), which counts the host's launch where that
+is the longer, and `device_ms`, the kernel's mean device time over 20
+calls by torch.profiler. Only the wrappers' public signatures are used, so
+the same script times an older checkout of the package: copy this file and
+chip_smoke.py into that checkout and run it from there.
+
+--plans also runs `ericson_select` with 1, 2, 4 and 8 candidate slices
+(`meshquery.select_plan` picks the count), each held to the default plan's
+output (`torch.equal`). Prints the card, then one JSON line per kernel,
+shape and plan.
+"""
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+from chip_smoke import _ray_samples, cuda_ms_min, device_ms
+from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
+from neuman_tpu_torch.ops import mesh as mesh_ops
+from neuman_tpu_torch.ops.kernels import knn as kknn
+from neuman_tpu_torch.ops.kernels import meshquery as kmq
+
+
+def _report(kernel, fn, name, **fields):
+    ms, dev = cuda_ms_min(fn), device_ms(fn, name)
+    print(json.dumps({"kernel": kernel, **fields, "ms": round(ms, 4), "device_ms": round(dev, 4)}),
+          flush=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--plans", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_mesh_kernels: no CUDA device")
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    body = body_proxy_smpl_model(subdivisions=5, device=device)
+    verts = body.v_template
+    topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, device)
+    gen = torch.Generator().manual_seed(args.seed)
+    for nq in (49152, 196608):
+        pts = _ray_samples(verts, nq // 128, 128, gen)
+        _report("bucketed_knn", lambda: kknn.bucketed_knn(pts, verts, 4), "bucketed_knn",
+                Nq=nq, V=verts.shape[0], k=4)
+    for n in (65536, 196608):
+        pts = _ray_samples(verts, n // 128, 128, gen)
+        for stride in (4, 1):
+            p3, rows9, cand, st = mesh_ops.candidate_operands(pts, verts, topo, k=4,
+                                                              knn_stride=stride)
+            shape = {"N": n, "C": cand.shape[0], "stride": st}
+            _report("ericson_select", lambda: kmq.ericson_select(p3, rows9, cand, st),
+                    "ericson_select_kernel", **shape)
+            if not args.plans:
+                continue
+            want = kmq._launch(p3, rows9, cand, st)
+            default = kmq.select_plan(n, cand.shape[0], st)
+            for slices in (1, 2, 4, 8):
+                plan = {**default, "slices": slices,
+                        "bounds": [s * cand.shape[0] // slices for s in range(slices + 1)]}
+                run = lambda: kmq._launch(p3, rows9, cand, st, plan=plan)
+                equal = all(torch.equal(a, b) for a, b in zip(run(), want))
+                _report("ericson_select", run, "ericson_select_kernel", **shape,
+                        members=plan["members"], slices=slices, equal_default=equal)
+    pts = _ray_samples(verts, 1536, 128, gen)
+    tables = mesh_ops.build_query_tables(verts, topo)
+    p3, rows9, vn9, cand, st = mesh_ops.candidate_operands(
+        pts, verts, topo, k=4, knn_stride=4, knn_impl="bucketed", tables=tables, normals=True)
+    _report("ericson_signed_select", lambda: kmq.ericson_signed_select(p3, rows9, vn9, cand, st),
+            "ericson_signed_select_kernel", N=pts.shape[0], C=cand.shape[0], stride=st)
+
+
+if __name__ == "__main__":
+    main()

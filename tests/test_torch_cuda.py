@@ -334,6 +334,89 @@ def test_bucketed_knn_kernel_matches_plain(cuda, case):
     assert diff.float().mean() <= 1e-2
 
 
+def _grid_knn_case(num_verts, nq, device, seed=7):
+    """Vertices and points on a coarse integer grid: scores tie exactly,
+    inside buckets and across them."""
+    g = torch.Generator().manual_seed(seed)
+    verts = torch.randint(-3, 4, (num_verts, 3), generator=g).float().to(device)
+    pts = torch.randint(-4, 5, (nq, 3), generator=g).float().to(device)
+    return pts, verts
+
+
+@pytest.mark.parametrize("plan", ["default", "grouped", "parts"])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_bucketed_knn_kernel_equal_on_grid_ties(cuda, k, plan):
+    """Where most scores tie exactly, the kernel's indices and scores equal
+    the plain version's (the earliest position in a bucket, the lower
+    bucket across buckets) under every plan: the resident table, 16
+    buckets a stage, and parts of 8 x 8 entries."""
+    pts, verts = _grid_knn_case(1000, 1001, cuda)
+    kw = {"default": {}, "grouped": {"group": 16}, "parts": {"group": 8, "part": 8}}[plan]
+    chosen = kknn.knn_plan(1001, 1000, k, torch.cuda.get_device_properties(0).multi_processor_count,
+                           **kw)
+    assert chosen["resident"] == (plan == "default")
+    idx, score = kknn._launch(pts, verts, k, kknn.NUM_BUCKETS, chosen)
+    ref_idx, ref_score = kknn.bucketed_knn_plain(pts, verts, k)
+    assert torch.equal(idx, ref_idx) and torch.equal(score, ref_score)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_bucketed_knn_kernel_over_the_shared_budget(cuda, k):
+    """V=40,962 (subdivision 6): the table does not fit in shared memory and
+    is staged in groups of buckets; Nq=1001 is no tile multiple. Indices and
+    scores equal the plain version's (the same roundings on both sides)."""
+    body = body_proxy_smpl_model(subdivisions=6, device=cuda)
+    verts = body.v_template
+    plan = kknn.knn_plan(1001, verts.shape[0], k, 132)
+    assert not plan["resident"]
+    g = torch.Generator().manual_seed(11)
+    pts = (verts[torch.randint(0, verts.shape[0], (1001,), generator=g).to(cuda)]
+           + 0.05 * torch.randn(1001, 3, generator=g).to(cuda))
+    before = kknn.bucketed_knn.launches
+    idx, score = kknn.bucketed_knn(pts, verts, k)
+    assert kknn.bucketed_knn.launches == before + 1
+    ref_idx, ref_score = kknn.bucketed_knn_plain(pts, verts, k)
+    assert torch.equal(idx, ref_idx) and torch.equal(score, ref_score)
+
+
+def _select_operands(num_cands, nq, stride, device, seed=3):
+    """Random triangles around the points, some candidates duplicated (exact
+    d2 ties), 20% invalid ids, group 1 all invalid."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randn(3, nq * stride, generator=g)
+    centre = pts.reshape(3, nq, stride).mean(2)
+    rows = centre[None, :, None, :] + 0.7 * torch.randn(3, 3, num_cands, nq, generator=g)
+    rows = rows.permute(1, 0, 2, 3).reshape(9, num_cands, nq).contiguous()
+    cand = torch.randint(0, 500, (num_cands, nq), generator=g, dtype=torch.int32)
+    for ci in range(1, num_cands, 3):
+        src = int(torch.randint(0, ci, (1,), generator=g))
+        rows[:, ci, ::2], cand[ci, ::2] = rows[:, src, ::2], cand[src, ::2]
+    cand[torch.rand(cand.shape, generator=g) < 0.2] = -1
+    cand[:, 1] = -1
+    return pts.to(device), rows.reshape(9 * num_cands, nq).to(device), cand.to(device)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("num_cands", [18, 36])
+def test_ericson_kernel_slices_equal_plain(cuda, num_cands, stride):
+    """Ragged C, ragged N (1,001 groups), every slice count: d2, closest
+    point and face id equal the plain version's, the all-invalid group
+    (candidate 0) and the duplicated candidates (the earlier one) too."""
+    p3, rows9, cand = _select_operands(num_cands, 1001, stride, cuda)
+    rd2, rf, rcp = kmq.ericson_select_plain(p3, rows9, cand, stride)
+    for slices in (1, 2, 4, 8):
+        plan = {**kmq.select_plan(p3.shape[1], num_cands, stride), "slices": slices,
+                "bounds": [s * num_cands // slices for s in range(slices + 1)]}
+        d2, f_id, cp = kmq._launch(p3, rows9, cand, stride, plan=plan)
+        assert torch.equal(d2, rd2) and torch.equal(f_id, rf), slices
+        assert torch.equal(cp, torch.stack(rcp)), slices
+    assert torch.isinf(d2[stride:2 * stride]).all() and (f_id[stride:2 * stride] == 0).all()
+    before = kmq.ericson_select.launches
+    d2, f_id, cp = kmq.ericson_select(p3, rows9, cand, stride)
+    assert kmq.ericson_select.launches == before + 1
+    assert torch.equal(d2, rd2) and torch.equal(f_id, rf)
+
+
 def _tape_case(kind, dtype, device, r=37, s=24):
     """(forward with tape, backward(tape), plain forward with tape) of one
     net at a sample count that is not a tile multiple."""
