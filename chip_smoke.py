@@ -51,16 +51,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      mlp_tape="hbm" configuration (as in phase 7 too), whose parameters after
      train_human's 2 steps equal the recompute configuration's bit for bit,
      with the peak memory of each; one step's losses with the fused signed
-     distance against the default, and 2 train steps with it;
+     distance against the default, 2 train steps with it, and the median of
+     10 bf16 steps with it and with the default;
  10. tape: at the shapes of phases 6, 8 and 9 (R=4096 x S=256 per-ray,
      R=6144 x S=128 per-sample, the offset net's R=1536 x S=128; f32 and
      bf16) the tape-writing forwards vs their plain versions (outputs and
      tape) and the backwards with the tape vs recompute (every gradient
      bit-identical); times of both configurations and the tape's bytes; no
      tape under torch.no_grad();
- 11. signed: ericson_signed_select vs its plain version, vs ericson_select
-     and vs the unfused signed distance at N=196,608, C=24, stride 4 and 1,
-     with tables; its gradient; times of the fused and unfused queries;
+ 11. signed: ericson_signed_select (the table kernel) vs its plain
+     version, vs the planar plain version and ericson_select on the same
+     candidates and vs the unfused signed distance at N=196,608, C=24,
+     stride 4 and 1, on the query tables and the bucketed KNN's knn_idx;
+     its gradient; times of the kernel and of the fused and unfused
+     queries;
  12. renders: a 270x480 render_smpl_nerf frame, canonical and posed, and a
      two-actor render_hybrid_nerf_multi_persons frame, bf16, kernels vs the
      plain path.
@@ -159,6 +163,8 @@ VAL_IMAGES = ("val_can", "val_depth", "val_acc", "val_smpl_overlay")
 LOSS_NAMES_SHAPE = 4  # "smpl_shape_reg" in trainers.human.LOSS_NAMES
 # launches of two human train steps with the fused signed distance
 FUSED_LAUNCHES = {"ericson_select": 2, "ericson_signed_select": 4}
+# bf16 steps timed with KERNELS and with KERNELS_FUSED
+FUSED_STEPS = 10
 # a vertex score |v|^2 - 2 v.p: 3 multiplies and 3 adds
 KNN_OPS_PER_SCORE = 6
 
@@ -345,7 +351,8 @@ def phase_build():
                 continue
             if res.get("spill_stores", 0) or res.get("spill_loads", 0):
                 spills.append(f"{lib}:{kernel}<{','.join(map(str, args))}>")
-            names = {"bucketed_knn_kernel": ("queries", "k"), "ericson_select_kernel": ("members",)}
+            names = {"bucketed_knn_kernel": ("queries", "k"), "ericson_select_kernel": ("members",),
+                     "ericson_signed_select_kernel": ("members", "knn_idx")}
             log("ptxas", library=lib, kernel=kernel,
                 **dict(zip(names.get(kernel, ()), args)), registers=res["registers"],
                 spill_stores=res.get("spill_stores", 0), spill_loads=res.get("spill_loads", 0),
@@ -369,15 +376,17 @@ def _kernel_name(mangled):
 
 
 def _mesh_kernel_name(mangled):
-    """(kernel, template ints) of a mangled mesh-query kernel name, or
-    (None, ()) for another function."""
+    """(kernel, template arguments: ints, then "int32" / "int64" for an
+    index type) of a mangled mesh-query kernel name, or (None, ()) for
+    another function."""
     import re
 
     m = re.search(r"(bucketed_knn_kernel|ericson_signed_select_kernel|ericson_select_kernel)"
-                  r"((?:I|E)?(?:Li\d+E)*)", mangled)
+                  r"(I((?:Li\d+E)*)([ix]?)E)?", mangled)
     if m is None:
         return None, ()
-    return m.group(1), tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(2)))
+    args = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(3) or ""))
+    return m.group(1), args + ((("int32" if m.group(4) == "i" else "int64"),) if m.group(4) else ())
 
 
 def _fwd_compare(spec, net, planes, kw, dtype):
@@ -1116,7 +1125,8 @@ def phase_human_step(body, device, seed):
     step are the same.
     Each train_human's last validation must have written its four PNGs,
     which are read back and decoded. Last, the step's losses with the fused
-    signed distance are held to the default's, and 2 steps train with it.
+    signed distance are held to the default's, 2 steps train with it, and
+    10 bf16 steps are timed with it and with the default.
 
     Returns, per dtype (and per dtype + "_hbm"), the median ms/step, each
     kernel's launches in train_human (2 steps and 2 validations) and in the
@@ -1336,6 +1346,26 @@ def phase_human_step(body, device, seed):
                                "the default's, or the signed kernel was not launched")
         results["fused_launches"] = {k: {"human_2_steps_fused_sd": v}
                                      for k, v in fused_launches.items()}
+        # what the fused signed distance moves in a bf16 step: the median of
+        # FUSED_STEPS steps with either, each trainer from the same seed
+        step_ms = {}
+        for name, ops in (("kernels", human.KERNELS), ("kernels_fused", human.KERNELS_FUSED)):
+            bcfg = _human_config(out_dir, seed, name=f"bf16_{name}", compute_dtype="bfloat16")
+            bench = trainer_for(bcfg, seed, ops=ops)
+            bench.train_step()
+            events = []
+            for _ in range(FUSED_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                bench.train_step()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            ms = sorted(a.elapsed_time(b) for a, b in events)
+            step_ms[name] = (ms[(FUSED_STEPS - 1) // 2] + ms[FUSED_STEPS // 2]) / 2
+            del bench
+        log("human_fused_sd_steps", dtype="bfloat16", steps=FUSED_STEPS,
+            **{f"{k}_ms_per_step": f"{v:.3f}" for k, v in step_ms.items()})
 
         # checkpoint.npz round trip: a resumed trainer holds the same state
         trainer.save_model()
@@ -1536,28 +1566,33 @@ def phase_tape(model, spec, device, seed):
     return results
 
 
-def signed_bound(n, c, stride):
-    """p3 [3, N], rows9 and cand [9C + C, N/stride] in; of vn9 only what
-    the function needs, the nine normal components of each point's selected
-    candidate; sd, face id, closest point [3, N] out; the region test for
-    every candidate and the sign for the selected one."""
-    groups = -(-n // stride)
-    nbytes = 3 * n * 4 + 9 * c * groups * 4 + c * groups * 4 + 9 * n * 4 + 5 * n * 4
-    return bound_ms((ERICSON_OPS_PER_TEST * c + SIGN_OPS_PER_POINT) * n, nbytes, "f32")
+def signed_bound(n, knn_idx, tables):
+    """What the table kernel must move: p3 [3, N] in, knn_idx [N/stride, k]
+    in (at its dtype's size), the three tables once (incidence, vtab9,
+    vntab9: 76 B a (vertex, face slot)); sd, face id, closest point [3, N]
+    out; the region test for every (point, candidate) and the sign for the
+    selected one."""
+    num_verts, deg = tables.incidence.shape
+    num_cands = knn_idx.shape[1] * deg
+    nbytes = (3 * n * 4 + knn_idx.numel() * knn_idx.element_size() + num_verts * deg * 76
+              + 5 * n * 4)
+    return bound_ms((ERICSON_OPS_PER_TEST * num_cands + SIGN_OPS_PER_POINT) * n, nbytes, "f32")
 
 
 def phase_signed(verts, topo, seed):
-    """`ericson_signed_select` at the human step's query, N=196,608 ray
-    samples, C=24, stride 4 and 1, operands from the query tables and the
-    bucketed KNN. Built with --fmad=false it runs the plain version's
-    operations: sd and the closest point are held to it bit for bit, the face
-    id outside ties; to `ericson_select` on the same operands bit for bit
+    """`ericson_signed_select_tables` at the human step's query, N=196,608
+    ray samples, C=24, stride 4 and 1, on the query tables and the bucketed
+    KNN's knn_idx. Built with --fmad=false it runs the plain version's
+    operations: sd, the closest point and the face id are held to it bit
+    for bit, and to the planar plain version on the same candidates
+    gathered into planes; to `ericson_select` on those planes bit for bit
     (|sd| = sqrt(d2), closest point, face id: one device function); its
     gradient to the plain Function's exactly. Against the unfused signed
     distance (ericson_select + the sign in PyTorch, the same operations on
     the same values) the signs may differ only where the unfused
-    |(p - closest) . n| <= 1e-6; those points are counted. Timed: the two
-    kernels and the plain version on the same operands, and the whole query
+    |(p - closest) . n| <= 1e-6; those points are counted. Timed: the
+    kernel (CUDA events and the profiler's device time), `ericson_select`
+    and the plain version on the same candidates, and the whole query
     (`signed_distance`) fused and unfused."""
     import torch
     from neuman_tpu_torch.ops import mesh as mesh_ops
@@ -1566,20 +1601,26 @@ def phase_signed(verts, topo, seed):
     gen = torch.Generator().manual_seed(seed + 8)
     pts = _ray_samples(verts, SIGNED_RAYS, SIGNED_SAMPLES, gen)
     tables = mesh_ops.build_query_tables(verts, topo)
+    p3 = pts.T.contiguous()
     results = {}
     for stride in (4, 1):
         kw = dict(k=4, knn_stride=stride, knn_impl="bucketed", tables=tables)
-        p3, rows9, vn9, cand, st = mesh_ops.candidate_operands(pts, verts, topo, normals=True, **kw)
-        run_k = lambda: kmq.ericson_signed_select(p3, rows9, vn9, cand, st)
-        run_p = lambda: kmq.ericson_signed_select_plain(p3, rows9, vn9, cand, st)
+        knn_idx, st = mesh_ops._query_knn(pts, verts, 4, stride, "bucketed")
+        targs = (knn_idx, tables.incidence, tables.vtab9, tables.vntab9, st)
+        run_k = lambda: kmq.ericson_signed_select_tables(p3, *targs)
+        run_p = lambda: kmq.ericson_signed_select_tables_plain(p3, *targs)
+        # the same candidates as the TPU kernel's planes
+        nq = knn_idx.shape[0]
+        rows9, vn9 = (kmq.planar_rows(t[knn_idx], nq) for t in (tables.vtab9, tables.vntab9))
+        cand = tables.incidence[knn_idx].reshape(nq, -1).T.contiguous()
         run_u = lambda: kmq.ericson_select(p3, rows9, cand, st)
         (sd, f_id, cp), (psd, pf, pcp), (d2, uf, ucp) = run_k(), run_p(), run_u()
+        qsd, qf, qcp = kmq.ericson_signed_select(p3, rows9, vn9, cand, st, plain=True)
         torch.cuda.synchronize()
-        cp, pcp, ucp = torch.stack(cp), torch.stack(pcp), torch.stack(ucp)
+        cp, pcp, ucp, qcp = (torch.stack(c) for c in (cp, pcp, ucp, qcp))
         err = max((sd - psd).abs().max().item(), (cp - pcp).abs().max().item())
-        plain_equal = torch.equal(sd, psd) and torch.equal(cp, pcp)
-        diff = f_id != pf
-        ties_only = bool((kmq.tie_gap(p3, rows9, cand, st)[diff] <= MESH_ATOL).all())
+        plain_equal = torch.equal(sd, psd) and torch.equal(cp, pcp) and torch.equal(f_id, pf)
+        planar_equal = torch.equal(psd, qsd) and torch.equal(pcp, qcp) and torch.equal(pf, qf)
         unsigned_equal = (torch.equal(sd.abs(), torch.sqrt(d2.clamp(min=0)))
                           and torch.equal(cp, ucp) and torch.equal(f_id, uf))
         # the unfused tail on the unsigned kernel's outputs
@@ -1592,21 +1633,25 @@ def phase_signed(verts, topo, seed):
         grads = []
         for plain in (False, True):
             q = p3.clone().requires_grad_(True)
-            out = kmq.ericson_signed_select(q, rows9, vn9, cand, st, plain=plain)[0]
+            out = kmq.ericson_signed_select_tables(q, *targs, plain=plain)[0]
             grads.append(torch.autograd.grad((out * g).sum(), q)[0])
         grad_equal = torch.equal(*grads)
-        del grads, psd, pcp
+        del grads, psd, pcp, qsd, qcp, vn9
         full = lambda fused: mesh_ops.signed_distance(pts, verts, topo, fused=fused, **kw)
         times = {"kernel": cuda_ms_min(run_k), "unsigned_kernel": cuda_ms_min(run_u),
                  "kernel_device": device_ms(run_k, "ericson_signed_select_kernel"),
+                 "unsigned_kernel_device": device_ms(run_u, "ericson_select_kernel"),
                  "plain": cuda_ms(run_p, iters=3, warmup=1),
                  "query_fused": cuda_ms(lambda: full(True)),
                  "query_unfused": cuda_ms(lambda: full(False))}
-        b_ms, b_by = signed_bound(pts.shape[0], cand.shape[0], st)
-        ok = (plain_equal and ties_only and unsigned_equal and excused and grad_equal
+        b_ms, b_by = signed_bound(pts.shape[0], knn_idx, tables)
+        plan = kmq.select_plan(pts.shape[0], cand.shape[0], st)
+        ok = (plain_equal and planar_equal and unsigned_equal and excused and grad_equal
               and bool(torch.isfinite(sd).all()) and 0.05 < inside < 0.95)
         log("ericson_signed", N=pts.shape[0], C=cand.shape[0], stride=st,
-            max_abs_err=f"{err:.3e}", bit_equal_plain=plain_equal, f_id_diff=int(diff.sum()),
+            knn_idx=str(knn_idx.dtype).replace("torch.", ""), members=plan["members"],
+            slices=plan["slices"], max_abs_err=f"{err:.3e}", bit_equal_plain=plain_equal,
+            plain_equal_planar_plain=planar_equal,
             bit_equal_ericson_select=unsigned_equal, sign_flips_vs_unfused=int(flips.sum()),
             flips_within_dot_bound=excused, grad_bit_equal_plain=grad_equal,
             inside_share=f"{inside:.4f}",

@@ -23,9 +23,10 @@ Layer map, entry points first:
                          pairs on mlp_hopper.cuh: wgmma + TMA in bf16, register
                          tiles in f32), ericson_select (points of a group
                          in one thread, candidates in slices) and
-                         ericson_signed_select, bucketed_knn (the bucket
-                         table built in the kernel, resident in shared
-                         memory)
+                         ericson_signed_select (the same on the query
+                         tables by KNN index, the sign for the winner
+                         only), bucketed_knn (the bucket table built in the
+                         kernel, resident in shared memory)
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict

@@ -8,14 +8,15 @@
 // `_signed_kernel` (:119, through `_signed_select_impl` :191 and
 // `ericson_signed_select_pallas` :276), the fused signed-distance query.
 // Both call one device function for the region test, so on the same
-// operands their d2, closest point and face id are equal bit for bit.
+// candidates their d2, closest point and face id are equal bit for bit.
 //
-// Operands: p3 [3, N]; rows9 [9C, Nq] coordinate-major (row j*C + ci, column
-// g: coordinate j of candidate ci of group g); cand [C, Nq] face ids, -1 =
-// invalid; `stride` consecutive points form one group (group-KNN) and share
-// its C candidates. Result per point: the first candidate with the least d2
-// (strict <, the JAX earliest-candidate tie-break); invalid candidates count
-// as +inf; an all-invalid group returns candidate 0.
+// Operands of `ericson_select_kernel`: p3 [3, N]; rows9 [9C, Nq]
+// coordinate-major (row j*C + ci, column g: coordinate j of candidate ci of
+// group g); cand [C, Nq] face ids, -1 = invalid; `stride` consecutive
+// points form one group (group-KNN) and share its C candidates. Result per
+// point (both kernels): the first candidate with the least d2 (strict <,
+// the JAX earliest-candidate tie-break); invalid candidates count as +inf;
+// an all-invalid group returns candidate 0.
 //
 // What bounds `ericson_select` on the H100: the rows9/cand reads, 40 bytes a
 // candidate and group, against ~60 f32 operations a candidate and point; the
@@ -46,18 +47,39 @@
 // plain PyTorch version's separate elementwise ops do, so region decisions
 // on an edge and the selected face agree with it bit for bit.
 //
-// `ericson_signed_select_kernel` runs one thread a point over all C
-// candidates. It adds, for the selected candidate, the barycentric
-// weights (u, v, w) of the closest point and the dot of (p - closest) with
-// the blend u na + v nb + w nc of the corner pseudonormals (vn9, laid out as
-// rows9); sd = (dot < 0 ? -1 : 1) * sqrt(max(d2, 0)). The TPU kernel
-// evaluates that dot for all C candidates as [C, TN] planes and mask-reduces
-// the winner's; a thread here evaluates it only when a candidate becomes the
-// running minimum, so the nine normal rows of the other candidates are
-// never read: the same operations on the winner, hence the same sign. The
-// sign at |dot| ~ 0 hangs on the last bit, and --fmad=false keeps it the
-// plain version's. Bound by bytes: rows9 + vn9 + cand are 76 bytes a
-// candidate and group (1,824 at C = 24) against ~100 FLOPs.
+// `ericson_signed_select_kernel` reads its candidates straight from the
+// mesh's query tables by KNN index: knn [N/stride, k] (int32 or int64, as
+// the KNN gives it), incidence [V, D] face ids, the corners of each
+// vertex's D incident faces (vtab9 [V, 9D]) and their corner pseudonormals
+// (vntab9 [V, 9D]). Candidate ci = j*D + d
+// of group g is face incidence[knn[g, j], d], the order in which the TPU
+// path lays out its planes, so the earliest-candidate tie-break picks the
+// same face. The TPU kernel cannot gather: it takes [9C, Nq] planes of
+// corners and of pseudonormals built by XLA, and so did this kernel's first
+// version; building them (two [9C, Nq] f32 permuted gathers, 170 MB each
+// at N=196,608 stride 1) cost 10-30x the kernel. The tables (2.2 MB each
+// for the body proxy) stay in L2. Its design:
+// - ericson_select_kernel's: M points a thread, the candidates in S
+//   slices (one KNN vertex's D faces, a contiguous table row, at C = 24
+//   stride 4) merged in slice order with the same strict <; the region test
+//   for every candidate, the same device function.
+// - The sign once a point, after the merge, for the winner only: the
+//   merged winners go back through shared memory and member m of a unit
+//   goes to its slice m % S, which reloads the winner's nine corners and
+//   nine pseudonormals and takes the barycentric weights (u, v, w) of the
+//   closest point, the blend u na + v nb + w nc and its dot with
+//   p - closest: the plain version's operations on the selected candidate,
+//   hence its sign; sd = (dot < 0 ? -1 : 1) * sqrt(max(d2, 0)).
+// The sign at |dot| ~ 0 hangs on the last bit, and --fmad=false keeps it
+// the plain version's. What bounds it on the H100: the region test, as
+// ericson_select's (IEEE divisions, divergent regions), ~60 operations a
+// candidate and point against ~2.3 loads for 4 points (one face id and
+// nine corners, scalar: an entry sits at byte 36 d of its row, and the
+// lanes' rows are scattered, but the tables stay in L1 and L2). At N =
+// 196,608, C = 24 it takes within ~7% of ericson_select on the same
+// candidates' planes at stride 4 and ~25% less at stride 1, whose planes
+// (170 MB) come from device memory; a padded [V, D, 12] table with 16-byte
+// loads was 3-7% faster, too little to keep a second copy of the table.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -239,66 +261,201 @@ __global__ void __launch_bounds__(SELECT_THREADS) ericson_select_kernel(
   store_unit<M>(cp_out + 2 * (size_t)n, u, bz);
 }
 
-__global__ void ericson_signed_select_kernel(const float* __restrict__ p3,
-                                             const float* __restrict__ rows9,
-                                             const float* __restrict__ vn9,
-                                             const int* __restrict__ cand,
-                                             float* __restrict__ sd_out,
-                                             int* __restrict__ fid_out,
-                                             float* __restrict__ cp_out, int n,
-                                             int nq, int num_cands, int stride) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int g = i / stride;
-  const float px = p3[i], py = p3[n + i], pz = p3[2 * (size_t)n + i];
-  const size_t plane = (size_t)num_cands * nq;
+// The nine floats of table entry e (a face's corners or its corner
+// normals): scalar loads, the entry at byte 36 d of its row.
+__device__ __forceinline__ void load_face(const float* __restrict__ tab, size_t e,
+                                          float (&t)[9]) {
+  const float* q = tab + e * 9;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) t[i] = __ldg(q + i);
+}
 
-  float best = INFINITY, bx = 0.f, by = 0.f, bz = 0.f, best_dot = 0.f;
-  int best_f = 0;
-  for (int ci = 0; ci < num_cands; ++ci) {
-    const int f = cand[(size_t)ci * nq + g];
-    const float* r = rows9 + (size_t)ci * nq + g;
-    const float ax = r[0], ay = r[plane], az = r[2 * plane];
-    const float bx_ = r[3 * plane], by_ = r[4 * plane], bz_ = r[5 * plane];
-    const float cx = r[6 * plane], cy = r[7 * plane], cz = r[8 * plane];
-    float ox, oy, oz;
-    ericson_closest(px, py, pz, ax, ay, az, bx_, by_, bz_, cx, cy, cz, ox, oy, oz);
-    const float ex = ox - px, ey = oy - py, ez = oz - pz;
-    const float dist2 = f >= 0 ? ex * ex + ey * ey + ez * ez : INFINITY;
-    if (ci == 0 || dist2 < best) {
-      best = dist2;
-      best_f = f > 0 ? f : 0;
-      bx = ox; by = oy; bz = oz;
-      // barycentric weights of the closest point (cross / dot formulation)
-      const float e1x = bx_ - ax, e1y = by_ - ay, e1z = bz_ - az;
-      const float e2x = cx - ax, e2y = cy - ay, e2z = cz - az;
-      const float nx = e1y * e2z - e1z * e2y, ny = e1z * e2x - e1x * e2z,
-                  nz = e1x * e2y - e1y * e2x;
-      const float denom = safe_den(nx * nx + ny * ny + nz * nz);
-      const float bcx = cx - bx_, bcy = cy - by_, bcz = cz - bz_;
-      const float qbx = ox - bx_, qby = oy - by_, qbz = oz - bz_;
-      const float ux = bcy * qbz - bcz * qby, uy = bcz * qbx - bcx * qbz,
-                  uz = bcx * qby - bcy * qbx;
-      const float u = (nx * ux + ny * uy + nz * uz) / denom;
-      const float cax = ax - cx, cay = ay - cy, caz = az - cz;
-      const float qcx = ox - cx, qcy = oy - cy, qcz = oz - cz;
-      const float vx = cay * qcz - caz * qcy, vy = caz * qcx - cax * qcz,
-                  vz = cax * qcy - cay * qcx;
-      const float v = (nx * vx + ny * vy + nz * vz) / denom;
-      const float w = 1.0f - u - v;
-      const float* m = vn9 + (size_t)ci * nq + g;
-      const float mx = u * m[0] + v * m[3 * plane] + w * m[6 * plane];
-      const float my = u * m[plane] + v * m[4 * plane] + w * m[7 * plane];
-      const float mz = u * m[2 * plane] + v * m[5 * plane] + w * m[8 * plane];
-      best_dot = (px - ox) * mx + (py - oy) * my + (pz - oz) * mz;
+// The sign of the selected candidate ci of one point, and the point's
+// outputs: the candidate's corners and corner normals reloaded, the
+// barycentric weights of the closest point o (cross / dot formulation), the
+// blend u na + v nb + w nc and its dot with p - o; the operations of
+// meshquery._select_plain on the selected candidate, in its order.
+template <typename Idx>
+__device__ __forceinline__ void signed_point(
+    float px, float py, float pz, int ci, float d2, float ox, float oy, float oz,
+    const Idx* __restrict__ kg, const int* __restrict__ incidence,
+    const float* __restrict__ vtab9, const float* __restrict__ vntab9, int deg, size_t i,
+    int n, float* __restrict__ sd_out, int* __restrict__ fid_out,
+    float* __restrict__ cp_out) {
+  const int j = ci / deg;
+  const size_t e = (size_t)kg[j] * deg + (ci - j * deg);
+  const int f = __ldg(incidence + e);
+  float t[9], nm[9];
+  load_face(vtab9, e, t);
+  load_face(vntab9, e, nm);
+  const float ax = t[0], ay = t[1], az = t[2], bx_ = t[3], by_ = t[4], bz_ = t[5];
+  const float cx = t[6], cy = t[7], cz = t[8];
+  const float e1x = bx_ - ax, e1y = by_ - ay, e1z = bz_ - az;
+  const float e2x = cx - ax, e2y = cy - ay, e2z = cz - az;
+  const float nx = e1y * e2z - e1z * e2y, ny = e1z * e2x - e1x * e2z,
+              nz = e1x * e2y - e1y * e2x;
+  const float denom = safe_den(nx * nx + ny * ny + nz * nz);
+  const float bcx = cx - bx_, bcy = cy - by_, bcz = cz - bz_;
+  const float qbx = ox - bx_, qby = oy - by_, qbz = oz - bz_;
+  const float ux = bcy * qbz - bcz * qby, uy = bcz * qbx - bcx * qbz,
+              uz = bcx * qby - bcy * qbx;
+  const float u = (nx * ux + ny * uy + nz * uz) / denom;
+  const float cax = ax - cx, cay = ay - cy, caz = az - cz;
+  const float qcx = ox - cx, qcy = oy - cy, qcz = oz - cz;
+  const float vx = cay * qcz - caz * qcy, vy = caz * qcx - cax * qcz,
+              vz = cax * qcy - cay * qcx;
+  const float v = (nx * vx + ny * vy + nz * vz) / denom;
+  const float w = 1.0f - u - v;
+  const float mx = u * nm[0] + v * nm[3] + w * nm[6];
+  const float my = u * nm[1] + v * nm[4] + w * nm[7];
+  const float mz = u * nm[2] + v * nm[5] + w * nm[8];
+  const float dot = (px - ox) * mx + (py - oy) * my + (pz - oz) * mz;
+  const float dist = sqrtf(fmaxf(d2, 0.f));
+  sd_out[i] = dot < 0.f ? -dist : dist;
+  fid_out[i] = f > 0 ? f : 0;
+  cp_out[i] = ox;
+  cp_out[n + i] = oy;
+  cp_out[2 * (size_t)n + i] = oz;
+}
+
+// One thread per (unit of M points, candidate slice), as
+// ericson_select_kernel, on table operands: candidate ci = j * deg + d of
+// group g is face incidence[row, d], row = knn[g, j], its corners at entry
+// row * deg + d of vtab9. After the merge the winners go through shared
+// memory to the unit's S threads, member m to slice m % S, which compute
+// the sign.
+template <int M, typename Idx>
+__global__ void __launch_bounds__(SELECT_THREADS) ericson_signed_select_kernel(
+    const float* __restrict__ p3, const Idx* __restrict__ knn, const int* __restrict__ incidence,
+    const float* __restrict__ vtab9, const float* __restrict__ vntab9, float* __restrict__ sd_out,
+    int* __restrict__ fid_out, float* __restrict__ cp_out, int n, int k, int deg, int stride,
+    int slices, SlicePlan plan) {
+  // the results of slices 1..S-1: [5 fields][M][(slice - 1) * units + unit];
+  // after the merge the winners at [field][m][unit]
+  __shared__ float merge[5][M][SELECT_THREADS];
+  const int units_per_block = SELECT_THREADS / slices;
+  const int s = threadIdx.x / units_per_block, ul = threadIdx.x % units_per_block;
+  const int u = blockIdx.x * units_per_block + ul;
+  const bool live = u < n / M;
+  const int g = live ? u * M / stride : 0;
+  const Idx* __restrict__ kg = knn + (size_t)g * k;
+
+  float px[M], py[M], pz[M];
+  if (live) {
+    load_unit<M>(p3, u, px);
+    load_unit<M>(p3 + n, u, py);
+    load_unit<M>(p3 + 2 * (size_t)n, u, pz);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M; ++m) px[m] = py[m] = pz[m] = 0.f;
+  }
+  float best[M], bx[M], by[M], bz[M];
+  int best_c[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    best[m] = INFINITY; bx[m] = by[m] = bz[m] = 0.f; best_c[m] = 0;
+  }
+  const int c0 = plan.bounds[s], c1 = plan.bounds[s + 1];
+  int j = c0 / deg, d = c0 - j * deg;
+  size_t row = live ? (size_t)kg[j] * deg : 0;
+  for (int ci = c0; live && ci < c1; ++ci) {
+    const size_t e = row + d;
+    const int f = __ldg(incidence + e);
+    float t[9];
+    load_face(vtab9, e, t);
+    const bool first = s == 0 && ci == c0;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float ox, oy, oz;
+      ericson_closest(px[m], py[m], pz[m], t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8],
+                      ox, oy, oz);
+      const float ex = ox - px[m], ey = oy - py[m], ez = oz - pz[m];
+      const float dist2 = f >= 0 ? ex * ex + ey * ey + ez * ez : INFINITY;
+      if (first || dist2 < best[m]) {
+        best[m] = dist2;
+        best_c[m] = ci;
+        bx[m] = ox; by[m] = oy; bz[m] = oz;
+      }
+    }
+    if (++d == deg && ci + 1 < c1) {
+      d = 0;
+      row = (size_t)kg[++j] * deg;
     }
   }
-  const float dist = sqrtf(fmaxf(best, 0.f));
-  sd_out[i] = best_dot < 0.f ? -dist : dist;
-  fid_out[i] = best_f;
-  cp_out[i] = bx;
-  cp_out[n + i] = by;
-  cp_out[2 * (size_t)n + i] = bz;
+  if (slices > 1) {
+    if (s > 0) {
+      const int at = (s - 1) * units_per_block + ul;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        merge[0][m][at] = best[m];
+        merge[1][m][at] = __int_as_float(best_c[m]);
+        merge[2][m][at] = bx[m]; merge[3][m][at] = by[m]; merge[4][m][at] = bz[m];
+      }
+    }
+    __syncthreads();
+    if (s == 0) {
+      for (int o = 1; o < slices; ++o) {
+        const int at = (o - 1) * units_per_block + ul;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const float dd = merge[0][m][at];
+          if (dd < best[m]) {
+            best[m] = dd;
+            best_c[m] = __float_as_int(merge[1][m][at]);
+            bx[m] = merge[2][m][at]; by[m] = merge[3][m][at]; bz[m] = merge[4][m][at];
+          }
+        }
+      }
+      // the winners, over slice 1's results of this unit (read just above)
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        merge[0][m][ul] = best[m];
+        merge[1][m][ul] = __int_as_float(best_c[m]);
+        merge[2][m][ul] = bx[m]; merge[3][m][ul] = by[m]; merge[4][m][ul] = bz[m];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      best[m] = merge[0][m][ul];
+      best_c[m] = __float_as_int(merge[1][m][ul]);
+      bx[m] = merge[2][m][ul]; by[m] = merge[3][m][ul]; bz[m] = merge[4][m][ul];
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if (m % slices != s) continue;
+    signed_point(px[m], py[m], pz[m], best_c[m], best[m], bx[m], by[m], bz[m], kg, incidence,
+                 vtab9, vntab9, deg, (size_t)u * M + m, n, sd_out, fid_out, cp_out);
+  }
+}
+
+// Checks a plan (meshquery.select_plan) and copies its bounds into `plan`:
+// members 1, 2 or 4 dividing the stride, 1 <= slices <= 8 dividing the
+// block, 0 = bounds[0] < ... < bounds[slices] = C.
+bool make_plan(int n, int num_cands, int stride, int members, int slices, const int* bounds,
+               SlicePlan& plan) {
+  if (stride < 1 || n % stride || (members != 1 && members != 2 && members != 4) ||
+      stride % members || slices < 1 || slices > MAX_SLICES || SELECT_THREADS % slices ||
+      bounds[0] != 0 || bounds[slices] != num_cands)
+    return false;
+  plan = {};
+  for (int i = 0; i <= slices; ++i) {
+    if (i > 0 && bounds[i] <= bounds[i - 1]) return false;
+    plan.bounds[i] = bounds[i];
+  }
+  return true;
+}
+
+template <int M, typename Idx>
+void signed_launch(int blocks, cudaStream_t st, const float* p3, const void* knn,
+                   const int* incidence, const float* vtab9, const float* vntab9, float* sd,
+                   int* f_id, float* cp, int n, int k, int deg, int stride, int slices,
+                   const SlicePlan& plan) {
+  ericson_signed_select_kernel<M, Idx><<<blocks, SELECT_THREADS, 0, st>>>(
+      p3, static_cast<const Idx*>(knn), incidence, vtab9, vntab9, sd, f_id, cp, n, k, deg,
+      stride, slices, plan);
 }
 
 }  // namespace
@@ -316,15 +473,8 @@ extern "C" int ericson_select_launch(const float* p3, const float* rows9,
                                      int stride, int members, int slices,
                                      const int* bounds, void* stream) {
   if (n == 0) return 0;
-  if (stride < 1 || n % stride || (members != 1 && members != 2 && members != 4) ||
-      stride % members || slices < 1 || slices > MAX_SLICES || SELECT_THREADS % slices ||
-      bounds[0] != 0 || bounds[slices] != num_cands)
-    return -1;
-  SlicePlan plan = {};
-  for (int i = 0; i <= slices; ++i) {
-    if (i > 0 && bounds[i] <= bounds[i - 1]) return -1;
-    plan.bounds[i] = bounds[i];
-  }
+  SlicePlan plan;
+  if (!make_plan(n, num_cands, stride, members, slices, bounds, plan)) return -1;
   const int units_per_block = SELECT_THREADS / slices;
   const int blocks = (n / members + units_per_block - 1) / units_per_block;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -341,16 +491,32 @@ extern "C" int ericson_select_launch(const float* p3, const float* rows9,
   return (int)cudaGetLastError();
 }
 
-// As above plus vn9 [9C, N/stride] f32, the corner pseudonormals laid out as
-// rows9. Writes sd [N] f32 (signed distance), f_id [N] int32, cp [3, N] f32.
-extern "C" int ericson_signed_select_launch(const float* p3, const float* rows9,
-                                            const float* vn9, const int* cand,
-                                            float* sd, int* f_id, float* cp, int n,
-                                            int num_cands, int stride, void* stream) {
+// The fused signed distance on table operands: p3 [3, N] f32; knn [N/stride,
+// k] int32 (idx64 = 0) or int64 (idx64 = 1), the k nearest vertices of each
+// group; incidence [V, deg] int32 face ids, -1 = padding; vtab9 [V, deg * 9]
+// f32 the corners of each vertex's incident faces, vntab9 [V, deg * 9] f32
+// their corner pseudonormals. Candidate ci = j * deg + d (C = k * deg).
+// Writes sd [N] f32 (signed distance), f_id [N] int32, cp [3, N] f32 on
+// `stream`; the plan as ericson_select_launch's, over the C candidates.
+// Returns the cudaError_t of the launch (0 on success), -1 for a bad plan.
+extern "C" int ericson_signed_select_launch(const float* p3, const void* knn, int idx64,
+                                            const int* incidence, const float* vtab9,
+                                            const float* vntab9, float* sd, int* f_id, float* cp,
+                                            int n, int k, int deg, int stride, int members,
+                                            int slices, const int* bounds, void* stream) {
   if (n == 0) return 0;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  ericson_signed_select_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p3, rows9, vn9, cand, sd, f_id, cp, n, n / stride, num_cands, stride);
+  SlicePlan plan;
+  if (!make_plan(n, k * deg, stride, members, slices, bounds, plan)) return -1;
+  const int units_per_block = SELECT_THREADS / slices;
+  const int blocks = (n / members + units_per_block - 1) / units_per_block;
+  using Launch = void (*)(int, cudaStream_t, const float*, const void*, const int*, const float*,
+                         const float*, float*, int*, float*, int, int, int, int, int,
+                         const SlicePlan&);
+  static const Launch launches[3][2] = {{signed_launch<1, int>, signed_launch<1, long long>},
+                                        {signed_launch<2, int>, signed_launch<2, long long>},
+                                        {signed_launch<4, int>, signed_launch<4, long long>}};
+  launches[members == 4 ? 2 : members - 1][idx64 != 0](
+      blocks, (cudaStream_t)stream, p3, knn, incidence, vtab9, vntab9, sd, f_id, cp, n, k, deg,
+      stride, slices, plan);
   return (int)cudaGetLastError();
 }

@@ -19,15 +19,22 @@ The gradient is the envelope formula of the JAX custom VJP: d(d2)/dp =
 2 (p - cp); the closest point and face id carry none, and nothing flows
 into the triangles.
 
-`ericson_signed_select` replaces `_signed_kernel` (:119, through
-`_signed_select_impl` :191 and `ericson_signed_select_pallas` :276): the
-same operands plus vn9 [9C, N/stride], the angle-weighted pseudonormals of
-the candidates' corners laid out as rows9. Returns (sd [N], f_id [N]
-int32, closest): sd = sign * sqrt(max(d2, 0)), the sign that of
-(p - closest) . (u na + v nb + w nc) at the selected candidate, with
-sign(0) = +1. Gradient (the JAX custom VJP): d sd / d p = sign(sd)
-(p - closest) / |sd|, 0 where |sd| < 1e-12. Both kernels are in one source
-and share the region test, so d2, closest and f_id agree bit for bit.
+`ericson_signed_select_tables` replaces `_signed_kernel` (:119, through
+`_signed_select_impl` :191 and `ericson_signed_select_pallas` :276), the
+same query with the pseudonormal sign fused in, and reads its candidates
+straight from the mesh's query tables by KNN index: knn_idx [N/stride, k]
+(int32 or int64), incidence [V, D] int32, vtab9 [V, 9D] the corners of each
+vertex's incident faces, vntab9 [V, 9D] their angle-weighted
+pseudonormals; candidate j*D + d of a group is face incidence[knn_idx[g,
+j], d]. Returns (sd [N], f_id [N] int32, closest): sd = sign *
+sqrt(max(d2, 0)), the sign that of (p - closest) . (u na + v nb + w nc)
+at the selected candidate, with sign(0) = +1. Gradient (the JAX custom
+VJP): d sd / d p = sign(sd) (p - closest) / |sd|, 0 where |sd| < 1e-12.
+Both kernels are in one source and share the region test, so d2, closest
+and f_id agree bit for bit on the same candidates. `ericson_signed_select`
+is the same function on the TPU kernel's planar operands (rows9 and vn9
+[9C, N/stride], cand), in plain PyTorch only: the counterpart held to the
+JAX package. Its `launches` counts the table kernel's launches.
 """
 
 import ctypes
@@ -98,6 +105,12 @@ def barycentric_planar(closest, v0, v1, v2):
     return u, v, 1.0 - u - v
 
 
+def planar_rows(rows, nq):
+    """[Nq, ...] rows of nine floats a candidate (a face's corners or corner
+    normals, candidates in order) -> the kernels' coordinate-major [9C, Nq]."""
+    return rows.reshape(nq, -1, 9).permute(2, 1, 0).reshape(-1, nq).contiguous()
+
+
 def ericson_select_plain(p3, rows9, cand, stride=1):
     """What the kernel computes, in plain PyTorch: the region test on
     [C, N/stride] planes, once per group member."""
@@ -149,6 +162,22 @@ def ericson_signed_select_plain(p3, rows9, vn9, cand, stride=1):
     """What the signed kernel computes, in plain PyTorch: the sign dot on
     [C, N/stride] planes like the region test, the winner's picked."""
     sd, f_id, cp = _select_plain(p3, rows9, cand, stride, vn9)
+    return sd, f_id, tuple(cp)
+
+
+def _tables_plain(p3, knn_idx, incidence, vtab9, vntab9, stride):
+    """(sd, f_id, cp [3, N]): the planar operands gathered from the tables
+    by knn_idx (candidate j*D + d of a group is face incidence[knn_idx[g,
+    j], d]), then the planar plain version."""
+    nq = knn_idx.shape[0]
+    cand = incidence[knn_idx].reshape(nq, -1).T.to(torch.int32).contiguous()
+    rows9, vn9 = planar_rows(vtab9[knn_idx], nq), planar_rows(vntab9[knn_idx], nq)
+    return _select_plain(p3, rows9, cand, stride, vn9)
+
+
+def ericson_signed_select_tables_plain(p3, knn_idx, incidence, vtab9, vntab9, stride=1):
+    """What the table kernel computes, in plain PyTorch."""
+    sd, f_id, cp = _tables_plain(p3, knn_idx, incidence, vtab9, vntab9, stride)
     return sd, f_id, tuple(cp)
 
 
@@ -207,58 +236,93 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ericson_select_launch.argtypes = [p] * 6 + [i] * 5 + [p, p]
     lib.ericson_select_launch.restype = ctypes.c_int
-    lib.ericson_signed_select_launch.argtypes = [p] * 7 + [i, i, i, p]
+    lib.ericson_signed_select_launch.argtypes = [p, p, i, p, p, p, p, p, p] + [i] * 6 + [p, p]
     lib.ericson_signed_select_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(p3, rows9, cand, stride, vn9=None, plan=None):
-    """Launch `ericson_select` (by `plan`, default `select_plan`), or with
-    vn9 `ericson_signed_select`."""
-    what = "ericson_select" if vn9 is None else "ericson_signed_select"
-    device = p3.device
-    n = p3.shape[1]
-    num_cands = cand.shape[0]
-    checks = [
-        (p3, torch.float32, (3, n)),
-        (rows9, torch.float32, (9 * num_cands, n // stride)),
-        (cand, torch.int32, (num_cands, n // stride)),
-    ]
-    if vn9 is not None:
-        checks.append((vn9, torch.float32, (9 * num_cands, n // stride)))
-    if stride < 1 or n % stride:
-        raise ValueError(f"{what}: N={n} is not a multiple of stride={stride}")
-    for t, dtype, shape in checks:
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{what}: expected {dtype} {shape} on {device}, "
+def _check(what, operands, device):
+    """Raise unless each (tensor, dtypes, shape) is on `device`, of one of
+    the dtypes and the shape, and contiguous."""
+    for t, dtypes, shape in operands:
+        if t.device != device or t.dtype not in dtypes or tuple(t.shape) != shape:
+            raise ValueError(f"{what}: expected {dtypes} {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
-    dist = torch.empty(n, device=device, dtype=torch.float32)
-    f_id = torch.empty(n, device=device, dtype=torch.int32)
-    cp = torch.empty(3, n, device=device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if vn9 is None:
-        plan, bounds = _plan_args(n, num_cands, stride) if plan is None else (plan, None)
-        if bounds is None:
-            bounds = (ctypes.c_int * (plan["slices"] + 1))(*plan["bounds"])
-        if p3.data_ptr() % (4 * plan["members"]):  # the kernel loads a thread's points at once
-            p3 = p3.clone()
-        err = _lib().ericson_select_launch(
-            p3.data_ptr(), rows9.data_ptr(), cand.data_ptr(), dist.data_ptr(),
-            f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride, plan["members"],
-            plan["slices"], bounds, stream)
-        if err == -1:
-            raise ValueError(f"{what}: bad plan {plan} for N={n}, C={num_cands}, stride={stride}")
-        _build.check(err, what)
-        ericson_select.launches += 1
-    else:
-        err = _lib().ericson_signed_select_launch(
-            p3.data_ptr(), rows9.data_ptr(), vn9.data_ptr(), cand.data_ptr(), dist.data_ptr(),
-            f_id.data_ptr(), cp.data_ptr(), n, num_cands, stride, stream)
-        _build.check(err, what)
-        ericson_signed_select.launches += 1
+
+
+def _outputs(n, device):
+    """(dist [N] f32, f_id [N] int32, cp [3, N] f32), uninitialised."""
+    return (torch.empty(n, device=device, dtype=torch.float32),
+            torch.empty(n, device=device, dtype=torch.int32),
+            torch.empty(3, n, device=device, dtype=torch.float32))
+
+
+def _plan_for(n, num_cands, stride, plan):
+    """(plan, its bounds as a C array): `select_plan`'s unless given."""
+    if plan is None:
+        return _plan_args(n, num_cands, stride)
+    return plan, (ctypes.c_int * (plan["slices"] + 1))(*plan["bounds"])
+
+
+def _aligned(p3, plan):
+    """p3, copied if the kernel's M-point loads would be misaligned."""
+    return p3.clone() if p3.data_ptr() % (4 * plan["members"]) else p3
+
+
+def _launch(p3, rows9, cand, stride, plan=None):
+    """Launch `ericson_select` (by `plan`, default `select_plan`)."""
+    what = "ericson_select"
+    device = p3.device
+    n = p3.shape[1]
+    num_cands = cand.shape[0]
+    if stride < 1 or n % stride:
+        raise ValueError(f"{what}: N={n} is not a multiple of stride={stride}")
+    _check(what, [(p3, (torch.float32,), (3, n)),
+                  (rows9, (torch.float32,), (9 * num_cands, n // stride)),
+                  (cand, (torch.int32,), (num_cands, n // stride))], device)
+    dist, f_id, cp = _outputs(n, device)
+    plan, bounds = _plan_for(n, num_cands, stride, plan)
+    p3 = _aligned(p3, plan)
+    err = _lib().ericson_select_launch(
+        p3.data_ptr(), rows9.data_ptr(), cand.data_ptr(), dist.data_ptr(), f_id.data_ptr(),
+        cp.data_ptr(), n, num_cands, stride, plan["members"], plan["slices"], bounds,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{what}: bad plan {plan} for N={n}, C={num_cands}, stride={stride}")
+    _build.check(err, what)
+    ericson_select.launches += 1
     return dist, f_id, cp
+
+
+def _launch_signed(p3, knn_idx, incidence, vtab9, vntab9, stride, plan=None):
+    """Launch the table kernel `ericson_signed_select` (by `plan`, default
+    `select_plan` over C = k * D candidates)."""
+    what = "ericson_signed_select"
+    device = p3.device
+    n = p3.shape[1]
+    (num_verts, deg), k = incidence.shape, knn_idx.shape[1]
+    if stride < 1 or n % stride:
+        raise ValueError(f"{what}: N={n} is not a multiple of stride={stride}")
+    _check(what, [(p3, (torch.float32,), (3, n)),
+                  (knn_idx, (torch.int32, torch.int64), (n // stride, k)),
+                  (incidence, (torch.int32,), (num_verts, deg)),
+                  (vtab9, (torch.float32,), (num_verts, 9 * deg)),
+                  (vntab9, (torch.float32,), (num_verts, 9 * deg))], device)
+    sd, f_id, cp = _outputs(n, device)
+    plan, bounds = _plan_for(n, k * deg, stride, plan)
+    p3 = _aligned(p3, plan)
+    err = _lib().ericson_signed_select_launch(
+        p3.data_ptr(), knn_idx.data_ptr(), int(knn_idx.dtype == torch.int64),
+        incidence.data_ptr(), vtab9.data_ptr(), vntab9.data_ptr(), sd.data_ptr(),
+        f_id.data_ptr(), cp.data_ptr(), n, k, deg, stride, plan["members"], plan["slices"],
+        bounds, torch.cuda.current_stream(device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{what}: bad plan {plan} for N={n}, C={k * deg}, stride={stride}")
+    _build.check(err, what)
+    ericson_signed_select.launches += 1
+    return sd, f_id, cp
 
 
 class _EricsonSelect(torch.autograd.Function):
@@ -290,14 +354,12 @@ ericson_select.launches = 0
 
 
 class _EricsonSignedSelect(torch.autograd.Function):
+    """sd of `compute(p3, *operands)`, differentiable in p3 only."""
+
     @staticmethod
-    def forward(ctx, p3, rows9, vn9, cand, stride, plain):
-        if plain or p3.device.type == "cpu":
-            sd, f_id, cp = _select_plain(p3, rows9, cand, stride, vn9)
-        elif p3.is_cuda:
-            sd, f_id, cp = _launch(p3, rows9, cand, stride, vn9)
-        else:
-            raise ValueError(f"ericson_signed_select: no kernel for device {p3.device}")
+    def forward(ctx, p3, compute, *operands):
+        sd, f_id, cp = compute(p3, *operands)
+        ctx.num_operands = len(operands)
         ctx.save_for_backward(p3, cp, sd)
         ctx.mark_non_differentiable(f_id, cp)
         return sd, f_id, cp
@@ -308,15 +370,36 @@ class _EricsonSignedSelect(torch.autograd.Function):
         mag = sd.abs()
         inv = torch.where(mag < 1e-12, 0.0, 1.0 / mag)
         sign = torch.where(sd < 0, -1.0, 1.0)
-        return g_sd * sign * (p3 - cp) * inv, None, None, None, None, None
+        return (g_sd * sign * (p3 - cp) * inv, None) + (None,) * ctx.num_operands
 
 
 def ericson_signed_select(p3, rows9, vn9, cand, stride=1, plain=False):
-    """Kernel for CUDA tensors, `ericson_signed_select_plain` for CPU
-    tensors, differentiable in p3. plain=True runs the plain version on any
-    device under the same gradient, to hold the kernel to."""
-    sd, f_id, cp = _EricsonSignedSelect.apply(p3, rows9, vn9, cand, stride, plain)
+    """`ericson_signed_select_plain` on the planar operands, differentiable
+    in p3: on CPU tensors, or on any device with plain=True. No kernel takes
+    planar operands: a CUDA tensor without plain=True raises (the kernel is
+    `ericson_signed_select_tables`)."""
+    if not plain and p3.device.type != "cpu":
+        raise ValueError("ericson_signed_select: no kernel takes planar operands; "
+                         "use ericson_signed_select_tables, or plain=True")
+    planar = lambda p, r, v, c, st: _select_plain(p, r, c, st, v)
+    sd, f_id, cp = _EricsonSignedSelect.apply(p3, planar, rows9, vn9, cand, stride)
     return sd, f_id, (cp[0], cp[1], cp[2])
 
 
+# launches of the table kernel, the fused signed-distance query
 ericson_signed_select.launches = 0
+
+
+def ericson_signed_select_tables(p3, knn_idx, incidence, vtab9, vntab9, stride=1, plain=False):
+    """The table kernel for CUDA tensors, `ericson_signed_select_tables_plain`
+    for CPU tensors (or on any device with plain=True, under the same
+    gradient, to hold the kernel to), differentiable in p3."""
+    if plain or p3.device.type == "cpu":
+        compute = _tables_plain
+    elif p3.is_cuda:
+        compute = _launch_signed
+    else:
+        raise ValueError(f"ericson_signed_select: no kernel for device {p3.device}")
+    sd, f_id, cp = _EricsonSignedSelect.apply(p3, compute, knn_idx, incidence, vtab9, vntab9,
+                                              stride)
+    return sd, f_id, (cp[0], cp[1], cp[2])

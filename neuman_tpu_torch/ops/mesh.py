@@ -7,8 +7,9 @@ barycentric blend of the per-vertex LBS transforms at that point (the warp
 into canonical space: plain for the render, differentiable in the vertices
 and the transforms for training) or the pseudonormal sign (the signed
 distance; `signed_distance(fused=True)` takes closest point and sign in one
-kernel, `ericson_signed_select`). The candidate phase is the
-`ericson_select` kernel. The KNN is
+kernel, `ericson_signed_select_tables`, which reads the candidates from the
+query tables by KNN index). The candidate phase is the `ericson_select`
+kernel. The KNN is
 exact for the render (one f32 matmul score and a top-k per query chunk)
 and the `bucketed_knn` kernel for training (knn_impl="bucketed").
 """
@@ -21,7 +22,7 @@ import torch
 from neuman_tpu_torch.ops.kernels.knn import bucketed_knn, bucketed_knn_plain
 from neuman_tpu_torch.ops.kernels.meshquery import (barycentric_planar, ericson_select,
                                                      ericson_select_plain,
-                                                     ericson_signed_select)
+                                                     ericson_signed_select_tables, planar_rows)
 from neuman_tpu_torch.ops.precision import matmul_f32
 
 # queries per KNN score chunk: [8192, V=10242] f32 is 336 MB
@@ -73,6 +74,7 @@ class QueryTables:
     vtab9: torch.Tensor  # [V, D*9] corner coordinates of each vertex's incident faces
     vn_pack: torch.Tensor  # [F, 9] angle-weighted pseudonormals of each face's corners
     vntab9: torch.Tensor  # [V, D*9] those pseudonormals, laid out as vtab9
+    incidence: torch.Tensor  # [V, D] int32 the incident faces' ids, -1 padded
 
 
 def _incident_rows(values, topology: MeshTopology):
@@ -87,7 +89,8 @@ def build_query_tables(verts, topology: MeshTopology):
     vtab9 = _incident_rows(verts, topology)[1]
     vn_pack, vntab9 = _incident_rows(angle_weighted_vertex_normals(verts, topology.faces),
                                      topology)
-    return QueryTables(vtab9=vtab9, vn_pack=vn_pack, vntab9=vntab9)
+    return QueryTables(vtab9=vtab9, vn_pack=vn_pack, vntab9=vntab9,
+                       incidence=topology.incidence.to(torch.int32).contiguous())
 
 
 def angle_weighted_vertex_normals(verts, faces):
@@ -154,17 +157,16 @@ def candidate_operands(points, verts, topology: MeshTopology, k=4, knn_stride=1,
     knn_idx, stride = _query_knn(points, verts, k, knn_stride, knn_impl, use_kernels)
     nq = knn_idx.shape[0]
     cand = topology.incidence[knn_idx].reshape(nq, -1)  # [Nq, C]
-    major = lambda rows: rows.reshape(nq, -1, 9).permute(2, 1, 0).reshape(-1, nq).contiguous()
     if tables is not None:
         rows = tables.vtab9[knn_idx]  # [Nq, k, D*9]
     else:
         rows = verts[topology.faces[cand.clamp(min=0).reshape(-1)]]  # [Nq*C, 3, 3]
     p3, cand_t = points.T.contiguous(), cand.T.to(torch.int32).contiguous()
     if not normals:
-        return p3, major(rows), cand_t, stride
+        return p3, planar_rows(rows, nq), cand_t, stride
     vntab9 = (tables.vntab9 if tables is not None else
               _incident_rows(angle_weighted_vertex_normals(verts, topology.faces), topology)[1])
-    return p3, major(rows), major(vntab9[knn_idx]), cand_t, stride
+    return p3, planar_rows(rows, nq), planar_rows(vntab9[knn_idx], nq), cand_t, stride
 
 
 def _blend_inverse_affine(closest, f_id, verts, Ts, topology: MeshTopology):
@@ -216,13 +218,18 @@ def signed_distance(points, verts, topology: MeshTopology, k=4, knn_stride=1, ta
     barycentric blend of the face's corner pseudonormals; sign(0) = +1.
     `tables`: QueryTables when `verts` are the same from query to query.
     fused=True takes closest point and sign in one kernel
-    (`ericson_signed_select`; its plain version with use_kernels=False) on
-    one more row gather, the candidates' pseudonormals; same contract.
+    (`ericson_signed_select_tables`; its plain version with
+    use_kernels=False), which reads the candidates' corners and corner
+    pseudonormals from the tables by KNN index (built here without
+    `tables`); same contract.
     Returns (signed_dist [N], f_id [N], closest [N, 3])."""
     if fused:
-        ops = candidate_operands(points, verts, topology, k, knn_stride, knn_impl, use_kernels,
-                                 tables, normals=True)
-        sd, f_id, closest = ericson_signed_select(*ops, plain=not use_kernels)
+        verts = verts.detach()
+        tables = build_query_tables(verts, topology) if tables is None else tables
+        knn_idx, stride = _query_knn(points, verts, k, knn_stride, knn_impl, use_kernels)
+        sd, f_id, closest = ericson_signed_select_tables(
+            points.T.contiguous(), knn_idx, tables.incidence, tables.vtab9, tables.vntab9,
+            stride, plain=not use_kernels)
         return sd, f_id, torch.stack(closest, dim=-1)
     d2, f_id, closest = point_mesh_closest_planar(
         points, verts, topology, k=k, knn_stride=knn_stride, use_kernels=use_kernels,

@@ -6,18 +6,21 @@ Run from the repo root: the timers and the ray samples are chip_smoke.py's
 (`cuda_ms_min`, `device_ms`, `_ray_samples`). On the body-proxy mesh at
 subdivision 5 (V=10,242): `bucketed_knn` at Nq=49,152 and 196,608 ray
 samples with k=4; `ericson_select` at N=65,536 and 196,608, strides 4 and
-1, C=24; `ericson_signed_select` at N=196,608, stride 4. Each through its
-public wrapper, timed two ways: `ms` by CUDA events (the least of 5 means
-of 20 calls after 20 warm-ups), which counts the host's launch where that
-is the longer, and `device_ms`, the kernel's mean device time over 20
-calls by torch.profiler. Only the wrappers' public signatures are used, so
-the same script times an older checkout of the package: copy this file and
-chip_smoke.py into that checkout and run it from there.
+1, C=24; `ericson_signed_select_tables` at N=196,608, strides 4 and 1 (on
+the query tables). Each through its public wrapper, timed two ways: `ms`
+by CUDA events (the least of 5 means of 20 calls after 20 warm-ups),
+which counts the host's launch where that is the longer, and `device_ms`,
+the kernel's mean device time over 20 calls by torch.profiler. Only the
+wrappers' public signatures are used, so the same script times an older
+checkout of the package: copy this file and chip_smoke.py into that
+checkout and run it from there (a checkout older than the table form of
+the signed select lacks its wrapper: time that with each tree's
+`chip_smoke.py --phases signed`).
 
---plans also runs `ericson_select` with 1, 2, 4 and 8 candidate slices
-(`meshquery.select_plan` picks the count), each held to the default plan's
-output (`torch.equal`). Prints the card, then one JSON line per kernel,
-shape and plan.
+--plans also runs `ericson_select` and the table kernel with 1, 2, 4 and
+8 candidate slices (`meshquery.select_plan` picks the count), each held to
+the default plan's output (`torch.equal`). Prints the card, then one JSON
+line per kernel, shape and plan.
 """
 
 import argparse
@@ -37,6 +40,20 @@ def _report(kernel, fn, name, **fields):
     ms, dev = cuda_ms_min(fn), device_ms(fn, name)
     print(json.dumps({"kernel": kernel, **fields, "ms": round(ms, 4), "device_ms": round(dev, 4)}),
           flush=True)
+
+
+def _plans(kernel, launch, name, shape):
+    """`launch(plan)` with 1, 2, 4 and 8 candidate slices, each held to the
+    default plan's output."""
+    want = launch(None)
+    default = kmq.select_plan(shape["N"], shape["C"], shape["stride"])
+    for slices in (1, 2, 4, 8):
+        plan = {**default, "slices": slices,
+                "bounds": [s * shape["C"] // slices for s in range(slices + 1)]}
+        run = lambda: launch(plan)
+        equal = all(torch.equal(a, b) for a, b in zip(run(), want))
+        _report(kernel, run, name, **shape, members=plan["members"], slices=slices,
+                equal_default=equal)
 
 
 def main(argv=None):
@@ -66,23 +83,22 @@ def main(argv=None):
             shape = {"N": n, "C": cand.shape[0], "stride": st}
             _report("ericson_select", lambda: kmq.ericson_select(p3, rows9, cand, st),
                     "ericson_select_kernel", **shape)
-            if not args.plans:
-                continue
-            want = kmq._launch(p3, rows9, cand, st)
-            default = kmq.select_plan(n, cand.shape[0], st)
-            for slices in (1, 2, 4, 8):
-                plan = {**default, "slices": slices,
-                        "bounds": [s * cand.shape[0] // slices for s in range(slices + 1)]}
-                run = lambda: kmq._launch(p3, rows9, cand, st, plan=plan)
-                equal = all(torch.equal(a, b) for a, b in zip(run(), want))
-                _report("ericson_select", run, "ericson_select_kernel", **shape,
-                        members=plan["members"], slices=slices, equal_default=equal)
+            if args.plans:
+                _plans("ericson_select", lambda plan: kmq._launch(p3, rows9, cand, st, plan=plan),
+                       "ericson_select_kernel", shape)
     pts = _ray_samples(verts, 1536, 128, gen)
     tables = mesh_ops.build_query_tables(verts, topo)
-    p3, rows9, vn9, cand, st = mesh_ops.candidate_operands(
-        pts, verts, topo, k=4, knn_stride=4, knn_impl="bucketed", tables=tables, normals=True)
-    _report("ericson_signed_select", lambda: kmq.ericson_signed_select(p3, rows9, vn9, cand, st),
-            "ericson_signed_select_kernel", N=pts.shape[0], C=cand.shape[0], stride=st)
+    p3 = pts.T.contiguous()
+    for stride in (4, 1):
+        knn_idx, st = mesh_ops._query_knn(pts, verts, 4, stride, "bucketed")
+        targs = (knn_idx, tables.incidence, tables.vtab9, tables.vntab9, st)
+        num_cands = knn_idx.shape[1] * tables.incidence.shape[1]
+        shape = {"N": pts.shape[0], "C": num_cands, "stride": st}
+        _report("ericson_signed_select", lambda: kmq.ericson_signed_select_tables(p3, *targs),
+                "ericson_signed_select_kernel", **shape)
+        if args.plans:
+            _plans("ericson_signed_select", lambda plan: kmq._launch_signed(p3, *targs, plan=plan),
+                   "ericson_signed_select_kernel", shape)
 
 
 if __name__ == "__main__":

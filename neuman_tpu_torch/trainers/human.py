@@ -195,6 +195,7 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
     can_vn_pack = torch.stack([t.vn_pack for t in tables])
     can_vntab9 = (torch.stack([t.vntab9 for t in tables]) if ops.fused_signed_distance
                   else [None] * len(tables))
+    incidence = tables[0].incidence
     del tables
 
     def ray_planes(origin, direction, z):
@@ -267,7 +268,7 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
     def shape_reg(batch, can_planes, sg, d_planes, d_sg, w_alpha, w_dummy):
         cap = batch["cap_id"]
         verts = can_verts[cap]
-        tabs = mesh_ops.QueryTables(can_vtab9[cap], can_vn_pack[cap], can_vntab9[cap])
+        tabs = mesh_ops.QueryTables(can_vtab9[cap], can_vn_pack[cap], can_vntab9[cap], incidence)
         sd_kw = dict(mesh_kw, tables=tabs, fused=ops.fused_signed_distance)
         flat = torch.stack([p.reshape(-1) for p in can_planes], dim=-1).detach()
         # warped ray samples stay consecutive along a ray: the stride applies

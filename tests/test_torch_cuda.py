@@ -490,35 +490,99 @@ def test_tape_functions_route_gradients_and_skip_no_grad(cuda, monkeypatch):
 @pytest.mark.parametrize("tables", [False, True], ids=["gathered", "tables"])
 @pytest.mark.parametrize("stride", [1, 4])
 def test_signed_select_kernel_matches_plain_and_unsigned(cuda, stride, tables):
-    """sd and the closest point equal the plain version's bit for bit
-    (--fmad=false), |sd|, closest point and face id the unsigned kernel's,
-    and the gradient the plain Function's."""
+    """The table kernel: sd, the closest point and the face id equal the
+    plain version's bit for bit (--fmad=false), and the planar plain
+    version's on the same candidates gathered into planes (from the
+    vertices, or from prebuilt tables); |sd|, closest point and face id the
+    unsigned kernel's on those planes; the gradient the plain Function's;
+    the signs the unfused query's but for a few points at |dot| ~ 0."""
     body = body_proxy_smpl_model(subdivisions=3, device=cuda)
     topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, cuda)
     g = torch.Generator().manual_seed(2)
     pts = (body.v_template[torch.randint(0, body.num_verts, (4096,), generator=g).to(cuda)]
            + 0.05 * torch.randn(4096, 3, generator=g).to(cuda))
-    tabs = mesh_ops.build_query_tables(body.v_template, topo) if tables else None
-    p3, rows9, vn9, cand, st = mesh_ops.candidate_operands(
-        pts, body.v_template, topo, k=4, knn_stride=stride, tables=tabs, normals=True)
+    tabs = mesh_ops.build_query_tables(body.v_template, topo)
+    knn_idx, st = mesh_ops._query_knn(pts, body.v_template, 4, stride)
+    args = (knn_idx, tabs.incidence, tabs.vtab9, tabs.vntab9, st)
     before = kmq.ericson_signed_select.launches
-    p3 = p3.clone().requires_grad_(True)
-    sd, f_id, cp = kmq.ericson_signed_select(p3, rows9, vn9, cand, st)
+    p3 = pts.T.contiguous().requires_grad_(True)
+    sd, f_id, cp = kmq.ericson_signed_select_tables(p3, *args)
     assert kmq.ericson_signed_select.launches == before + 1
     sd.sum().backward()
     grad, p3.grad = p3.grad, None
-    rsd, rf, rcp = kmq.ericson_signed_select(p3, rows9, vn9, cand, st, plain=True)
+    rsd, rf, rcp = kmq.ericson_signed_select_tables(p3, *args, plain=True)
     rsd.sum().backward()
-    assert torch.equal(sd, rsd) and torch.equal(torch.stack(cp), torch.stack(rcp))
+    assert torch.equal(sd, rsd) and torch.equal(f_id, rf)
+    assert torch.equal(torch.stack(cp), torch.stack(rcp))
     assert torch.equal(grad, p3.grad)
-    assert (kmq.tie_gap(p3.detach(), rows9, cand, st)[f_id != rf] <= 1e-6).all()
-    d2, uf, ucp = kmq.ericson_select(p3.detach(), rows9, cand, st)
+    ops = mesh_ops.candidate_operands(pts, body.v_template, topo, k=4, knn_stride=stride,
+                                      tables=tabs if tables else None, normals=True)
+    qsd, qf, qcp = kmq.ericson_signed_select(*ops, plain=True)
+    assert torch.equal(sd, qsd) and torch.equal(f_id, qf)
+    assert torch.equal(torch.stack(cp), torch.stack(qcp))
+    d2, uf, ucp = kmq.ericson_select(ops[0], ops[1], ops[3], ops[4])
     assert torch.equal(sd.abs(), torch.sqrt(d2.clamp(min=0))) and torch.equal(f_id, uf)
     assert torch.equal(torch.stack(cp), torch.stack(ucp))
     assert (sd < 0).any() and (sd > 0).any()
     full = mesh_ops.signed_distance(pts, body.v_template, topo, k=4, knn_stride=stride,
-                                    tables=tabs)[0]
+                                    tables=tabs if tables else None)[0]
     assert (torch.sign(full) != torch.sign(sd)).float().mean() <= 1e-3
+    fused = mesh_ops.signed_distance(pts, body.v_template, topo, k=4, knn_stride=stride,
+                                     tables=tabs if tables else None, fused=True)
+    assert torch.equal(fused[0], sd) and torch.equal(fused[2], torch.stack(cp, dim=-1))
+    with pytest.raises(ValueError, match="planar"):
+        kmq.ericson_signed_select(*ops)
+
+
+@pytest.fixture(scope="module")
+def big_tables():
+    """The V=40,962 body proxy's query tables (D = 6), with the incidence
+    rows of 8 vertices set to -1 (faces nobody may pick)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    body = body_proxy_smpl_model(subdivisions=6, device=torch.device("cuda", 0))
+    topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, body.v_template.device)
+    tabs = mesh_ops.build_query_tables(body.v_template, topo)
+    dead = torch.arange(100, 108, device=body.v_template.device)
+    tabs.incidence[dead] = -1
+    return body.v_template, tabs, dead
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("k", [3, 4, 6])
+def test_signed_select_tables_kernel_equal_plain(cuda, big_tables, k, stride):
+    """C = 18, 24, 36 (k = 3, 4, 6 on D = 6), ragged N (1,001 groups),
+    int32 and int64 knn_idx, the tables as views into stacked tables (at an
+    offset, as the human step's), every slice plan and the default: sd,
+    face id and closest point `torch.equal` to the plain version's, with
+    group 1 all invalid (candidate 0: f_id 0, |sd| = inf)."""
+    verts, tabs, dead = big_tables
+    g = torch.Generator().manual_seed(k + 10 * stride)
+    idx = torch.randint(0, verts.shape[0], (1001 * stride,), generator=g).to(cuda)
+    pts = verts[idx] + 0.02 * torch.randn(1001 * stride, 3, generator=g).to(cuda)
+    knn_idx, st = mesh_ops._query_knn(pts, verts, k, stride)
+    assert st == stride
+    knn_idx[1] = dead[:k]
+    stacked = lambda t: torch.stack([torch.zeros_like(t), t])[1]
+    tables = tuple(stacked(t) for t in (tabs.incidence, tabs.vtab9, tabs.vntab9))
+    assert tables[1].data_ptr() != tabs.vtab9.data_ptr()
+    p3 = pts.T.contiguous()
+    num_cands = k * tabs.incidence.shape[1]
+    for index in (knn_idx.to(torch.int32), knn_idx):
+        args = (index, *tables, stride)
+        want = kmq.ericson_signed_select_tables_plain(p3, *args)
+        want = (want[0], want[1], torch.stack(want[2]))
+        for slices in (1, 2, 4, 8):
+            plan = {**kmq.select_plan(p3.shape[1], num_cands, stride), "slices": slices,
+                    "bounds": [s * num_cands // slices for s in range(slices + 1)]}
+            got = kmq._launch_signed(p3, *args, plan=plan)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (index.dtype, slices)
+        sd, f_id, cp = kmq.ericson_signed_select_tables(p3, *args)
+        assert torch.equal(sd, want[0]) and torch.equal(f_id, want[1])
+        assert torch.equal(torch.stack(cp), want[2])
+    invalid = slice(stride, 2 * stride)
+    assert torch.isinf(sd[invalid]).all() and (f_id[invalid] == 0).all()
+    assert (sd < 0).any() and (sd > 0).any()
 
 
 @pytest.mark.parametrize("frame", ["smpl_posed", "smpl_canonical", "multi_persons"])

@@ -1,5 +1,5 @@
-"""The port's ericson_select, ericson_signed_select, closest-point query
-and signed distance vs neuman_tpu.
+"""The port's ericson_select, ericson_signed_select (planar and on the
+query tables), closest-point query and signed distance vs neuman_tpu.
 
 On the CPU the wrappers run their plain PyTorch versions; the CUDA kernels
 are held to those on the card (tests/test_torch_cuda.py, and chip_smoke.py).
@@ -149,6 +149,42 @@ def test_signed_distance_fused_matches_jax_and_unfused(body, stride, tables):
     jsd = np.asarray(jsd)
     np.testing.assert_allclose(np.abs(sd.numpy()), np.abs(jsd), atol=1e-5)
     np.testing.assert_allclose(closest.numpy(), np.asarray(jclosest), atol=1e-4)
+    far = np.abs(jsd) > 1e-5
+    np.testing.assert_array_equal(np.sign(sd.numpy())[far], np.sign(jsd)[far])
+    assert 0.02 < (jsd < 0).mean() < 0.98
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["gathered", "tables"])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_signed_select_tables_plain_matches_planar_and_jax(body, stride, tables):
+    """The table form (`ericson_signed_select_tables`, its plain version on
+    CPU tensors, int64 and int32 knn_idx) equals the planar plain version
+    bit for bit on the same candidates gathered into planes, from the
+    vertices or from prebuilt tables (the same values: padding as face 0 in
+    both); and JAX's `_signed_distance_planar(use_pallas="fused")` at the
+    bars of test_signed_distance_fused_matches_jax_and_unfused: distances
+    1e-5, closest points 1e-4, signs where |sd| > 1e-5."""
+    verts_np, faces, topo, verts, pts = body
+    tabs = tmesh.build_query_tables(verts, topo)
+    knn_idx, st = tmesh._query_knn(pts, verts, 4, stride)
+    p3 = pts.T.contiguous()
+    p3_, rows9, vn9, cand, _ = tmesh.candidate_operands(
+        pts, verts, topo, k=4, knn_stride=stride, tables=tabs if tables else None, normals=True)
+    qsd, qf, qcp = kmq.ericson_signed_select(p3_, rows9, vn9, cand, st)
+    for index in (knn_idx, knn_idx.to(torch.int32)):
+        sd, f_id, cp = kmq.ericson_signed_select_tables(p3, index, tabs.incidence, tabs.vtab9,
+                                                        tabs.vntab9, st)
+        assert torch.equal(sd, qsd) and torch.equal(f_id, qf)
+        assert all(torch.equal(a, b) for a, b in zip(cp, qcp))
+    jtopo = jmesh.MeshTopology.build(faces, len(verts_np))
+    jtabs = jmesh.build_query_tables(jnp.asarray(verts_np), jtopo) if tables else None
+    jsd, jf, jcp = jmesh._signed_distance_planar(
+        jnp.asarray(pts.numpy()), jnp.asarray(verts_np), jtopo, k=4, knn_stride=stride,
+        tables=jtabs, use_pallas="fused")
+    jsd = np.asarray(jsd)
+    np.testing.assert_allclose(np.abs(sd.numpy()), np.abs(jsd), atol=1e-5)
+    for a in range(3):
+        np.testing.assert_allclose(cp[a].numpy(), np.asarray(jcp[a]), atol=1e-4)
     far = np.abs(jsd) > 1e-5
     np.testing.assert_array_equal(np.sign(sd.numpy())[far], np.sign(jsd)[far])
     assert 0.02 < (jsd < 0).mean() < 0.98

@@ -5,11 +5,12 @@ cannot run here, so what surrounds them is held exact: numpy models of the
 order in which each kernel selects (the KNN's per-slice chunk-minimum scan,
 its (score, bucket) merge of the 8 slices and the rescan of one chunk for
 the earliest position; the Ericson select's candidate slices merged on
-(d2, index)) give the plain versions' answers bit for bit, on inputs full
-of exact ties; the launch plans the wrappers pass (`knn_plan`,
-`select_plan`) cover every bucket, table entry, query tile and candidate
-once and stay inside the card's shared memory; the plain KNN's |v|^2 and
-its FMA are rounded as the kernel's.
+(d2, index); the signed select's table addressing by KNN index, its slice
+merge and the winner's reload for the sign) give the plain versions'
+answers bit for bit, on inputs full of exact ties; the launch plans the
+wrappers pass (`knn_plan`, `select_plan`) cover every bucket, table entry,
+query tile and candidate once and stay inside the card's shared memory;
+the plain KNN's |v|^2 and its FMA are rounded as the kernel's.
 """
 
 from fractions import Fraction
@@ -330,3 +331,164 @@ def test_select_plan_at_the_main_path_shapes():
     assert kmq.select_plan(196608, 24, 4)["slices"] == 4
     assert kmq.select_plan(65536, 24, 1) == {"members": 1, "slices": 2, "bounds": [0, 12, 24]}
     assert kmq.select_plan(196608, 24, 1)["slices"] == 2
+
+
+def signed_tables_model(p3, knn_idx, incidence, vtab9, vntab9, stride, bounds):
+    """The table kernel, in numpy: candidate ci = j*D + d of group g is table
+    entry e = knn_idx[g, j] * D + d, face incidence.flat[e], corners at
+    9 e of the flat vtab9; the slices scanned and merged as `select_model`'s,
+    the winning candidate's index carried; then the winner's entry reloaded,
+    its corners and corner normals, for the barycentric weights and the
+    sign, in the kernel's order of operations. Returns (sd, f_id, cp) as the plain
+    version does."""
+    n = p3.shape[1]
+    nq, k = knn_idx.shape
+    deg = incidence.shape[1]
+    flat_inc = incidence.numpy().reshape(-1)
+    tab = vtab9.numpy().reshape(-1)
+    ntab = vntab9.numpy().reshape(-1)
+    knn = knn_idx.numpy().astype(np.int64)
+    cols = np.arange(nq)
+
+    def entry(ci):  # [Nq] table entries of candidate ci (an int or one per group)
+        j = ci // deg
+        return knn[cols, j] * deg + (ci - j * deg)
+
+    def nine(flat, e):
+        return [flat[e * 9 + i] for i in range(9)]
+
+    pts = p3.numpy().reshape(3, nq, stride)
+    sd = np.zeros((nq, stride), np.float32)
+    f_id = np.zeros((nq, stride), np.int32)
+    cp = np.zeros((3, nq, stride), np.float32)
+    for m in range(stride):
+        p = [torch.tensor(pts[a, :, m]) for a in range(3)]
+        dist, close = [], []
+        for ci in range(k * deg):
+            e = entry(ci)
+            t = [torch.tensor(x) for x in nine(tab, e)]
+            o = kmq.closest_point_on_triangles_planar(p, t[0:3], t[3:6], t[6:9])
+            d2 = ((o[0] - p[0]) * (o[0] - p[0]) + (o[1] - p[1]) * (o[1] - p[1])
+                  + (o[2] - p[2]) * (o[2] - p[2])).numpy()
+            dist.append(np.where(flat_inc[e] >= 0, d2, np.float32(np.inf)))
+            close.append([c.numpy() for c in o])
+        win_d = np.full(nq, np.inf, np.float32)
+        win_c = np.zeros(nq, np.int64)
+        for s in range(len(bounds) - 1):
+            c0, c1 = bounds[s], bounds[s + 1]
+            sd_s = np.full(nq, np.inf, np.float32) if s else dist[c0].copy()
+            sc = np.full(nq, c0, np.int64)
+            for ci in range(c0 + (0 if s else 1), c1):
+                lower = dist[ci] < sd_s
+                sd_s[lower], sc[lower] = dist[ci][lower], ci
+            take = sd_s < win_d if s else np.ones(nq, bool)
+            win_d[take], win_c[take] = sd_s[take], sc[take]
+        # the winner's reload
+        e = entry(win_c)
+        ax, ay, az, bx, by, bz, cx, cy, cz = nine(tab, e)
+        nm = nine(ntab, e)
+        o = [np.stack(close)[win_c, a, cols] for a in range(3)]
+        one = np.float32(1.0)
+        e1, e2 = (bx - ax, by - ay, bz - az), (cx - ax, cy - ay, cz - az)
+        nx, ny, nz = (e1[1] * e2[2] - e1[2] * e2[1], e1[2] * e2[0] - e1[0] * e2[2],
+                      e1[0] * e2[1] - e1[1] * e2[0])
+        denom = nx * nx + ny * ny + nz * nz
+        denom = np.where(np.abs(denom) < np.float32(1e-20), np.float32(1e-20), denom)
+        bc, qb = (cx - bx, cy - by, cz - bz), (o[0] - bx, o[1] - by, o[2] - bz)
+        uu = (nx * (bc[1] * qb[2] - bc[2] * qb[1]) + ny * (bc[2] * qb[0] - bc[0] * qb[2])
+              + nz * (bc[0] * qb[1] - bc[1] * qb[0])) / denom
+        ca, qc = (ax - cx, ay - cy, az - cz), (o[0] - cx, o[1] - cy, o[2] - cz)
+        vv = (nx * (ca[1] * qc[2] - ca[2] * qc[1]) + ny * (ca[2] * qc[0] - ca[0] * qc[2])
+              + nz * (ca[0] * qc[1] - ca[1] * qc[0])) / denom
+        ww = one - uu - vv
+        mx, my, mz = (uu * nm[a] + vv * nm[3 + a] + ww * nm[6 + a] for a in range(3))
+        dot = (pts[0, :, m] - o[0]) * mx + (pts[1, :, m] - o[1]) * my + (pts[2, :, m] - o[2]) * mz
+        # the square root as the plain version takes it: torch.sqrt, which
+        # on the CPU is not always correctly rounded (the kernel's sqrtf and
+        # torch.sqrt on the card are)
+        dist_m = torch.sqrt(torch.clamp(torch.tensor(win_d), min=0.0)).numpy()
+        sd[:, m] = np.where(dot < 0, -dist_m, dist_m)
+        f_id[:, m] = np.maximum(flat_inc[e], 0)
+        for a in range(3):
+            cp[a, :, m] = o[a]
+    return sd.reshape(n), f_id.reshape(n), cp.reshape(3, n)
+
+
+def _signed_tables_case(stride, k, seed, num_verts=30, deg=5, num_faces=6, nq=37):
+    """Tables of a made-up mesh on an integer grid (corners, normals and
+    points on it: d2 ties and dots of exactly 0 abound): each vertex's row
+    holds up to D faces, -1 padded at its end (vertices 0-2 hold none), the
+    same faces in many rows; padding rows as face 0 (as build_query_tables
+    makes them). knn_idx: k distinct vertices a group, group 1's all
+    faceless (an all-invalid group)."""
+    rng = np.random.default_rng(seed)
+    corners = rng.integers(-2, 3, size=(num_faces, 9)).astype(np.float32)
+    normals = rng.integers(-1, 2, size=(num_faces, 9)).astype(np.float32)
+    incidence = np.full((num_verts, deg), -1, np.int32)
+    for v in range(3, num_verts):
+        d = rng.integers(1, deg + 1)
+        incidence[v, :d] = rng.choice(num_faces, size=d, replace=False)
+    safe = np.maximum(incidence, 0)
+    vtab9 = corners[safe].reshape(num_verts, deg * 9)
+    vntab9 = normals[safe].reshape(num_verts, deg * 9)
+    knn_idx = np.stack([rng.choice(np.arange(3, num_verts), size=k, replace=False)
+                        for _ in range(nq)])
+    knn_idx[1] = np.arange(k) % 3
+    pts = rng.integers(-2, 3, size=(3, nq * stride)).astype(np.float32)
+    pts[:, ::3] += 0.5
+    return tuple(torch.tensor(x) for x in (pts, knn_idx, incidence, vtab9, vntab9))
+
+
+@pytest.mark.parametrize("k", [3, 4, 6])
+@pytest.mark.parametrize("stride", [1, 2, 4])
+def test_signed_tables_model_matches_plain_bit_for_bit(stride, k):
+    """The table kernel's addressing (candidate j*D + d -> table entry and
+    face id), its slice merge and the winner's reload give the plain
+    version's sd, face id and closest point bit for bit under every slice
+    plan, on integer-grid ties with faces
+    repeated across KNN vertices, D padding and an all-invalid group
+    (candidate 0: f_id 0, |sd| = inf)."""
+    p3, knn_idx, incidence, vtab9, vntab9 = _signed_tables_case(stride, k, seed=stride + 7 * k)
+    want = kmq.ericson_signed_select_tables_plain(p3, knn_idx, incidence, vtab9, vntab9, stride)
+    num_cands = k * incidence.shape[1]
+    for slices in (1, 2, 4, 8):
+        bounds = [s * num_cands // slices for s in range(slices + 1)]
+        sd, f_id, cp = signed_tables_model(p3, knn_idx, incidence, vtab9, vntab9, stride, bounds)
+        np.testing.assert_array_equal(sd, want[0].numpy())
+        np.testing.assert_array_equal(f_id, want[1].numpy())
+        np.testing.assert_array_equal(cp, torch.stack(want[2]).numpy())
+    invalid = slice(stride, 2 * stride)
+    assert np.isinf(sd[invalid]).all() and (f_id[invalid] == 0).all()
+    # the inputs are tie-rich: the least d2 is reached by several candidates
+    nq = knn_idx.shape[0]
+    rows9 = kmq.planar_rows(vtab9[knn_idx], nq)
+    cand = incidence[knn_idx].reshape(nq, -1).T.contiguous()
+    tied = [(d2 == d2.amin(0)).sum(0) > 1
+            for d2, _ in (kmq._member_candidates(p3, rows9, cand, stride, m)
+                          for m in range(stride))]
+    assert torch.stack(tied)[:, 2:].float().mean() > 0.5
+    assert (sd < 0).any() and (sd > 0).any()
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_signed_tables_model_matches_plain_on_the_body(stride):
+    """The same on the fused query of the shape regulariser: ray samples
+    through the body proxy, its query tables, the bucketed KNN's knn_idx
+    (int32, as that kernel gives it, and int64), the plan `select_plan`
+    makes."""
+    verts, faces = synthetic_body_mesh(subdivisions=2)
+    verts = torch.tensor(verts)
+    topo = tmesh.MeshTopology.build(faces, len(verts))
+    tabs = tmesh.build_query_tables(verts, topo)
+    rng = np.random.default_rng(5)
+    pts = verts[torch.tensor(rng.integers(0, len(verts), 96))] * 1.03
+    knn_idx, st = tmesh._query_knn(pts, verts, 4, stride, "bucketed")
+    p3 = pts.T.contiguous()
+    plan = kmq.select_plan(p3.shape[1], 4 * tabs.incidence.shape[1], st)
+    for index in (knn_idx.to(torch.int32), knn_idx):
+        args = (index, tabs.incidence, tabs.vtab9, tabs.vntab9, st)
+        want = kmq.ericson_signed_select_tables_plain(p3, *args)
+        sd, f_id, cp = signed_tables_model(p3, *args, plan["bounds"])
+        np.testing.assert_array_equal(sd, want[0].numpy())
+        np.testing.assert_array_equal(f_id, want[1].numpy())
+        np.testing.assert_array_equal(cp, torch.stack(want[2]).numpy())
