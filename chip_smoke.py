@@ -67,7 +67,18 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      queries;
  12. renders: a 270x480 render_smpl_nerf frame, canonical and posed, and a
      two-actor render_hybrid_nerf_multi_persons frame, bf16, kernels vs the
-     plain path.
+     plain path;
+ 13. cli: the command line on a scene directory. tools/synthetic_scene.py
+     writes a 10-frame 270x480 scene with the body proxy at subdivision 5
+     as SMPL_NEUTRAL.pkl; NeuManReader.read_scene reads it back (images,
+     masks and depths equal to what was written; its time printed); then
+     train.main runs stage 1 (--train_mode bkg) and stage 2
+     (--train_mode smpl_and_offset --load_background <stage 1>), each for
+     --max_iter 2 at the default flags (the launch counts reset just before
+     each), and 5 more steps of each stage's trainer are timed. Checked:
+     the kernels of each stage were launched, every loss is finite,
+     checkpoint.npz, params.json and metrics.jsonl (with validation
+     records) were written, and the validation PNGs decode.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null), and last the device line.
@@ -167,6 +178,18 @@ FUSED_LAUNCHES = {"ericson_select": 2, "ericson_signed_select": 4}
 FUSED_STEPS = 10
 # a vertex score |v|^2 - 2 v.p: 3 multiplies and 3 adds
 KNN_OPS_PER_SCORE = 6
+
+# phase 13: the scene directory the command line trains on (10 frames, the
+# fewest the 80/10/10 split takes with a test view), the steps of each
+# stage's train.main run, and the steps timed on its trainer after it
+CLI_FRAMES, CLI_HW = 10, (270, 480)
+CLI_MAX_ITER = 2
+CLI_TIMED_STEPS = 5
+# flags added to both stages' command lines (none: the defaults)
+CLI_FLAGS = ()
+CLI_BKG_KERNELS = ("nerf_mlp", "nerf_mlp_bwd")
+CLI_HUMAN_KERNELS = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
+                     "bucketed_knn")
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1736,6 +1759,138 @@ def phase_renders(model, spec, body, device, seed):
     return launches
 
 
+def _timed_steps(trainer, n):
+    """Median CUDA-event ms of n train steps of `trainer`, and their losses."""
+    import torch
+
+    events, losses = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = trainer.train_step()
+        end.record()
+        events.append((start, end))
+        losses.append(sum(float(v) for k, v in metrics.items() if "loss" in k or "reg" in k))
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in events)
+    return (ms[(n - 1) // 2] + ms[n // 2]) / 2, losses
+
+
+def _cli_outputs_ok(out, val_names):
+    """Whether a train.main run left checkpoint.npz, a params.json that
+    loads back, metrics.jsonl with validation records and every loss
+    finite, and validation PNGs that decode; (ok, the PNGs' shapes)."""
+    from neuman_tpu_torch.options.config import NeuManConfig
+    from neuman_tpu_torch.utils import png
+
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [v for r in records for k, v in r.items() if "loss" in k or k.endswith("_reg")]
+    NeuManConfig.load(os.path.join(out, "params.json"))
+    shapes = {}
+    for name in sorted(os.listdir(out)):
+        stem = name.rsplit("_", 1)[0]
+        if name.endswith(".png") and stem in val_names:
+            shapes[name] = list(png.read_png(os.path.join(out, name)).shape)
+    ok = (os.path.isfile(os.path.join(out, "checkpoint.npz"))
+          and any(k.startswith("val_loss/") for r in records for k in r)
+          and bool(losses) and all(math.isfinite(v) for v in losses)
+          and {n.rsplit("_", 1)[0] for n in shapes} == set(val_names))
+    return ok, shapes
+
+
+def phase_cli(device, seed):
+    """The command line on a scene directory (phase 13 of the module
+    docstring). The scene's images and masks are held to the files byte
+    for byte (re-encoded: the writer and encode_png are one deterministic
+    encoder), its MVS depth to the plane's depth and its mono depth to the
+    tool's map, each times the scene scale. Returns {stage: (ms/step, launches counted from 0 in train.main,
+    peak GiB)} and the scene's read seconds."""
+    import numpy as np
+    import torch
+    from neuman_tpu_torch import train as ttrain
+    from neuman_tpu_torch.data_io import neuman
+    from neuman_tpu_torch.models import smpl
+    from neuman_tpu_torch.tools import synthetic_scene
+    from neuman_tpu_torch.utils import png
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    data_root = os.environ.get("NEUMAN_DATA_ROOT")
+    try:
+        body = smpl.body_proxy_smpl_model(subdivisions=BODY_SUBDIVISIONS)
+        t0 = time.perf_counter()
+        scene_dir = synthetic_scene.build_synthetic_scene(root, CLI_FRAMES, *CLI_HW, seed=seed,
+                                                          body=body)
+        write_s = time.perf_counter() - t0
+        os.environ["NEUMAN_DATA_ROOT"] = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        scene = neuman.NeuManReader.read_scene(scene_dir, normalize=True, bkg_range_scale=3.0,
+                                               human_range_scale=1.5, smpl_type="optimized")
+        scene.read_data_to_ram(data_list=["image", "depth"])
+        read_s = time.perf_counter() - t0
+        plane = synthetic_scene.Z_PLANE - synthetic_scene.CAMERA_Z
+        same = len(scene.captures) == CLI_FRAMES
+        for cap in scene.captures:
+            mask_path = cap.captured_mask.image_path
+            same = (same and png.encode_png(cap.image) == open(cap.image_path, "rb").read()
+                    and png.encode_png(cap.captured_mask.image) == open(mask_path, "rb").read()
+                    and np.array_equal(cap.depth_map,
+                                       np.full(CLI_HW, plane, np.float32) * scene.scale)
+                    and np.array_equal(cap.mono_depth_map,
+                                       synthetic_scene.mono_depth_png(*CLI_HW) / 10000.0
+                                       * scene.scale))
+        log("cli_scene", frames=len(scene.captures), hw=json.dumps(list(CLI_HW)),
+            V=body.num_verts, write_s=f"{write_s:.3f}", read_s=f"{read_s:.3f}",
+            scale=f"{scene.scale:.6f}", equal_to_written=same, ok=same)
+        if not same:
+            raise RuntimeError("the scene read back differs from what was written")
+        del scene
+
+        counters = _kernel_counters()
+        out_dir = os.path.join(root, "out")
+        common = ["--scene_dir", scene_dir, "--out_dir", out_dir, "--max_iter", str(CLI_MAX_ITER),
+                  *CLI_FLAGS]
+        stages = (("bkg", ["--train_mode", "bkg", "--name", "cli_bkg"], CLI_BKG_KERNELS, ("val",)),
+                  ("human", ["--train_mode", "smpl_and_offset", "--name", "cli_human",
+                             "--load_background", "cli_bkg"], CLI_HUMAN_KERNELS, VAL_IMAGES))
+        results = {}
+        for stage, argv, kernels, val_names in stages:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            trainer = ttrain.main(argv + common, device=device)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            gib = torch.cuda.max_memory_allocated() / 2**30
+            ok, shapes = _cli_outputs_ok(os.path.join(out_dir, argv[3]), val_names)
+            ms, losses = _timed_steps(trainer, CLI_TIMED_STEPS)
+            ok = (ok and all(launches[k] > 0 for k in kernels)
+                  and all(math.isfinite(v) for v in losses))
+            log(f"cli_{stage}", argv=" ".join(argv + ["--max_iter", str(CLI_MAX_ITER), *CLI_FLAGS]),
+                rays=trainer.opt.rays_per_batch, S=trainer.opt.samples_per_ray,
+                main_s=f"{main_s:.3f}", ms_per_step=f"{ms:.3f}", timed_steps=CLI_TIMED_STEPS,
+                peak_gib=f"{gib:.2f}", geo_threshold=f"{trainer.opt.geo_threshold:.6f}",
+                launches=json.dumps({k: v for k, v in launches.items() if v},
+                                    separators=(",", ":")),
+                val_pngs=json.dumps(shapes, separators=(",", ":")),
+                last_loss=f"{losses[-1]:.5f}", ok=ok)
+            if not ok:
+                raise RuntimeError(f"cli {stage}: a kernel of {kernels} was not launched, a loss "
+                                   f"is not finite, or an output is missing or unreadable")
+            results[stage] = (ms, launches, gib)
+            del trainer
+        return results, read_s
+    finally:
+        if data_root is None:
+            os.environ.pop("NEUMAN_DATA_ROOT", None)
+        else:
+            os.environ["NEUMAN_DATA_ROOT"] = data_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -1760,7 +1915,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders")
+          "renders", "cli")
 
 
 def main(argv=None):
@@ -1802,6 +1957,7 @@ def main(argv=None):
         "tape": lambda: phase_tape(model, spec, device, args.seed),
         "signed": lambda: phase_signed(body.v_template, topo, args.seed),
         "renders": lambda: phase_renders(model, spec, body, device, args.seed),
+        "cli": lambda: phase_cli(device, args.seed),
     }
     out = {name: run[name]() for name in PHASES if name in phases}
     device_line = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1812,6 +1968,7 @@ def main(argv=None):
     mlp, mesh, launches, bwd, train = (out[k] for k in ("mlp", "mesh", "slice", "bwd", "train"))
     offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
                                                             "renders"))
+    cli = out["cli"][0]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -1824,8 +1981,9 @@ def main(argv=None):
     # f32 background train path (phase 7) split into train_background (2
     # steps, 2 validations) and the 20 timed steps, in both tape
     # configurations, the f32 human train path (phase 9) split likewise, its
-    # 2 steps with the fused signed distance, and the three frames of phase
-    # 12. No single PyTorch call computes any of the seven functions.
+    # 2 steps with the fused signed distance, the three frames of phase
+    # 12, and the command line's two stages (phase 13, train.main each).
+    # No single PyTorch call computes any of the seven functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by, *dev = timing
         return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{source}.cu",
@@ -1841,6 +1999,7 @@ def main(argv=None):
             paths.update({key + k: v for k, v in run[1].get(name, {}).items()})
         paths.update(human["fused_launches"].get(name, {}))
         paths.update({f"render_{frame}": counts.get(name, 0) for frame, counts in renders.items()})
+        paths.update({f"cli_{stage}": run[1].get(name, 0) for stage, run in cli.items()})
         return {k: v for k, v in paths.items() if v}
 
     kernels = [

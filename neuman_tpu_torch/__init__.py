@@ -4,10 +4,15 @@ The JAX package `neuman_tpu` stays the reference; every module here has a
 counterpart at the same relative path there and is tested against it.
 This package imports torch and nothing of `neuman_tpu`, jax or flax: what
 it needs of neuman_tpu's numpy-only modules it keeps as its own copies
-under `utils/` (`constants.py`, `synthetic_body.py`, `canonical_cameras.py`).
+(`utils/`, `geometry/`, `cameras/`, `scenes/`).
 
 Layer map, entry points first:
-    train.py             train_background (stage 1) and train_human (stage 2)
+    train.py             the command line (`python -m neuman_tpu_torch.train`,
+                         main), train_background (stage 1), train_human (stage 2)
+    options/config.py    every field and flag of the JAX config, params.json
+    data_io/             the NeuMan scene reader (COLMAP text, the joblib-written
+                         SMPL fits, near/far, normalisation, SMPL skinning),
+                         over cameras/, geometry/, scenes/
     trainers/            NeRFTrainer, HumanNeRFTrainer: batches, losses,
                          autograd, Adam, validation, checkpoints, PNG logging
     datasets/            scene arrays in device memory, ray batch samplers
@@ -30,9 +35,10 @@ Layer map, entry points first:
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict
-    options/config.py    the config fields the port reads
+    utils/               PNG codec, PIL-exact resize, border masks and fused depth
     tools/               per-kernel device-time profiles of a step or a frame,
-                         timings over tape chunks and of the mesh kernels
+                         timings over tape chunks and of the mesh kernels, a
+                         synthetic scene directory writer
 """
 
 __version__ = "0.1.0"

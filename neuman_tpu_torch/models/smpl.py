@@ -1,13 +1,16 @@
 """SMPL linear blend skinning (counterpart of neuman_tpu/models/smpl.py).
 
 Produces what the warps consume: posed world vertices and the per-vertex
-Da-pose -> scene transforms `Ts` (in the JAX package the scene reader
-computes them for the render, data_io/neuman.py:200-260; the trainer's
-differentiable `vertex_forward` is in models/human_nerf.py). Like the
-reference, pose blend shapes are computed-and-discarded there, so they
-are skipped here (v_posed == v_shaped).
+Da-pose -> scene transforms `Ts` (the scene reader, data_io/neuman.py,
+computes them per frame with `lbs_joints`; the trainer's differentiable
+`vertex_forward` is in models/human_nerf.py). Like the reference, pose
+blend shapes are computed-and-discarded there, so they are skipped here
+(v_posed == v_shaped). `load_smpl` reads an `SMPL_NEUTRAL.pkl`.
 """
 
+import dataclasses
+import os
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,6 +35,11 @@ class SMPLModel:
         return cls(t(v_template), t(shapedirs), t(J_regressor), t(lbs_weights),
                    tuple(int(p) for p in parents), np.asarray(faces, np.int32))
 
+    def to(self, device):
+        """The model with its buffers on `device`."""
+        return dataclasses.replace(self, **{k: getattr(self, k).to(device) for k in (
+            "v_template", "shapedirs", "J_regressor", "lbs_weights")})
+
     @property
     def num_verts(self):
         return self.v_template.shape[0]
@@ -39,6 +47,30 @@ class SMPLModel:
     @property
     def num_joints(self):
         return self.J_regressor.shape[0]
+
+
+def _to_dense(a):
+    if hasattr(a, "todense"):  # the scipy sparse J_regressor
+        a = a.todense()
+    return np.array(a, dtype=np.float32)
+
+
+def load_smpl(model_path, gender="neutral", device=None):
+    """An SMPL pickle (`SMPL_<GENDER>.pkl`, or the directory holding it) as
+    an SMPLModel, as neuman_tpu.models.smpl.load_smpl reads it: latin-1
+    pickle, dense float32 buffers, parents from the kinematic tree with
+    parents[0] = -1. The pose blend shapes are not read (unused)."""
+    if os.path.isdir(model_path):
+        model_path = os.path.join(model_path, f"SMPL_{gender.upper()}.pkl")
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(f"Path {model_path} does not exist!")
+    with open(model_path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    parents = _to_dense(data["kintree_table"]).astype(np.int64)[0]
+    parents[0] = -1
+    return SMPLModel.from_numpy(_to_dense(data["v_template"]), _to_dense(data["shapedirs"]),
+                                _to_dense(data["J_regressor"]), _to_dense(data["weights"]),
+                                parents, np.array(data["f"], dtype=np.int32), device=device)
 
 
 def body_proxy_smpl_model(subdivisions=5, num_joints=24, num_betas=10, seed=0,
@@ -105,19 +137,27 @@ def batch_rigid_transform(rot_mats, joints, parents):
     return posed_joints, rel
 
 
-def lbs(betas, pose, model: SMPLModel):
-    """betas [B, nb], pose [B, J*3] axis-angle -> (T [B, V, 4, 4],
-    rest vertices [B, V, 3], posed vertices [B, V, 3])."""
+def lbs_joints(betas, pose, model: SMPLModel):
+    """betas [B, nb], pose [B, J*3] axis-angle -> (T [B, V, 4, 4], rest
+    vertices [B, V, 3], posed vertices [B, V, 3], the joints' transforms
+    [B, J, 4, 4], rest joints [B, J, 3], posed joints [B, J, 3]): the JAX
+    package's lbs(return_T=True, concat_joints=True) and smpl_forward."""
     batch = max(betas.shape[0], pose.shape[0])
     v_shaped = model.v_template[None] + torch.einsum("bl,mkl->bmk", betas, model.shapedirs)
     joints = torch.einsum("bik,ji->bjk", v_shaped, model.J_regressor)
     rot_mats = batch_rodrigues(pose.reshape(-1, 3)).reshape(batch, -1, 3, 3)
-    _, rel = batch_rigid_transform(rot_mats, joints, model.parents)
+    posed_joints, rel = batch_rigid_transform(rot_mats, joints, model.parents)
     t_per_vert = torch.matmul(
         model.lbs_weights[None].expand(batch, -1, -1), rel.reshape(batch, -1, 16)
     ).reshape(batch, -1, 4, 4)
     verts = torch.einsum("bvij,bvj->bvi", t_per_vert[..., :3, :3], v_shaped) + t_per_vert[..., :3, 3]
-    return t_per_vert, v_shaped, verts
+    return t_per_vert, v_shaped, verts, rel, joints, posed_joints
+
+
+def lbs(betas, pose, model: SMPLModel):
+    """betas [B, nb], pose [B, J*3] axis-angle -> (T [B, V, 4, 4],
+    rest vertices [B, V, 3], posed vertices [B, V, 3])."""
+    return lbs_joints(betas, pose, model)[:3]
 
 
 def verts_transformations(model, poses, betas):

@@ -1,19 +1,48 @@
-"""The configuration fields the port reads.
+"""The configuration and its command line (counterpart of
+neuman_tpu/options/config.py).
 
-Field names and defaults are those of `neuman_tpu.options.config.NeuManConfig`,
-so a `params.json` of either package sets the same values. `finalize`
-derives the output paths as the JAX config does; it imports nothing, where
-the JAX one asks jax for its backend.
+Every field of `neuman_tpu.options.config.NeuManConfig`, with its name and
+default, so one command line and one `params.json` serve both packages.
+`apply_mode_defaults` switches the defaults by `--train_mode` (the
+reference's two-pass parsing); `add_cli_args` / `from_cli` expose every
+field as a flag; `finalize` derives the output paths and the target sizes,
+as the JAX config's does, and imports nothing.
+
+Fields the port parses and saves but does not act on: those that steer XLA
+or the TPU (`use_cuda`, `pe_recurrence`, `tb_dir`), the JAX profiler's
+(`profile_dir`, `profile_steps`) and data mesh's (`data_axis`,
+`data_parallel`), and those of command lines and options not ported yet
+(`render_h`, `render_w`, `weights_path`, `trajectory_resolution`, `chunk`,
+`penalize_outside`, `random_view`, `motion_name`, `mocap_*`).
+`use_pallas` False selects the plain PyTorch ops in both train steps;
+None (the default) or True the kernels.
 """
 
+import argparse
+import dataclasses
+import json
 import math
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+from neuman_tpu_torch.utils.misc import print_notification
+
+# fields finalize sets: not command-line flags
+DERIVED = ("out", "tb_dir", "load_weights_path", "tgt_size", "render_size")
+
+
+def str2bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("true", "1", "yes", "y", "t")
 
 
 @dataclass
 class NeuManConfig:
+    # general
+    use_cuda: bool = False
+
     # nerf
     nerf_depth: int = 8
     nerf_width: int = 256
@@ -37,9 +66,28 @@ class NeuManConfig:
     rays_per_batch: int = 2048
     samples_per_ray: int = 128
     importance_samples_per_ray: int = 128
+    render_h: Optional[int] = None
+    render_w: Optional[int] = None
+    weights_path: Optional[str] = None
+    # LPIPS weights (.npz in the JAX package's layout); the command line
+    # also looks for <repo>/data/lpips_alex.npz
+    lpips_weights: Optional[str] = None
     white_bkg: bool = True
+    trajectory_resolution: int = 40
+
+    # scene
+    scene_dir: Optional[str] = None
+    normalize: bool = True
+    bkg_range_scale: float = 3.0
+    human_range_scale: float = 1.5
+    image_height: Optional[int] = None
+    image_width: Optional[int] = None
+    mask_dir: str = "segmentations"
+    smpl_type: str = "optimized"
+    dilation: int = 30
 
     # training, shared
+    train_mode: str = "bkg"  # bkg | smpl_only | smpl_and_offset
     delay_iters: int = 0
     learning_rate: float = 5e-4
     lrate_decay: Optional[int] = 250
@@ -51,6 +99,10 @@ class NeuManConfig:
     max_iter: int = 500_000
     valid_iter: int = 5000
     perturb: float = 0.0
+    # ray classes of a batch (body, border, strict background); sum to 1
+    body_rays_ratio: float = 0.0
+    border_rays_ratio: float = 0.0
+    bkg_rays_ratio: float = 1.0
 
     # background stage
     empty_space_loss_fn: str = "mse"
@@ -59,18 +111,13 @@ class NeuManConfig:
     margin: float = 0.8
     ablate_nerft: bool = False
 
-    # ray classes of a batch (body, border, strict background); sum to 1
-    train_mode: str = "bkg"  # bkg | smpl_only | smpl_and_offset
-    dilation: int = 30
-    body_rays_ratio: float = 0.0
-    border_rays_ratio: float = 0.0
-    bkg_rays_ratio: float = 1.0
-
     # human stage
+    bkg_lr: float = 0.0
     smpl_lr: float = 3e-4
     geo_threshold: float = -1.0
     knn_stride: int = 4
     penalize_smpl_alpha: float = 1.0
+    penalize_outside: bool = True
     penalize_outside_factor: float = 2.0
     penalize_outside_loss: str = "l1"
     dist_exponent: float = 1.0
@@ -81,7 +128,9 @@ class NeuManConfig:
     penalize_mask: float = 0.01
     penalize_sharp_edge: float = 0.1
     penalize_lpips: float = 0.01
+    chunk: int = 10000
     load_background: Optional[str] = None
+    load_can: Optional[str] = None
     num_offset_nets: int = 1
     offset_scale: float = 0.0
     offset_scale_type: str = "linear"
@@ -89,9 +138,17 @@ class NeuManConfig:
     offset_delay: int = 20000
     prior_knowledge_decay: bool = False
     block_grad: bool = True
+    random_view: bool = False
 
+    # fields of the JAX package's own
+    profile_dir: Optional[str] = None
+    profile_steps: int = 5
     seed: int = 42
+    data_axis: str = "data"
+    data_parallel: str = "auto"
     compute_dtype: str = "float32"  # or "bfloat16" for the MLP products
+    use_pallas: Optional[bool] = None
+    pe_recurrence: Optional[bool] = None
     # the fused MLPs' backward: "recompute" re-derives the trunk activations,
     # "hbm" reads a tape of them that the forward wrote to device memory
     # (depth * width values a sample in the compute dtype, alive until the
@@ -100,11 +157,28 @@ class NeuManConfig:
 
     # derived (set by finalize)
     out: Optional[str] = None
+    tb_dir: Optional[str] = None
     load_weights_path: Optional[str] = None
+    tgt_size: Optional[Tuple[int, int]] = None
+    render_size: Optional[Tuple[int, int]] = None
+    motion_name: str = "speedvault"
+    mocap_path: Optional[str] = None
+    mocap_start: int = 0
+    mocap_end: int = -1
+    mocap_skip: int = 1
 
     def finalize(self):
-        """Derived paths and invariants, as the JAX config's finalize."""
+        """Derived paths and sizes, and the invariants, as the JAX config's
+        finalize (which also resolves use_pallas and pe_recurrence from its
+        backend; here they stay as given)."""
+        if self.image_height is not None or self.image_width is not None:
+            if self.image_height is None or self.image_width is None:
+                raise ValueError("--image_height and --image_width go together")
+            self.tgt_size = (self.image_height, self.image_width)
+        if self.render_h is not None:
+            self.render_size = (self.render_h, self.render_w)
         self.out = os.path.join(self.out_dir, self.name)
+        self.tb_dir = os.path.join(self.out_dir, "tensorboard_out", self.name)
         if self.load_weights is not None:
             self.load_weights_path = os.path.join(self.out_dir, self.load_weights,
                                                   "checkpoint.npz")
@@ -117,7 +191,30 @@ class NeuManConfig:
         ratios = self.body_rays_ratio + self.border_rays_ratio + self.bkg_rays_ratio
         if not math.isclose(ratios, 1.0):
             raise ValueError(f"the ray ratios must sum to 1, not {ratios}")
+        if self.ablate_nerft and (self.raw_pos_dim != 4 or self.train_mode != "bkg"):
+            raise ValueError("ablate_nerft needs raw_pos_dim 4 and train_mode bkg")
         return self
+
+    def save(self, path=None):
+        """Write every field to `path` (default <out>/params.json)."""
+        path = path or os.path.join(self.out, "params.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fp:
+            json.dump(dataclasses.asdict(self), fp, indent=0, sort_keys=True, default=str)
+        return path
+
+    @classmethod
+    def load(cls, path):
+        """A config of a params.json (of either package); unknown keys are
+        ignored."""
+        with open(path) as fp:
+            raw = json.load(fp)
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in raw.items() if k in known}
+        for k in ("tgt_size", "render_size"):
+            if kwargs.get(k) is not None:
+                kwargs[k] = tuple(kwargs[k])
+        return cls(**kwargs)
 
 
 def apply_mode_defaults(cfg: NeuManConfig, train_mode: str) -> NeuManConfig:
@@ -138,3 +235,43 @@ def apply_mode_defaults(cfg: NeuManConfig, train_mode: str) -> NeuManConfig:
     else:
         raise ValueError(train_mode)
     return cfg
+
+
+def add_cli_args(parser: argparse.ArgumentParser, cfg: NeuManConfig):
+    """A flag for every field that is not derived, with the field's value
+    in `cfg` as its default (the JAX package's flag names and types)."""
+    for f in dataclasses.fields(NeuManConfig):
+        if f.name in DERIVED:
+            continue
+        value = getattr(cfg, f.name)
+        if f.type in (bool, Optional[bool]) or isinstance(value, bool):
+            typ = str2bool
+        elif isinstance(value, int) or f.type == Optional[int]:
+            typ = int
+        elif isinstance(value, float) or f.type == Optional[float]:
+            typ = float
+        else:
+            typ = str
+        parser.add_argument(f"--{f.name}", type=typ, default=value)
+    return parser
+
+
+def from_cli(argv=None, mode_aware=True, base: Optional[NeuManConfig] = None):
+    """Parse `argv` in two passes: --train_mode first, to set the mode's
+    defaults, then every flag."""
+    cfg = base or NeuManConfig()
+    if mode_aware:
+        pre = argparse.ArgumentParser(add_help=False)
+        pre.add_argument("--train_mode", type=str, default=cfg.train_mode)
+        known, _ = pre.parse_known_args(argv)
+        cfg = apply_mode_defaults(cfg, known.train_mode)
+    parser = argparse.ArgumentParser()
+    add_cli_args(parser, cfg)
+    for k, v in vars(parser.parse_args(argv)).items():
+        setattr(cfg, k, v)
+    return cfg.finalize()
+
+
+def print_opt(cfg: NeuManConfig):
+    rows = sorted(dataclasses.asdict(cfg).items())
+    print_notification([k.rjust(25, " ") + "  " + str(v) for k, v in rows], "OPTIONS")

@@ -1,0 +1,185 @@
+"""Write a synthetic NeuMan scene directory, as preprocessing leaves one
+for `data_io.neuman.NeuManReader` (the port's counterpart of
+tests/fixtures.build_synthetic_scene with renderable=True and
+photometric_human=True, with no imageio, PIL or joblib):
+
+    <root>/scene/images/00000.png ...       a textured backdrop plane at z=1
+                                            seen from a small arc of cameras,
+                                            the posed body drawn over it in
+                                            view-consistent vertex colours
+    <root>/scene/segmentations/*.png        255 on the background, 0 where
+                                            the posed body covers the pixel
+    <root>/scene/depth_maps/*.geometric.bin the plane's depth (COLMAP array)
+    <root>/scene/mono_depth/*.png           the same with a horizontal ripple
+                                            (a mono depth is not metric),
+                                            x 10000, 16-bit
+    <root>/scene/sparse/{cameras,images,points3D}.txt
+    <root>/scene/smpl_output_{optimized,romp}.pkl   per-frame pose and betas
+                                            (a plain pickle)
+    <root>/scene/alignments.npy             identity alignments
+    <root>/data/smplx/smpl/SMPL_NEUTRAL.pkl the body model
+
+Readers find the body model through NEUMAN_DATA_ROOT=<root>/data (or
+`smpl_model_path`). The masks are drawn with render/rasterize.py on the
+posed vertices that the port's reader gives back, so the body rays of a
+training batch hit the body.
+
+    python -m neuman_tpu_torch.tools.synthetic_scene <root> [--height 270
+        --width 480 --frames 10 --subdivisions 5]
+"""
+
+import argparse
+import os
+import pickle
+
+import numpy as np
+
+from neuman_tpu_torch.cameras.contents import write_colmap_depth_bin
+from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
+from neuman_tpu_torch.render.rasterize import rasterize_mesh
+from neuman_tpu_torch.utils import png
+
+NUM_BETAS = 10
+Z_PLANE = 1.0  # the backdrop plane, behind the point cloud's z range [0, 1]
+CAMERA_Z = -2.5
+
+
+def mono_depth_png(h, w):
+    """The mono depth map the scene holds, as its 16-bit PNG stores it: the
+    plane's depth plus a ripple across the width, so that the mono -> MVS
+    line fit of the fused depth is well posed."""
+    ripple = 0.1 * np.sin(np.linspace(0.0, 2.0 * np.pi, w))
+    return np.tile(((Z_PLANE - CAMERA_Z + ripple) * 10000).astype(np.uint16), (h, 1))
+
+
+def write_smpl_pickle(path, body):
+    """An SMPL_NEUTRAL.pkl of the SMPLModel `body` that both packages'
+    load_smpl read back to it (pose blend shapes zero: no reader uses them)."""
+    j = body.num_joints
+    kintree = np.stack([np.array(body.parents, np.int64) % 2**32,
+                        np.arange(j)]).astype(np.uint32)  # the root's parent 2^32 - 1
+    as_np = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    data = {"v_template": as_np(body.v_template), "shapedirs": as_np(body.shapedirs),
+            "posedirs": np.zeros((body.num_verts, 3, (j - 1) * 9), np.float32),
+            "J_regressor": as_np(body.J_regressor), "weights": as_np(body.lbs_weights),
+            "kintree_table": kintree, "f": np.asarray(body.faces, np.int32)}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+
+
+def _backdrop_color(x, y):
+    r = 0.5 + 0.45 * np.sin(2.2 * x + 0.7)
+    g = 0.5 + 0.45 * np.cos(1.7 * y - 0.3)
+    b = 0.5 + 0.45 * np.sin(1.3 * (x + y))
+    return np.stack([r, g, b], axis=-1)
+
+
+def _vertex_colors(template):
+    t = (template - template.mean(axis=0)) / (template.std(axis=0) + 1e-9)
+    r = 0.5 + 0.4 * np.sin(2.0 * t[:, 0] + 0.5)
+    g = 0.5 + 0.4 * np.cos(1.6 * t[:, 1])
+    b = 0.5 + 0.4 * np.sin(1.8 * (t[:, 0] + t[:, 2]))
+    return np.clip(np.stack([r, g, b], axis=-1), 0.05, 0.95)
+
+
+def _write_sparse(sparse_dir, fnames, h, w, f, rng):
+    with open(os.path.join(sparse_dir, "cameras.txt"), "w") as fh:
+        fh.write("# Camera list with one line of data per camera:\n")
+        fh.write("#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+        fh.write("# Number of cameras: 1\n")
+        fh.write(f"1 PINHOLE {w} {h} {f} {f} {w / 2.0} {h / 2.0}\n")
+    n = len(fnames)
+    with open(os.path.join(sparse_dir, "images.txt"), "w") as fh:
+        fh.write("# Image list with two lines of data per image:\n")
+        fh.write("#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME\n")
+        fh.write("#   POINTS2D[] as (X, Y, POINT3D_ID)\n")
+        fh.write(f"# Number of images: {n}, mean observations per image: 100.0\n")
+        for i, fname in enumerate(fnames):
+            # identity rotation: the camera centre is -t
+            fh.write(f"{i + 1} 1 0 0 0 {-0.05 * (i - n / 2)} 0.0 {-CAMERA_Z} 1 {fname}\n\n")
+    pts = rng.uniform([-1.2, -0.9, 0.0], [1.2, 0.9, 1.0], size=(200, 3))
+    with open(os.path.join(sparse_dir, "points3D.txt"), "w") as fh:
+        fh.write("# 3D point list with one line of data per point:\n")
+        fh.write("#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[] as (IMAGE_ID, POINT2D_IDX)\n")
+        fh.write(f"# Number of points: {len(pts)}, mean track length: 2.0\n")
+        for i, p in enumerate(pts):
+            fh.write(f"{i} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} 128 128 128 0.5\n")
+
+
+def build_synthetic_scene(root, num_frames=10, h=48, w=64, seed=3, body=None):
+    """Write the scene under `root` (see the module docstring) with
+    `num_frames` frames of h x w, the SMPL-like `body` (default: the body
+    proxy at subdivision 3) and its fits drawn from `seed`; returns the
+    scene directory. The focal length is 35 / 64 of the width (the test
+    fixture's 35 at 64 pixels)."""
+    from neuman_tpu_torch.data_io.neuman import NeuManReader
+
+    root = str(root)
+    scene_dir = os.path.join(root, "scene")
+    smpl_path = os.path.join(root, "data", "smplx", "smpl", "SMPL_NEUTRAL.pkl")
+    body = body if body is not None else body_proxy_smpl_model(subdivisions=3)
+    write_smpl_pickle(smpl_path, body)
+    for sub in ("images", "sparse", "depth_maps", "mono_depth", "segmentations"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    focal = 35.0 * w / 64.0
+    px, py = np.meshgrid(np.arange(w), np.arange(h))
+    fnames = [f"{i:05d}.png" for i in range(num_frames)]
+    blob = np.full((h, w), 255, np.uint8)  # replaced by the body's coverage below
+    blob[h // 2 - h // 8: h // 2 + h // 8, w // 2 - w // 8: w // 2 + w // 8] = 0
+    for i, fname in enumerate(fnames):
+        s = Z_PLANE - CAMERA_Z
+        hit_x = 0.05 * (i - num_frames / 2) + (px - w / 2.0) / focal * s
+        hit_y = (py - h / 2.0) / focal * s
+        img = (np.clip(_backdrop_color(hit_x, hit_y), 0, 1) * 255).astype(np.uint8)
+        depth = np.full((h, w), s, dtype=np.float32)
+        png.write_png(os.path.join(scene_dir, "images", fname), img)
+        png.write_png(os.path.join(scene_dir, "segmentations", fname), blob)
+        write_colmap_depth_bin(os.path.join(scene_dir, "depth_maps", fname + ".geometric.bin"),
+                               depth)
+        png.write_png(os.path.join(scene_dir, "mono_depth", fname), mono_depth_png(h, w))
+    _write_sparse(os.path.join(scene_dir, "sparse"), fnames, h, w, focal, rng)
+
+    poses = rng.normal(size=(num_frames, body.num_joints * 3)).astype(np.float32) * 0.05
+    betas = rng.normal(size=(num_frames, NUM_BETAS)).astype(np.float32) * 0.1
+    for kind in ("optimized", "romp"):
+        with open(os.path.join(scene_dir, f"smpl_output_{kind}.pkl"), "wb") as f:
+            pickle.dump({0: {"pose": poses, "betas": betas}}, f)
+    np.save(os.path.join(scene_dir, "alignments.npy"),
+            {fname: np.eye(4)[:, :3] for fname in fnames})
+
+    # the body as the reader places it: colours over the backdrop, coverage as the mask
+    scene = NeuManReader.read_scene(scene_dir, normalize=True, smpl_type="optimized",
+                                    smpl_model_path=smpl_path)
+    faces = np.asarray(scene.faces)[:, :3]
+    colors = _vertex_colors(np.asarray(scene.static_vert[0]))
+    for cap, verts, fname in zip(scene.captures, scene.verts, fnames):
+        rgba = rasterize_mesh(np.asarray(verts), faces, cap, vert_colors=colors)
+        if not (rgba[..., 3] > 0.5).any():
+            raise ValueError(f"the body is out of view in {fname}")
+        a = rgba[..., 3:]
+        out = cap.image.astype(np.float64) / 255.0 * (1 - a) + rgba[..., :3] * a
+        png.write_png(cap.image_path, (np.clip(out, 0, 1) * 255).astype(np.uint8))
+        png.write_png(os.path.join(scene_dir, "segmentations", fname),
+                      np.where(rgba[..., 3] > 0.5, 0, 255).astype(np.uint8))
+    return scene_dir
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("root")
+    parser.add_argument("--height", type=int, default=48)
+    parser.add_argument("--width", type=int, default=64)
+    parser.add_argument("--frames", type=int, default=10)
+    parser.add_argument("--subdivisions", type=int, default=3)
+    parser.add_argument("--seed", type=int, default=3)
+    args = parser.parse_args(argv)
+    scene_dir = build_synthetic_scene(args.root, args.frames, args.height, args.width,
+                                      args.seed, body_proxy_smpl_model(args.subdivisions))
+    print(scene_dir)
+
+
+if __name__ == "__main__":
+    main()

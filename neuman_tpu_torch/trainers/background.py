@@ -10,7 +10,8 @@ is dead (max sigma <= 0) is skipped, and a dead net is re-initialised.
 
 The step takes (state, batch); `NeRFTrainer.draw_batch` draws the batch on
 the device. Both MLP applications of a step run the `nerf_mlp` kernel
-forward and the `nerf_mlp_bwd` kernel backward (`nerf_mlp_fn`) on the card.
+forward and the `nerf_mlp_bwd` kernel backward (`nerf_mlp_fn`) on the card,
+or, given `mlp=nerf_mlp_plain`, autograd of the plain forward.
 The step reads one scalar back (whether a net died); the skip itself is
 decided on the device.
 """
@@ -132,8 +133,9 @@ def bkg_loss_fn(params, spec, batch, opt, penalty_weight, generator=None, mlp=ne
     return c_rgb, c_emp, f_rgb, f_emp, aux
 
 
-def make_bkg_train_step(spec, opt, optimizer):
-    """train_step(state, batch) -> (state, metrics), updating in place.
+def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn):
+    """train_step(state, batch) -> (state, metrics), updating in place;
+    `mlp` the differentiable MLP, as in bkg_loss_fn.
 
     state: {"params": {"coarse", "fine"} Joiners, "opt_state", "iteration"
     (int), "generator" (the device draws), "init_generator" (a CPU
@@ -145,7 +147,7 @@ def make_bkg_train_step(spec, opt, optimizer):
         lr = opt.learning_rate * 0.1 ** (it / (opt.lrate_decay * 1000.0))
         named = named_params(state["params"])
         c_rgb, c_emp, f_rgb, f_emp, aux = bkg_loss_fn(
-            state["params"], spec, batch, opt, penalty_weight, state["generator"])
+            state["params"], spec, batch, opt, penalty_weight, state["generator"], mlp=mlp)
         total = c_rgb + f_rgb + (c_emp + f_emp if it >= opt.delay_iters else 0.0)
         aux["total_loss"] = total.detach()
         flat = [(k, n, p) for k, ps in named.items() for n, p in ps.items()]
@@ -171,10 +173,13 @@ def make_bkg_train_step(spec, opt, optimizer):
 
 class NeRFTrainer:
     """Host loop: validation cadence, checkpoints, metrics (structure of
-    the JAX NeRFTrainer). `params` {"coarse", "fine"} Joiners on `device`."""
+    the JAX NeRFTrainer). `params` {"coarse", "fine"} Joiners on `device`;
+    `mlp` the differentiable MLP of the loss (bkg_loss_fn)."""
 
-    def __init__(self, opt, spec, params, scene, train_views, val_views, device="cuda"):
+    def __init__(self, opt, spec, params, scene, train_views, val_views, device="cuda",
+                 mlp=nerf_mlp_fn):
         self.opt, self.spec, self.scene, self.device = opt, spec, scene, torch.device(device)
+        self.mlp = mlp
         self.out = opt.out
         os.makedirs(self.out, exist_ok=True)
         all_views = sorted(set(train_views) | set(val_views))
@@ -192,7 +197,7 @@ class NeRFTrainer:
             "generator": torch.Generator(self.device).manual_seed(opt.seed),
             "init_generator": torch.Generator().manual_seed(opt.seed + 1),
         }
-        self.step_fn = make_bkg_train_step(spec, opt, self.optimizer)
+        self.step_fn = make_bkg_train_step(spec, opt, self.optimizer, mlp)
         self.pusher = tlog.MetricsPusher(opt)
         self.meter = tlog.ThroughputMeter(
             opt.rays_per_batch * (2 * opt.samples_per_ray + 2 * opt.importance_samples_per_ray))
@@ -233,14 +238,15 @@ class NeRFTrainer:
 
     def validate(self):
         """Losses on a batch of the validation views, a background render of
-        the middle one (written as a PNG when imageio is installed), and a
-        checkpoint."""
+        the middle one (written as `val_<iteration:08d>.png` beside
+        metrics.jsonl; `last_val_images` keeps its path), and a checkpoint."""
         opt = self.opt
         gen = torch.Generator(self.device).manual_seed(self.iteration)
         pw = opt.penalize_empty_space * max(0.0, 1.0 - self.iteration / 60000.0)
         with torch.no_grad():
             batch = self.draw_batch(self.val_ids, gen)
-            aux = bkg_loss_fn(self.state["params"], self.spec, batch, opt, pw, gen)[4]
+            aux = bkg_loss_fn(self.state["params"], self.spec, batch, opt, pw, gen,
+                              mlp=self.mlp)[4]
         self.pusher.push_scalars(
             self.iteration, {f"val_loss/{k}": float(v) for k, v in aux.items()
                              if "sigma" not in k}, training=False)
@@ -253,13 +259,8 @@ class NeRFTrainer:
                 importance_samples_per_ray=opt.importance_samples_per_ray,
                 white_bkg=opt.white_bkg)
             self.last_val_rgb = rgb
-            try:
-                import imageio.v2 as imageio
-            except ImportError:
-                imageio = None
-            if imageio is not None:
-                imageio.imwrite(os.path.join(self.out, f"val_{self.iteration:08d}.png"),
-                                (rgb.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+            self.last_val_images = self.pusher.push_images(self.iteration,
+                                                           {"val": rgb.cpu().numpy()})
         self.save_model()
 
     def save_model(self):

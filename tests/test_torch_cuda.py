@@ -7,6 +7,8 @@ runs without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import os
+
 import pytest
 import torch
 
@@ -662,3 +664,32 @@ def test_train_human_is_deterministic_without_outside_flags(cuda, dtype, tmp_pat
         params.append([p.detach().clone() for p in trainer.model.parameters()])
         assert (cudnn.enabled, cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32) == flags
     assert all(torch.equal(a, b) for a, b in zip(*params))
+
+
+def test_cli_trains_both_stages_through_the_kernels(cuda, tmp_path, monkeypatch):
+    """The command line's two stages on a 48x64 scene directory written by
+    tools/synthetic_scene.py, at the narrowest net the kernels take (6 x 64):
+    stage 1 launches the NeRF MLP pair, stage 2 (loading stage 1's
+    background) every kernel of the default human step."""
+    from neuman_tpu_torch import train as ttrain
+    from neuman_tpu_torch.tools.synthetic_scene import build_synthetic_scene
+
+    counters = {"nerf_mlp": kmlp.nerf_mlp, "nerf_mlp_bwd": kvjp.nerf_mlp_bwd,
+                "offset_mlp": koff.offset_mlp, "offset_mlp_bwd": koff.offset_mlp_bwd,
+                "ericson_select": kmq.ericson_select, "bucketed_knn": kknn.bucketed_knn}
+    scene_dir = build_synthetic_scene(tmp_path / "data_root")
+    monkeypatch.setenv("NEUMAN_DATA_ROOT", str(tmp_path / "data_root" / "data"))
+    net = ["--nerf_depth", "6", "--nerf_width", "64", "--samples_per_ray", "16",
+           "--importance_samples_per_ray", "16", "--max_iter", "2", "--scene_dir", scene_dir,
+           "--out_dir", str(tmp_path / "out"), "--dilation", "2"]
+    stages = ((["--train_mode", "bkg", "--name", "bkg", "--rays_per_batch", "256"],
+               ("nerf_mlp", "nerf_mlp_bwd")),
+              (["--train_mode", "smpl_and_offset", "--name", "human", "--load_background", "bkg",
+                "--rays_per_batch", "1056"], tuple(counters)))
+    for argv, kernels in stages:
+        for c in counters.values():
+            c.launches = 0
+        trainer = ttrain.main(argv + net, device="cuda")
+        assert all(counters[k].launches > 0 for k in kernels), {
+            k: c.launches for k, c in counters.items()}
+        assert os.path.isfile(os.path.join(trainer.opt.out, "checkpoint.npz"))

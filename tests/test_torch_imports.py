@@ -50,6 +50,21 @@ MODULES = (
     "neuman_tpu_torch.render.rasterize",
     "neuman_tpu_torch.tools.profile_frame",
     "neuman_tpu_torch.tools.sweep_bwd_chunk",
+    "neuman_tpu_torch.geometry.transforms",
+    "neuman_tpu_torch.geometry.rotation",
+    "neuman_tpu_torch.geometry.pcd",
+    "neuman_tpu_torch.cameras.pinhole",
+    "neuman_tpu_torch.cameras.pose",
+    "neuman_tpu_torch.cameras.contents",
+    "neuman_tpu_torch.cameras.capture",
+    "neuman_tpu_torch.utils.png",
+    "neuman_tpu_torch.utils.resize",
+    "neuman_tpu_torch.utils.misc",
+    "neuman_tpu_torch.scenes.scene",
+    "neuman_tpu_torch.data_io.colmap",
+    "neuman_tpu_torch.data_io.smpl_pickle",
+    "neuman_tpu_torch.data_io.neuman",
+    "neuman_tpu_torch.tools.synthetic_scene",
     "chip_smoke",
 )
 
