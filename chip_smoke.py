@@ -69,8 +69,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      two-actor render_hybrid_nerf_multi_persons frame, bf16, kernels vs the
      plain path;
  13. cli: the command line on a scene directory. tools/synthetic_scene.py
-     writes a 10-frame 270x480 scene with the body proxy at subdivision 5
-     as SMPL_NEUTRAL.pkl; NeuManReader.read_scene reads it back (images,
+     writes a 10-frame 270x480 scene with the body proxy at subdivision 5,
+     its spine rigged as SMPL's (rig_body_proxy: the hip bone that sets the
+     automatic geo_threshold ~6% of the height), as SMPL_NEUTRAL.pkl;
+     NeuManReader.read_scene reads it back (images,
      masks and depths equal to what was written; its time printed); then
      train.main runs stage 1 (--train_mode bkg) and stage 2
      (--train_mode smpl_and_offset --load_background <stage 1>), each for
@@ -78,7 +80,22 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      each), and 5 more steps of each stage's trainer are timed. Checked:
      the kernels of each stage were launched, every loss is finite,
      checkpoint.npz, params.json and metrics.jsonl (with validation
-     records) were written, and the validation PNGs decode.
+     records) were written, and the validation PNGs decode;
+ 14. render_cli: the render command lines on phase 13's scene and stage-2
+     checkpoint, from a temporary working directory, at the render
+     defaults and 270x480: render_test_views.main (the split's test view,
+     scored with LPIPS weights drawn from --seed and written in the JAX
+     layout), render_360.main --mode canonical_360 and posed_360 (4
+     cameras each), render_reposing.main on a 4-frame motion
+     (--mocap_path), render_gathering.main --actors seattle citron (the
+     checkpoint and fits laid out where the script looks for them, 4
+     frames of its preset motion). For each: the frames, the median
+     s/frame (each renderer call between two synchronises), the share of
+     rays within geo_threshold of the body, the launches counted from 0
+     (nerf_mlp in all five, ericson_select in the four that warp), every
+     PNG read back at 270x480; the test view also through the plain
+     versions (--use_pallas false), >= 40 dB against the kernels' PNG.
+     --phases render_cli runs phase 13 first.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null), and last the device line.
@@ -90,6 +107,7 @@ is the numpy body-proxy SMPL model posed by LBS. Imports nothing of JAX.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -190,6 +208,19 @@ CLI_FLAGS = ()
 CLI_BKG_KERNELS = ("nerf_mlp", "nerf_mlp_bwd")
 CLI_HUMAN_KERNELS = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
                      "bucketed_knn")
+
+# phase 14: the render command lines on phase 13's scene and stage-2
+# checkpoint: 360 orbits of 4 cameras, a 4-frame motion for the reposing,
+# two actors for the gathering (its preset takes mocap frames 0:800:4, so
+# its motion has 13 frames, 4 of them rendered); flags added to every
+# command line (none: the render defaults)
+RENDER_CLI_TRAJECTORY = 4
+RENDER_CLI_MOCAP_FRAMES = 4
+RENDER_CLI_GATHER_MOCAP_FRAMES = 13
+RENDER_CLI_ACTORS = ("seattle", "citron")
+RENDER_CLI_FLAGS = ()
+# the renderers the command lines call, each frame timed by wrapping them
+RENDERERS = ("render_hybrid_nerf", "render_smpl_nerf", "render_hybrid_nerf_multi_persons")
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1798,30 +1829,43 @@ def _cli_outputs_ok(out, val_names):
     return ok, shapes
 
 
-def phase_cli(device, seed):
-    """The command line on a scene directory (phase 13 of the module
-    docstring). The scene's images and masks are held to the files byte
-    for byte (re-encoded: the writer and encode_png are one deterministic
-    encoder), its MVS depth to the plane's depth and its mono depth to the
-    tool's map, each times the scene scale. Returns {stage: (ms/step, launches counted from 0 in train.main,
-    peak GiB)} and the scene's read seconds."""
+@contextlib.contextmanager
+def _data_root(root):
+    """NEUMAN_DATA_ROOT at root/data (where the scene's body model is) for
+    the scope; the caller's value back after."""
+    before = os.environ.get("NEUMAN_DATA_ROOT")
+    os.environ["NEUMAN_DATA_ROOT"] = os.path.join(root, "data")
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("NEUMAN_DATA_ROOT", None)
+        else:
+            os.environ["NEUMAN_DATA_ROOT"] = before
+
+
+def phase_cli(device, seed, root):
+    """The command line on a scene directory written under `root` (phase 13
+    of the module docstring). The scene's images and masks are held to the
+    files byte for byte (re-encoded: the writer and encode_png are one
+    deterministic encoder), its MVS depth to the plane's depth and its mono
+    depth to the tool's map, each times the scene scale. Returns {stage:
+    (ms/step, launches counted from 0 in train.main, peak GiB)}, the scene's
+    read seconds and the scene directory (stage 2's checkpoint is
+    root/out/cli_human/checkpoint.npz)."""
     import numpy as np
     import torch
     from neuman_tpu_torch import train as ttrain
     from neuman_tpu_torch.data_io import neuman
-    from neuman_tpu_torch.models import smpl
     from neuman_tpu_torch.tools import synthetic_scene
     from neuman_tpu_torch.utils import png
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    data_root = os.environ.get("NEUMAN_DATA_ROOT")
-    try:
-        body = smpl.body_proxy_smpl_model(subdivisions=BODY_SUBDIVISIONS)
+    with _data_root(root):
+        body = synthetic_scene.rigged_body_proxy(BODY_SUBDIVISIONS)
         t0 = time.perf_counter()
         scene_dir = synthetic_scene.build_synthetic_scene(root, CLI_FRAMES, *CLI_HW, seed=seed,
                                                           body=body)
         write_s = time.perf_counter() - t0
-        os.environ["NEUMAN_DATA_ROOT"] = os.path.join(root, "data")
         t0 = time.perf_counter()
         scene = neuman.NeuManReader.read_scene(scene_dir, normalize=True, bkg_range_scale=3.0,
                                                human_range_scale=1.5, smpl_type="optimized")
@@ -1882,13 +1926,167 @@ def phase_cli(device, seed):
                                    f"is not finite, or an output is missing or unreadable")
             results[stage] = (ms, launches, gib)
             del trainer
-        return results, read_s
+        return results, read_s, scene_dir
+
+
+@contextlib.contextmanager
+def _frame_probe():
+    """While in scope, each call of the renderers the command lines use is
+    timed (wall clock between two synchronises), and geometry_guided_near_far
+    counts the rays it tests and those within geo_threshold (the hit rays;
+    for several actors, a ray is tested once for each). Yields (frame
+    seconds, [hit rays (summed on the device), rays tested])."""
+    import torch
+    from neuman_tpu_torch.ops import rays as ray_ops
+    from neuman_tpu_torch.render import renderer
+
+    seconds, counts = [], [0, 0]
+    near_far = ray_ops.geometry_guided_near_far
+    saved = {name: getattr(renderer, name) for name in RENDERERS}
+
+    def counted(origin, direction, verts, geo_threshold):
+        near, far = near_far(origin, direction, verts, geo_threshold)
+        counts[0] = counts[0] + (near < far).sum()  # stays on the device
+        counts[1] += near.numel()
+        return near, far
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    ray_ops.geometry_guided_near_far = counted
+    for name, fn in saved.items():
+        setattr(renderer, name, timed(fn))
+    try:
+        yield seconds, counts
     finally:
-        if data_root is None:
-            os.environ.pop("NEUMAN_DATA_ROOT", None)
-        else:
-            os.environ["NEUMAN_DATA_ROOT"] = data_root
-        shutil.rmtree(root, ignore_errors=True)
+        ray_ops.geometry_guided_near_far = near_far
+        for name, fn in saved.items():
+            setattr(renderer, name, fn)
+
+
+def _png_psnr(a, b):
+    import numpy as np
+
+    mse = np.mean((a.astype(np.float64) / 255.0 - b.astype(np.float64) / 255.0) ** 2)
+    return math.inf if mse == 0 else -10.0 * math.log10(mse)
+
+
+def phase_render_cli(device, seed, root, scene_dir):
+    """The four render command lines (phase 14 of the module docstring), run
+    from a working directory under `root`, on phase 13's scene and its
+    stage-2 checkpoint, at the render defaults (2048-ray chunks, 128 + 128
+    samples, bf16, k=4, knn_stride 4) and the scene's 270x480. Each one's
+    launches are counted from 0 just before its main() and read just after;
+    every frame it wrote is read back. Returns {command line: (launches,
+    frames, median s/frame, hit fraction)}."""
+    import numpy as np
+    import torch
+    from neuman_tpu_torch import (render_360, render_gathering, render_reposing,
+                                  render_test_views)
+    from neuman_tpu_torch.models import lpips
+    from neuman_tpu_torch.tools import synthetic_scene
+    from neuman_tpu_torch.trainers import checkpoint as ckpt
+    from neuman_tpu_torch.utils import png
+
+    name = os.path.basename(scene_dir)
+    weights = os.path.join(root, "out", "cli_human", "checkpoint.npz")
+    lpips_path = os.path.join(root, "lpips_seeded.npz")
+    ckpt.save_checkpoint(lpips_path, lpips.lpips_params_to_jax(lpips.init_lpips_params(seed)))
+    mocap = synthetic_scene.write_mocap_npz(os.path.join(root, "motion_poses.npz"),
+                                            RENDER_CLI_MOCAP_FRAMES, seed)
+    work = os.path.join(root, "render_cwd")
+    # the gathering's fixed paths: the actors' nets and fits, and its motion
+    for actor in RENDER_CLI_ACTORS:
+        nets = os.path.join(work, "out", render_gathering.ACTOR_WEIGHTS_DICT[actor])
+        os.makedirs(nets)
+        shutil.copy(weights, nets)
+        fits = os.path.join(os.path.dirname(scene_dir), actor)
+        os.makedirs(fits)
+        shutil.copy(os.path.join(scene_dir, "smpl_output_optimized.pkl"), fits)
+    synthetic_scene.write_mocap_npz(os.path.join(work, "data", "SFU", "0018",
+                                                 "0018_XinJiang002_poses.npz"),
+                                    RENDER_CLI_GATHER_MOCAP_FRAMES, seed + 1)
+    common = ["--scene_dir", scene_dir, "--weights_path", weights, *RENDER_CLI_FLAGS]
+    orbit = ["--trajectory_resolution", str(RENDER_CLI_TRAJECTORY)]
+    warp = ("nerf_mlp", "ericson_select")
+    # (command line, main, flags, kernels it must launch, frames, where it writes them)
+    runs = (
+        ("test_views", render_test_views.main, ["--lpips_weights", lpips_path], warp, 1,
+         f"test_views/{name}"),
+        ("canonical_360", render_360.main, ["--mode", "canonical_360", *orbit], ("nerf_mlp",),
+         RENDER_CLI_TRAJECTORY, f"canonical_360/{name}"),
+        ("posed_360", render_360.main, ["--mode", "posed_360", *orbit], warp,
+         RENDER_CLI_TRAJECTORY, f"posed_360/{name}"),
+        ("reposing", render_reposing.main, ["--mocap_path", mocap], warp,
+         RENDER_CLI_MOCAP_FRAMES, f"reposing/{name}"),
+        ("gathering", render_gathering.main, ["--actors", *RENDER_CLI_ACTORS], warp,
+         -(-RENDER_CLI_GATHER_MOCAP_FRAMES // 4), "gathering/dance_together"),
+    )
+    counters = _kernel_counters()
+    results = {}
+    cwd = os.getcwd()
+    with _data_root(root):
+        try:
+            os.chdir(work)
+            for what, main, argv, kernels, frames, demo in runs:
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                with _frame_probe() as (seconds, hits):
+                    ret = main(argv + common, device=device)
+                torch.cuda.synchronize()
+                main_s = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items() if c.launches}
+                demo = os.path.join("demo", demo)
+                written = sorted(os.listdir(demo))
+                shapes = {png.read_png(os.path.join(demo, f)).shape == (*CLI_HW, 3)
+                          for f in written}
+                hit_fraction = int(hits[0]) / max(hits[1], 1)
+                sec = float(np.median(seconds)) if seconds else math.nan
+                ok = (len(written) == frames == len(seconds) and shapes == {True}
+                      and all(launches.get(k, 0) > 0 for k in kernels) and hit_fraction > 0)
+                extra = {}
+                if what == "test_views":
+                    extra["scores"] = json.dumps(ret, separators=(",", ":"))
+                    ok = ok and all(v is not None and math.isfinite(v) for v in ret.values())
+                log("render_cli", cmd=what, frames=len(written), H=CLI_HW[0], W=CLI_HW[1],
+                    s_per_frame_median=f"{sec:.3f}", main_s=f"{main_s:.3f}",
+                    hit_fraction=f"{hit_fraction:.4f}",
+                    launches=json.dumps(launches, separators=(",", ":")), **extra, ok=ok)
+                if not ok:
+                    raise RuntimeError(f"render_cli {what}: frames missing or unreadable, no ray "
+                                       f"hit the body, a score not finite, or a kernel of "
+                                       f"{kernels} was not launched")
+                results[what] = (launches, len(written), sec, hit_fraction)
+
+            # the test view through the plain versions of the kernels
+            tv_dir = os.path.join("demo", runs[0][5])
+            (view,) = os.listdir(os.path.join(work, tv_dir))
+            plain_dir = os.path.join(work, "plain")
+            os.makedirs(plain_dir)
+            os.chdir(plain_dir)
+            plain_scores = render_test_views.main(
+                ["--lpips_weights", lpips_path, "--use_pallas", "false"] + common, device=device)
+            kernel_frame = png.read_png(os.path.join(work, tv_dir, view))
+            plain_frame = png.read_png(os.path.join(plain_dir, tv_dir, view))
+            psnr = _png_psnr(kernel_frame, plain_frame)
+            ok = psnr >= FRAME_MIN_PSNR
+            log("render_cli", cmd="test_views_plain", psnr_vs_kernels=f"{psnr:.2f}",
+                scores=json.dumps(plain_scores, separators=(",", ":")), ok=ok)
+            if not ok:
+                raise RuntimeError("render_cli: the kernel test view is under the PSNR bar "
+                                   "against the plain one")
+        finally:
+            os.chdir(cwd)
+    return results
 
 
 def build_model(device, seed):
@@ -1915,7 +2113,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli")
+          "renders", "cli", "render_cli")
 
 
 def main(argv=None):
@@ -1927,6 +2125,8 @@ def main(argv=None):
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phase in {phases}")
+    if "render_cli" in phases and "cli" not in phases:
+        phases.append("cli")  # the render command lines read phase 13's scene and checkpoint
 
     import torch
 
@@ -1957,9 +2157,17 @@ def main(argv=None):
         "tape": lambda: phase_tape(model, spec, device, args.seed),
         "signed": lambda: phase_signed(body.v_template, topo, args.seed),
         "renders": lambda: phase_renders(model, spec, body, device, args.seed),
-        "cli": lambda: phase_cli(device, args.seed),
+        "cli": lambda: phase_cli(device, args.seed, cli_root),
+        "render_cli": lambda: phase_render_cli(device, args.seed, cli_root, out["cli"][2]),
     }
-    out = {name: run[name]() for name in PHASES if name in phases}
+    cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {}
+    try:
+        for name in PHASES:
+            if name in phases:
+                out[name] = run[name]()
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
     device_line = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}
     if set(phases) != set(PHASES):
@@ -1968,7 +2176,7 @@ def main(argv=None):
     mlp, mesh, launches, bwd, train = (out[k] for k in ("mlp", "mesh", "slice", "bwd", "train"))
     offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
                                                             "renders"))
-    cli = out["cli"][0]
+    cli, render_cli = out["cli"][0], out["render_cli"]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -1982,7 +2190,8 @@ def main(argv=None):
     # steps, 2 validations) and the 20 timed steps, in both tape
     # configurations, the f32 human train path (phase 9) split likewise, its
     # 2 steps with the fused signed distance, the three frames of phase
-    # 12, and the command line's two stages (phase 13, train.main each).
+    # 12, the command line's two stages (phase 13, train.main each) and the
+    # five render command lines (phase 14, main() each).
     # No single PyTorch call computes any of the seven functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by, *dev = timing
@@ -2000,6 +2209,7 @@ def main(argv=None):
         paths.update(human["fused_launches"].get(name, {}))
         paths.update({f"render_{frame}": counts.get(name, 0) for frame, counts in renders.items()})
         paths.update({f"cli_{stage}": run[1].get(name, 0) for stage, run in cli.items()})
+        paths.update({f"render_cli_{cmd}": run[0].get(name, 0) for cmd, run in render_cli.items()})
         return {k: v for k, v in paths.items() if v}
 
     kernels = [

@@ -9,6 +9,12 @@ it needs of neuman_tpu's numpy-only modules it keeps as its own copies
 Layer map, entry points first:
     train.py             the command line (`python -m neuman_tpu_torch.train`,
                          main), train_background (stage 1), train_human (stage 2)
+    render_test_views.py, render_360.py, render_reposing.py, render_gathering.py
+                         the render command lines (`python -m
+                         neuman_tpu_torch.render_*`, main): test views scored
+                         by utils/metrics.py, 360 orbits (render/paths.py),
+                         mocap reposing, several actors; render/cli.py holds
+                         what they share
     options/config.py    every field and flag of the JAX config, params.json
     data_io/             the NeuMan scene reader (COLMAP text, the joblib-written
                          SMPL fits, near/far, normalisation, SMPL skinning),
@@ -35,10 +41,12 @@ Layer map, entry points first:
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict
-    utils/               PNG codec, PIL-exact resize, border masks and fused depth
+    utils/               PNG codec, PIL-exact resize, border masks and fused depth,
+                         PSNR / SSIM / LPIPS
     tools/               per-kernel device-time profiles of a step or a frame,
                          timings over tape chunks and of the mesh kernels, a
-                         synthetic scene directory writer
+                         synthetic scene directory writer (a rigged body
+                         proxy, AMASS-layout motions)
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Captures: a pinhole camera, its pose and what was captured (the port's
 copy of neuman_tpu/cameras/capture.py).
 
-`Capture` is one NeuMan frame: RGB image, MVS depth, human mask, and
+`ResizedPinholeCapture` is a camera alone at a target size (the render
+command lines' synthetic views). `Capture` is one NeuMan frame: RGB image, MVS depth, human mask, and
 optionally mono depth, keypoints and DensePose, each read when first asked
 for; its rig ids, per-source near/far planes and frame id. `tgt_size`
 (H, W) resizes the camera and every image and depth map.
@@ -37,6 +38,13 @@ class BasePinholeCapture:
     @property
     def size(self):
         return self.shape
+
+
+class ResizedPinholeCapture(BasePinholeCapture):
+    """A camera-only capture at a target size (H, W)."""
+
+    def __init__(self, pinhole_cam, cam_pose, tgt_size):
+        super().__init__(resize_pinhole_camera(pinhole_cam, tgt_size), cam_pose)
 
 
 class RGBPinholeCapture(BasePinholeCapture):

@@ -59,3 +59,15 @@ class CameraPose:
         c2w = self.camera_to_world
         c2w[:3, 3] = value
         self.t = CameraPose.from_camera_to_world(c2w, unstable=True).t
+
+    @property
+    def forward(self):
+        return self.camera_to_world[:3, 2]
+
+    @property
+    def up(self):
+        return -self.camera_to_world[:3, 1]
+
+    @property
+    def right(self):
+        return self.camera_to_world[:3, 0]

@@ -12,6 +12,8 @@ import re
 import numpy as np
 import torch
 
+from neuman_tpu_torch.trainers.checkpoint import safe_merge_params
+
 _HEADS = ("feature_linear", "alpha_linear", "rgb_linear", "output_linear")
 
 
@@ -85,3 +87,13 @@ def to_jax_params(state_dict):
             slot = slot[int(index)]
         slot["w" if kind == "weight" else "b"] = leaf
     return params
+
+
+def load_hybrid(model, tree):
+    """The leaves of a checkpoint's "hybrid_model" tree (of either package)
+    into the HumanNeRF `model`, where path and shape match: the merge of
+    `trainers.checkpoint.safe_merge_params`. Returns the paths that kept
+    the model's own values."""
+    merged, missing = safe_merge_params(to_jax_params(model.state_dict()), tree)
+    model.load_state_dict(from_jax_params(merged))
+    return missing

@@ -52,6 +52,15 @@ def lpips_params_from_jax(params_np, device=None):
             "lins": [as_t(l) for l in params_np["lins"]]}
 
 
+def lpips_params_to_jax(params):
+    """The inverse of `lpips_params_from_jax`: the JAX package's LPIPS param
+    tree with numpy f32 leaves (what `trainers.checkpoint.save_checkpoint`
+    writes as an LPIPS weights file)."""
+    as_np = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    return {"convs": [{"w": as_np(c["w"]), "b": as_np(c["b"])} for c in params["convs"]],
+            "lins": [as_np(l) for l in params["lins"]]}
+
+
 def _features(params, x):
     feats = []
     for i, (_, _, _, stride, pad) in enumerate(_ALEX_CONVS):

@@ -144,7 +144,7 @@ def lbs_joints(betas, pose, model: SMPLModel):
     package's lbs(return_T=True, concat_joints=True) and smpl_forward."""
     batch = max(betas.shape[0], pose.shape[0])
     v_shaped = model.v_template[None] + torch.einsum("bl,mkl->bmk", betas, model.shapedirs)
-    joints = torch.einsum("bik,ji->bjk", v_shaped, model.J_regressor)
+    joints = vertices2joints(model.J_regressor, v_shaped)
     rot_mats = batch_rodrigues(pose.reshape(-1, 3)).reshape(batch, -1, 3, 3)
     posed_joints, rel = batch_rigid_transform(rot_mats, joints, model.parents)
     t_per_vert = torch.matmul(
@@ -160,15 +160,31 @@ def lbs(betas, pose, model: SMPLModel):
     return lbs_joints(betas, pose, model)[:3]
 
 
-def verts_transformations(model, poses, betas):
-    """(rest vertices [1, V, 3], per-vertex LBS transforms [1, V, 4, 4])."""
+def vertices2joints(J_regressor, vertices):
+    """J_regressor [J, V] x vertices [B, V, 3] -> joints [B, J, 3]."""
+    return torch.einsum("bik,ji->bjk", vertices, J_regressor)
+
+
+def verts_transformations(model, poses, betas, transl=None):
+    """(rest vertices [1, V, 3], per-vertex LBS transforms [1, V, 4, 4]);
+    `transl` [1, 3] pre-multiplies the transforms by its translation."""
     t_per_vert, v_shaped, _ = lbs(betas, poses, model)
+    if transl is not None:
+        transl_mat = torch.eye(4, dtype=t_per_vert.dtype, device=t_per_vert.device)[None].repeat(
+            transl.shape[0], 1, 1)
+        transl_mat[:, :3, 3] = transl
+        t_per_vert = torch.matmul(transl_mat[:, None], t_per_vert)
     return v_shaped, t_per_vert
 
 
-def smpl_forward(model, poses, betas):
-    """Posed vertices [B, V, 3] of poses [B, J*3] and betas [B, nb]."""
-    return lbs(betas, poses, model)[2]
+def smpl_forward(model, poses, betas, transl=None):
+    """(posed vertices [B, V, 3], posed joints [B, J, 3]) of poses [B, J*3]
+    and betas [B, nb], both moved by `transl` [B, 3] when given."""
+    _, _, verts, _, _, joints = lbs_joints(betas, poses, model)
+    if transl is not None:
+        verts = verts + transl[:, None]
+        joints = joints + transl[:, None]
+    return verts, joints
 
 
 def da_pose_to_scene(model, pose, betas, scale=1.0, alignment=None):

@@ -17,7 +17,12 @@ photometric_human=True, with no imageio, PIL or joblib):
     <root>/scene/smpl_output_{optimized,romp}.pkl   per-frame pose and betas
                                             (a plain pickle)
     <root>/scene/alignments.npy             identity alignments
-    <root>/data/smplx/smpl/SMPL_NEUTRAL.pkl the body model
+    <root>/data/smplx/smpl/SMPL_NEUTRAL.pkl the body model: by default the
+                                            body proxy with its spine rigged
+                                            (`rig_body_proxy`)
+
+`write_mocap_npz` writes a motion in the AMASS layout the reposing and
+gathering command lines read.
 
 Readers find the body model through NEUMAN_DATA_ROOT=<root>/data (or
 `smpl_model_path`). The masks are drawn with render/rasterize.py on the
@@ -29,10 +34,12 @@ training batch hit the body.
 """
 
 import argparse
+import dataclasses
 import os
 import pickle
 
 import numpy as np
+import torch
 
 from neuman_tpu_torch.cameras.contents import write_colmap_depth_bin
 from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
@@ -40,6 +47,11 @@ from neuman_tpu_torch.render.rasterize import rasterize_mesh
 from neuman_tpu_torch.utils import png
 
 NUM_BETAS = 10
+# the spine joints (pelvis, spine1, spine2, spine3) of SMPL's J_regressor,
+# and its hip bone (pelvis -> spine1, ~0.1 m) as a share of its ~1.7 m height
+SPINE_JOINTS = (0, 3, 6, 9)
+HIP_BONE_SHARE = 0.06
+SPINE_BAND = 0.03
 Z_PLANE = 1.0  # the backdrop plane, behind the point cloud's z range [0, 1]
 CAMERA_Z = -2.5
 
@@ -50,6 +62,41 @@ def mono_depth_png(h, w):
     line fit of the fused depth is well posed."""
     ripple = 0.1 * np.sin(np.linspace(0.0, 2.0 * np.pi, w))
     return np.tile(((Z_PLANE - CAMERA_Z + ripple) * 10000).astype(np.uint16), (h, 1))
+
+
+def rig_body_proxy(body):
+    """The SMPL-like `body` with its spine joints placed as SMPL's are: the
+    J_regressor rows of joints 0, 3, 6 and 9 become uniform weights over the
+    vertices within +-SPINE_BAND of the body's height of the levels c,
+    c + s, c + 2s, c + 3s (c the centroid's height, s = HIP_BONE_SHARE of
+    the height). So those joints lie on the body's vertical axis (within
+    0.2% of the height at subdivision 3 and above), the hip bone that sets
+    the automatic geo_threshold is ~6% of the height, and the spine gives
+    the 360 orbits their up direction. The other rows stay as they are."""
+    v = body.v_template.detach().cpu().numpy().astype(np.float64)
+    y = v[:, 1]
+    height = y.max() - y.min()
+    j_reg = body.J_regressor.detach().cpu().numpy().copy()
+    for k, j in enumerate(SPINE_JOINTS):
+        band = np.abs(y - (y.mean() + k * HIP_BONE_SHARE * height)) <= SPINE_BAND * height
+        j_reg[j] = band / band.sum()
+    return dataclasses.replace(body, J_regressor=torch.tensor(
+        j_reg, dtype=torch.float32, device=body.J_regressor.device))
+
+
+def rigged_body_proxy(subdivisions=3):
+    """`models.smpl.body_proxy_smpl_model(subdivisions)`, rigged."""
+    return rig_body_proxy(body_proxy_smpl_model(subdivisions=subdivisions))
+
+
+def write_mocap_npz(path, frames, seed=0):
+    """A motion in the AMASS layout: poses [frames, 156] (axis-angle of 52
+    joints, N(0, 0.1)) and trans [frames, 3] (N(0, 0.1)), float64."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, poses=rng.normal(size=(frames, 156)) * 0.1,
+             trans=rng.normal(size=(frames, 3)) * 0.1)
+    return path
 
 
 def write_smpl_pickle(path, body):
@@ -109,8 +156,8 @@ def _write_sparse(sparse_dir, fnames, h, w, f, rng):
 
 def build_synthetic_scene(root, num_frames=10, h=48, w=64, seed=3, body=None):
     """Write the scene under `root` (see the module docstring) with
-    `num_frames` frames of h x w, the SMPL-like `body` (default: the body
-    proxy at subdivision 3) and its fits drawn from `seed`; returns the
+    `num_frames` frames of h x w, the SMPL-like `body` (default: the rigged
+    body proxy at subdivision 3) and its fits drawn from `seed`; returns the
     scene directory. The focal length is 35 / 64 of the width (the test
     fixture's 35 at 64 pixels)."""
     from neuman_tpu_torch.data_io.neuman import NeuManReader
@@ -118,7 +165,7 @@ def build_synthetic_scene(root, num_frames=10, h=48, w=64, seed=3, body=None):
     root = str(root)
     scene_dir = os.path.join(root, "scene")
     smpl_path = os.path.join(root, "data", "smplx", "smpl", "SMPL_NEUTRAL.pkl")
-    body = body if body is not None else body_proxy_smpl_model(subdivisions=3)
+    body = body if body is not None else rigged_body_proxy()
     write_smpl_pickle(smpl_path, body)
     for sub in ("images", "sparse", "depth_maps", "mono_depth", "segmentations"):
         os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
@@ -177,7 +224,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=3)
     args = parser.parse_args(argv)
     scene_dir = build_synthetic_scene(args.root, args.frames, args.height, args.width,
-                                      args.seed, body_proxy_smpl_model(args.subdivisions))
+                                      args.seed, rigged_body_proxy(args.subdivisions))
     print(scene_dir)
 
 

@@ -225,6 +225,13 @@ def run_human(opt, device="cuda"):
                        device=device, draw_lpips=False)
 
 
+def require_device(device, what):
+    """Raise when `device` is CUDA and there is no CUDA device: the command
+    lines never carry on on the CPU unless asked to."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device: pass device='cpu' to {what} on the CPU")
+
+
 def main(argv=None, device="cuda"):
     """The command line: parse `argv`, write params.json, train the stage
     `--train_mode` names on `device`. Returns the trainer."""
@@ -233,8 +240,7 @@ def main(argv=None, device="cuda"):
         raise ValueError("--scene_dir is required")
     if opt.normalize is not True:
         raise ValueError("the trainers need a normalised scene (--normalize true)")
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    require_device(device, "train")
     config_module.print_opt(opt)
     opt.save()
     if opt.train_mode == "bkg":

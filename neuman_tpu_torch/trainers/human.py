@@ -539,8 +539,7 @@ class HumanNeRFTrainer:
         self.train_ids = ids(train_views)
         self.val_ids = ids(val_views) if len(val_views) else self.train_ids
         hw = scene.captures[0].shape
-        can_k, can_c2w = canonical_cameras(
-            np.asarray(scene.static_vert[0]), body_model.J_regressor.cpu().numpy(), hw)
+        can_k, can_c2w = canonical_cameras(np.asarray(scene.static_vert[0]), body_model, hw)
         self.can_cap = canonical_capture(can_k[0], can_c2w[0], hw)
         as_t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt,
                                                            device=self.device)
@@ -671,10 +670,7 @@ class HumanNeRFTrainer:
         })
 
     def _load_params(self, data):
-        merged, missing = ckpt.safe_merge_params(
-            convert.to_jax_params(self.model.state_dict()), data["hybrid_model"])
-        self.model.load_state_dict(convert.from_jax_params(merged))
-        return missing
+        return convert.load_hybrid(self.model, data["hybrid_model"])
 
     def resume(self):
         data = ckpt.load_checkpoint(os.path.join(self.out, "checkpoint.npz"))

@@ -2,7 +2,10 @@
 neuman_tpu/utils/misc.py and neuman_tpu/native_bridge.py)."""
 
 import numpy as np
+import torch
 from scipy import ndimage
+
+from neuman_tpu_torch.models import smpl as smpl_module
 
 
 def print_notification(content_list, notification_type="NOTIFICATION"):
@@ -37,3 +40,26 @@ def fused_depth(mvs, mono, mask):
     out = mvs.copy()
     out[~valid] = mono[~valid] * slope + intercept
     return out
+
+
+def smpl_verts_to_center_and_up(verts, body_model=None):
+    """Centre and up direction of a body with vertices `verts` [V, 3]: the
+    line fitted by SVD through its spine joints (0, 3, 6, 9 of the body
+    model's J_regressor, f32), pointing from the pelvis to the chest. The
+    body model is the scene reader's when none is given."""
+    if body_model is None:
+        from neuman_tpu_torch.data_io.neuman import NeuManReader
+
+        body_model = NeuManReader._body_model()
+    v = torch.as_tensor(np.asarray(verts, np.float32), device=body_model.J_regressor.device)
+    joints = smpl_module.vertices2joints(body_model.J_regressor, v[None])[0].cpu().numpy()
+    spine = joints[[0, 3, 6, 9]]
+    center = spine.mean(axis=0)
+    _, _, vv = np.linalg.svd(spine - center)
+    linepts = vv[0] * np.mgrid[-7:7:2j][:, np.newaxis]
+    linepts += center
+    up = linepts[1] - linepts[0]
+    if np.dot(spine[3] - spine[0], up) < 0:
+        up = linepts[0] - linepts[1]
+    up /= np.linalg.norm(up)
+    return center, up

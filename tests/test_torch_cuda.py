@@ -693,3 +693,63 @@ def test_cli_trains_both_stages_through_the_kernels(cuda, tmp_path, monkeypatch)
         assert all(counters[k].launches > 0 for k in kernels), {
             k: c.launches for k, c in counters.items()}
         assert os.path.isfile(os.path.join(trainer.opt.out, "checkpoint.npz"))
+
+
+def test_render_command_lines_launch_the_kernels(cuda, tmp_path, monkeypatch):
+    """The four render command lines on a 48x64 scene directory written by
+    tools/synthetic_scene.py (its rigged proxy), from a checkpoint of a
+    random 6 x 64 HumanNeRF, run from a temporary working directory: each
+    writes its PNGs, `nerf_mlp` launches in all of them and
+    `ericson_select` in those that warp."""
+    from neuman_tpu_torch import convert, render_360, render_gathering, render_reposing
+    from neuman_tpu_torch import render_test_views
+    from neuman_tpu_torch.models import human_nerf as hn
+    from neuman_tpu_torch.options.config import NeuManConfig
+    from neuman_tpu_torch.tools import synthetic_scene
+    from neuman_tpu_torch.trainers import checkpoint as ckpt
+    from neuman_tpu_torch.utils import png
+
+    scene_dir = synthetic_scene.build_synthetic_scene(tmp_path / "data_root")
+    monkeypatch.setenv("NEUMAN_DATA_ROOT", str(tmp_path / "data_root" / "data"))
+    monkeypatch.chdir(tmp_path)
+    net = dict(nerf_depth=6, nerf_width=64)
+    model = hn.HumanNeRF(hn.build_human_nerf_spec(NeuManConfig(**net)),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.coarse_human_net.nerf.alpha_linear.bias.fill_(2.0)
+    weights = str(tmp_path / "human" / "checkpoint.npz")
+    ckpt.save_checkpoint(weights, {"hybrid_model": convert.to_jax_params(model.state_dict())})
+    for actor in ("seattle", "citron"):
+        os.makedirs(tmp_path / "out" / f"{actor}_human")
+        ckpt.save_checkpoint(str(tmp_path / "out" / f"{actor}_human" / "checkpoint.npz"),
+                             {"hybrid_model": convert.to_jax_params(model.state_dict())})
+        os.makedirs(tmp_path / "data_root" / actor)
+        synthetic = os.path.join(scene_dir, "smpl_output_optimized.pkl")
+        with open(synthetic, "rb") as src, open(tmp_path / "data_root" / actor /
+                                                "smpl_output_optimized.pkl", "wb") as dst:
+            dst.write(src.read())
+    synthetic_scene.write_mocap_npz("data/SFU/0018/0018_XinJiang002_poses.npz", 8)
+    mocap = synthetic_scene.write_mocap_npz(str(tmp_path / "motion.npz"), 2)
+    common = ["--scene_dir", scene_dir, "--weights_path", weights, "--nerf_depth", "6",
+              "--nerf_width", "64", "--samples_per_ray", "16", "--importance_samples_per_ray",
+              "16", "--rays_per_batch", "1024"]
+    warp = ("nerf_mlp", "ericson_select")
+    runs = ((render_test_views.main, [], warp, "test_views/scene", 1),
+            (render_360.main, ["--mode", "canonical_360", "--trajectory_resolution", "2"],
+             ("nerf_mlp",), "canonical_360/scene", 2),
+            (render_360.main, ["--mode", "posed_360", "--trajectory_resolution", "2"], warp,
+             "posed_360/scene", 2),
+            (render_reposing.main, ["--mocap_path", mocap], warp, "reposing/scene", 2),
+            (render_gathering.main, ["--actors", "seattle", "citron"], warp,
+             "gathering/dance_together", 2))
+    counters = {"nerf_mlp": kmlp.nerf_mlp, "ericson_select": kmq.ericson_select}
+    for main, argv, kernels, what, frames in runs:
+        for c in counters.values():
+            c.launches = 0
+        main(argv + common)
+        assert all(counters[k].launches > 0 for k in kernels), (what, {
+            k: c.launches for k, c in counters.items()})
+        names = sorted(os.listdir(tmp_path / "demo" / what))
+        assert len(names) == frames and all(n.startswith("out_") for n in names)
+        assert all(png.read_png(str(tmp_path / "demo" / what / n)).shape == (48, 64, 3)
+                   for n in names)

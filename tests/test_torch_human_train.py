@@ -512,16 +512,19 @@ def test_canonical_cameras_match_jax():
     from neuman_tpu.render import paths
     from neuman_tpu.utils.misc import smpl_verts_to_center_and_up
 
+    from neuman_tpu_torch.render import paths as tpaths
+    from neuman_tpu_torch.utils.misc import smpl_verts_to_center_and_up as t_center_and_up
+
     jbody, tbody = _scene()[:2]
     verts = np.asarray(jbody.v_template) * 1.5 + 0.1
-    center, up = canonical_cameras.smpl_verts_to_center_and_up(verts, tbody.J_regressor.numpy())
+    center, up = t_center_and_up(verts, tbody)
     jc, ju = smpl_verts_to_center_and_up(verts, jbody)
     np.testing.assert_allclose(center, jc, atol=1e-6)
     np.testing.assert_allclose(up, ju, atol=1e-6)
     want = np.stack([p.camera_to_world for p in paths.default_360_path(jc, ju, 3.0, 8)])
-    got = np.stack(canonical_cameras.default_360_path(center, up, 3.0, 8))
+    got = np.stack([p.camera_to_world for p in tpaths.default_360_path(center, up, 3.0, 8)])
     np.testing.assert_allclose(got, want, atol=1e-6)
-    k, c2w = canonical_cameras.canonical_cameras(verts, tbody.J_regressor.numpy(), (H, W), res=8)
+    k, c2w = canonical_cameras.canonical_cameras(verts, tbody, (H, W), res=8)
     assert k.shape == (8, 3, 3) and c2w.shape == (8, 4, 4)
     np.testing.assert_allclose(k[0], [[W * 1000 / 1280, 0, W / 2], [0, W * 1000 / 1280, H / 2],
                                       [0, 0, 1]], rtol=1e-6)

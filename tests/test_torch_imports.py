@@ -1,8 +1,8 @@
 """neuman_tpu_torch and chip_smoke.py import nothing of the JAX package.
 
 Neither `neuman_tpu` (not even its numpy-only modules: the port keeps its
-own copies) nor jax, flax, imageio, PIL or joblib, which the machine with
-the GPU does not have. `m.split('.')[0]` keeps `neuman_tpu_torch` apart
+own copies) nor jax, flax, imageio, PIL, joblib, skimage, matplotlib or
+open3d, which the machine with the GPU does not have. `m.split('.')[0]` keeps `neuman_tpu_torch` apart
 from `neuman_tpu`. One interpreter imports every module in turn (a
 subprocess a module took ~5 s each, most of it importing torch).
 """
@@ -18,7 +18,8 @@ import torch
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("neuman_tpu", "jax", "jaxlib", "flax", "imageio", "PIL", "joblib")
+BLOCKED = ("neuman_tpu", "jax", "jaxlib", "flax", "imageio", "PIL", "joblib", "skimage",
+           "matplotlib", "open3d")
 MODULES = (
     "neuman_tpu_torch.render.renderer",
     "neuman_tpu_torch.ops.kernels._build",
@@ -65,6 +66,13 @@ MODULES = (
     "neuman_tpu_torch.data_io.smpl_pickle",
     "neuman_tpu_torch.data_io.neuman",
     "neuman_tpu_torch.tools.synthetic_scene",
+    "neuman_tpu_torch.render.paths",
+    "neuman_tpu_torch.render.cli",
+    "neuman_tpu_torch.utils.metrics",
+    "neuman_tpu_torch.render_test_views",
+    "neuman_tpu_torch.render_360",
+    "neuman_tpu_torch.render_reposing",
+    "neuman_tpu_torch.render_gathering",
     "chip_smoke",
 )
 
