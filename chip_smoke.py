@@ -95,7 +95,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      (nerf_mlp in all five, ericson_select in the four that warp), every
      PNG read back at 270x480; the test view also through the plain
      versions (--use_pallas false), >= 40 dB against the kernels' PNG.
-     --phases render_cli runs phase 13 first.
+     --phases render_cli runs phase 13 first;
+ 15. preprocess: stages 9 and 10 on a synthetic video's outputs
+     (tools/synthetic_scene.write_preprocess_inputs: COLMAP text with a
+     ground plane, ROMP npz files, keypoints, DensePose labels and masks of
+     4 frames at 270x480, the rigged proxy at subdivision 5): run_alignment
+     (its alignments against the scene's truth) and run_optimize_smpl with
+     20 steps a frame (the mapped joints' keypoint error lowered), both
+     outputs read back, each stage's seconds; one frame's refinement at
+     1280x720 (stride 4, F=20,480): ms per step by CUDA events over 5
+     steps after 2, peak GiB, ms per frame at 100 steps; one step's loss
+     and gated pose gradient on the card against the CPU (270x480, the
+     subdivision-3 proxy). No kernel of the port runs here: the
+     rasteriser is plain PyTorch. Every line carries the card's name and
+     power limit.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null), and last the device line.
@@ -118,6 +131,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -221,6 +235,25 @@ RENDER_CLI_ACTORS = ("seattle", "citron")
 RENDER_CLI_FLAGS = ()
 # the renderers the command lines call, each frame timed by wrapping them
 RENDERERS = ("render_hybrid_nerf", "render_smpl_nerf", "render_hybrid_nerf_multi_persons")
+
+# phase 15: preprocessing stages 9 and 10 on a synthetic video's outputs:
+# (a) the whole pipeline, stage 10 at PRE_ITERS steps a frame; (b) one
+# frame's refinement at the full 1280x720 (stride 4: 180x320 pixels) with
+# the body proxy's F=20,480 faces, PRE_FULL_WARMUP + PRE_FULL_TIMED steps;
+# (c) one step's loss and gated pose gradient on the card against the CPU
+# at 270x480 with the subdivision-3 proxy (F=1,280)
+PRE_FRAMES, PRE_HW, PRE_ITERS = 4, (270, 480), 20
+PRE_FULL_HW, PRE_FULL_WARMUP, PRE_FULL_TIMED = (720, 1280), 2, 5
+PRE_REFERENCE_ITERS = 100  # stage 10's steps a frame (run_optimize_smpl's default)
+PRE_CPU_SUBDIVISIONS = 3
+# stage 9's alignments against the scene's truth, each over its largest
+# entry: EPnP is exact on the scene's clean projections, and the translation
+# refinement's 1000 f32 Adam steps at lr 1e-3 end in a wobble of ~1e-3
+PRE_ALIGN_REL = 1e-2
+# card vs CPU, both f32 with TF32 off: the loss (relative) and the gated
+# gradient's L2 error over its L2 norm, the port-vs-JAX bars of
+# tests/test_torch_preprocess.py (sums of the same terms in other orders)
+PRE_LOSS_REL, PRE_GRAD_REL = 1e-5, 1e-4
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -350,9 +383,11 @@ def phase_card():
     )
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
     log("card", name=torch.cuda.get_device_name(0), torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count())
+    return line
 
 
 def phase_build():
@@ -2089,6 +2124,151 @@ def phase_render_cli(device, seed, root, scene_dir):
     return results
 
 
+def _upscaled_capture(cap, hw):
+    """`cap` (a stage-10 capture) at the size hw: intrinsics and keypoints
+    scaled, mask and DensePose labels by nearest pixel."""
+    import numpy as np
+
+    sy, sx = hw[0] / cap.shape[0], hw[1] / cap.shape[1]
+    rows = (np.arange(hw[0]) / sy).astype(np.int64)
+    cols = (np.arange(hw[1]) / sx).astype(np.int64)
+    keypoints = np.asarray(cap.keypoints, np.float64) * [sx, sy, 1.0]
+    return types.SimpleNamespace(
+        shape=tuple(hw), intrinsic_matrix=np.diag([sx, sy, 1.0]) @ cap.intrinsic_matrix,
+        cam_pose=cap.cam_pose, binary_mask=cap.binary_mask[rows][:, cols], keypoints=keypoints,
+        densepose=cap.densepose[rows][:, cols])
+
+
+def _keypoint_px(refiner, pose):
+    """Mean pixel distance of the mapped SMPL joints of `pose` to the
+    refiner's keypoint targets."""
+    import torch
+    from neuman_tpu_torch.preprocess import optimize_smpl as osm
+
+    with torch.no_grad():
+        _, joints = osm.vertex_forward(pose, refiner.betas, refiner.align, refiner.body_model,
+                                       refiner.scale)
+        pj, _ = refiner.project(joints)
+        err = torch.linalg.norm(pj - refiner.joints_target, dim=1)
+    return float((err * refiner.joints_mask).sum() / refiner.joints_mask.sum())
+
+
+def phase_preprocess(device, seed, root, card):
+    """Preprocessing stages 9 and 10 (phase 15 of the module docstring),
+    under `root`. Every line carries the card's name and power limit.
+    Returns the numbers PERF.md reads."""
+    import numpy as np
+    import torch
+    from neuman_tpu_torch.data_io import smpl_pickle
+    from neuman_tpu_torch.data_io.neuman import NeuManReader
+    from neuman_tpu_torch.preprocess import cli as pcli
+    from neuman_tpu_torch.preprocess import optimize_smpl as osm
+    from neuman_tpu_torch.tools import synthetic_scene
+
+    out = {}
+    with _data_root(root):
+        # (a) the whole pipeline, 4 frames at 270x480
+        body = synthetic_scene.rigged_body_proxy(BODY_SUBDIVISIONS)
+        t0 = time.perf_counter()
+        scene_dir, truth = synthetic_scene.write_preprocess_inputs(root, PRE_FRAMES, *PRE_HW,
+                                                                   seed=seed, body=body)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alignments = pcli.run_alignment(os.path.join(scene_dir, "sparse"),
+                                        os.path.join(scene_dir, "images"),
+                                        os.path.join(scene_dir, "romp"), device=device)
+        torch.cuda.synchronize()
+        align_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fits = pcli.run_optimize_smpl(scene_dir, num_iters=PRE_ITERS, device=device)
+        torch.cuda.synchronize()
+        optimize_s = time.perf_counter() - t0
+
+        align_err = max(np.abs(a - truth["alignments"][k]).max()
+                        / np.abs(truth["alignments"][k]).max() for k, a in alignments.items())
+        on_disk = np.load(os.path.join(scene_dir, "alignments.npy"), allow_pickle=True).item()
+        romp = smpl_pickle.load(pcli.romp_pickle_path(os.path.join(scene_dir, "romp")))[1]
+        optimized = smpl_pickle.load(os.path.join(scene_dir, "smpl_output_optimized.pkl"))[1]
+        read_back = (sorted(on_disk) == sorted(alignments)
+                     and all(np.array_equal(on_disk[k], a) for k, a in alignments.items())
+                     and np.array_equal(romp["pose"], truth["romp_pose"])
+                     and all(np.array_equal(optimized[k], v) for k, v in fits.items()))
+        scene = NeuManReader.read_scene(scene_dir, smpl_type="romp", normalize=False)
+        kp_before, kp_after, frames = [], [], []
+        for i, cap in enumerate(scene.captures):
+            align = np.eye(4)
+            align[:, :3] = on_disk[os.path.basename(cap.image_path)]
+            refiner = osm.FrameRefiner(cap, {"pose": romp["pose"][i], "betas": romp["betas"][i]},
+                                       body, align, 1.0, device=device)
+            kp_before.append(_keypoint_px(refiner, refiner.pose0))
+            kp_after.append(_keypoint_px(refiner, torch.as_tensor(optimized["pose"][i],
+                                                                  device=device)))
+            frames.append((cap, align))
+        ok = (align_err <= PRE_ALIGN_REL and read_back and np.all(np.isfinite(optimized["pose"]))
+              and np.mean(kp_after) < np.mean(kp_before))
+        log("preprocess_pipeline", card=json.dumps(card), frames=PRE_FRAMES,
+            hw=json.dumps(list(PRE_HW)), V=body.num_verts, F=len(body.faces),
+            setup_write_s=f"{write_s:.3f}", stage9_align_s=f"{align_s:.3f}",
+            stage9_s_per_frame=f"{align_s / PRE_FRAMES:.3f}",
+            stage10_optimize_s=f"{optimize_s:.3f}", stage10_iters=PRE_ITERS,
+            stage10_s_per_frame=f"{optimize_s / PRE_FRAMES:.3f}",
+            align_rel_err=f"{align_err:.3e}", align_tol=PRE_ALIGN_REL,
+            keypoint_px_before=f"{np.mean(kp_before):.4f}",
+            keypoint_px_after=f"{np.mean(kp_after):.4f}", read_back=read_back, ok=ok)
+        if not ok:
+            raise RuntimeError("preprocess: the alignments missed the truth, an output did not "
+                               "read back, or the refinement did not lower the keypoint error")
+        out["pipeline"] = dict(write_s=write_s, align_s=align_s, optimize_s=optimize_s,
+                               align_rel_err=align_err, kp=(np.mean(kp_before), np.mean(kp_after)))
+
+        # (b) one frame's refinement at 1280x720, F=20,480
+        cap0, align0 = frames[0]
+        fit0 = {"pose": romp["pose"][0], "betas": romp["betas"][0]}
+        full = osm.FrameRefiner(_upscaled_capture(cap0, PRE_FULL_HW), fit0, body, align0, 1.0,
+                                device=device)
+        full.run(PRE_FULL_WARMUP)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pose = full.run(PRE_FULL_TIMED)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / PRE_FULL_TIMED
+        gib = torch.cuda.max_memory_allocated() / 2**30
+        pixels = len(range(0, PRE_FULL_HW[0], 4)) * len(range(0, PRE_FULL_HW[1], 4))
+        ok = bool(torch.isfinite(pose).all())
+        log("preprocess_full", card=json.dumps(card), hw=json.dumps(list(PRE_FULL_HW)),
+            stride=4, pixels=pixels, F=len(body.faces), pairs=pixels * len(body.faces),
+            warmup=PRE_FULL_WARMUP, timed=PRE_FULL_TIMED, ms_per_iter=f"{ms:.3f}",
+            peak_gib=f"{gib:.3f}",
+            ms_per_frame_at_100=f"{ms * PRE_REFERENCE_ITERS:.1f}", ok=ok)
+        if not ok:
+            raise RuntimeError("preprocess: the full-size refinement gave a non-finite pose")
+        out["full"] = dict(ms_per_iter=ms, peak_gib=gib)
+
+        # (c) one step on the card against the CPU, 270x480, F=1,280
+        small = synthetic_scene.rigged_body_proxy(PRE_CPU_SUBDIVISIONS)
+        steps = {}
+        for dev in (device, "cpu"):
+            refiner = osm.FrameRefiner(cap0, fit0, small, align0, 1.0, device=dev)
+            loss, grad = refiner.gated_grad(refiner.pose0)
+            steps[str(dev)] = (float(loss), grad.cpu().numpy().astype(np.float64))
+        (lc, gc), (lh, gh) = steps[str(device)], steps["cpu"]
+        loss_rel = abs(lc - lh) / abs(lh)
+        grad_rel = float(np.linalg.norm(gc - gh) / np.linalg.norm(gh))
+        ok = loss_rel <= PRE_LOSS_REL and grad_rel <= PRE_GRAD_REL and np.linalg.norm(gh) > 0
+        log("preprocess_card_vs_cpu", card=json.dumps(card), hw=json.dumps(list(PRE_HW)),
+            F=len(small.faces), loss_card=f"{lc:.8f}", loss_cpu=f"{lh:.8f}",
+            loss_rel=f"{loss_rel:.3e}", loss_tol=PRE_LOSS_REL, grad_rel_l2=f"{grad_rel:.3e}",
+            grad_tol=PRE_GRAD_REL, ok=ok)
+        if not ok:
+            raise RuntimeError("preprocess: the card's step differs from the CPU's")
+        out["card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel=grad_rel)
+    return out
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -2113,7 +2293,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli", "render_cli")
+          "renders", "cli", "render_cli", "preprocess")
 
 
 def main(argv=None):
@@ -2138,7 +2318,7 @@ def main(argv=None):
     from neuman_tpu_torch.ops import mesh as mesh_ops
 
     device = torch.device("cuda", 0)
-    phase_card()
+    card = phase_card()
     phase_build()
 
     spec, model = build_model(device, args.seed)
@@ -2159,6 +2339,8 @@ def main(argv=None):
         "renders": lambda: phase_renders(model, spec, body, device, args.seed),
         "cli": lambda: phase_cli(device, args.seed, cli_root),
         "render_cli": lambda: phase_render_cli(device, args.seed, cli_root, out["cli"][2]),
+        "preprocess": lambda: phase_preprocess(device, args.seed,
+                                               os.path.join(cli_root, "preprocess"), card),
     }
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = {}

@@ -2,9 +2,10 @@
 
 The JAX package `neuman_tpu` stays the reference; every module here has a
 counterpart at the same relative path there and is tested against it.
-This package imports torch and nothing of `neuman_tpu`, jax or flax: what
-it needs of neuman_tpu's numpy-only modules it keeps as its own copies
-(`utils/`, `geometry/`, `cameras/`, `scenes/`).
+This package imports torch and nothing of `neuman_tpu`, jax, flax, optax
+or cv2: what it needs of neuman_tpu's numpy-only modules it keeps as its
+own copies (`utils/`, `geometry/`, `cameras/`, `scenes/`). `preprocess/pnp.py`
+alone has no counterpart there: it replaces the JAX package's cv2 calls.
 
 Layer map, entry points first:
     train.py             the command line (`python -m neuman_tpu_torch.train`,
@@ -15,6 +16,11 @@ Layer map, entry points first:
                          by utils/metrics.py, 360 orbits (render/paths.py),
                          mocap reposing, several actors; render/cli.py holds
                          what they share
+    preprocess/          stages 9-10 of a video's preprocessing (cli.py;
+                         run.sh by gen_run.py): the SMPL-to-scene alignment
+                         (alignment.py, EPnP in RANSAC in pnp.py) and the
+                         per-frame pose refinement (optimize_smpl.py, the
+                         soft face rasteriser soft_raster.py)
     options/config.py    every field and flag of the JAX config, params.json
     data_io/             the NeuMan scene reader (COLMAP text, the joblib-written
                          SMPL fits, near/far, normalisation, SMPL skinning),
@@ -46,7 +52,8 @@ Layer map, entry points first:
     tools/               per-kernel device-time profiles of a step or a frame,
                          timings over tape chunks and of the mesh kernels, a
                          synthetic scene directory writer (a rigged body
-                         proxy, AMASS-layout motions)
+                         proxy, AMASS-layout motions, a video's stage-9/10
+                         inputs with their truth)
 """
 
 __version__ = "0.1.0"

@@ -34,21 +34,33 @@ class CameraPose:
         return cls.from_world_to_camera(world_to_camera, unstable)
 
     @property
+    def quaternion(self):
+        return self.r.quaternion
+
+    @property
     def world_to_camera(self):
         m = self.t.translation_matrix @ self.r.rotation_matrix
         m /= m[3, 3]
         return m
 
     @property
+    def world_to_camera_3x4(self):
+        return self.world_to_camera[0:3, 0:4]
+
+    @property
     def extrinsic_matrix(self):
         """The 3x4 world-to-camera matrix."""
-        return self.world_to_camera[0:3, 0:4]
+        return self.world_to_camera_3x4
 
     @property
     def camera_to_world(self):
         m = np.linalg.inv(self.world_to_camera)
         m /= m[3, 3]
         return m
+
+    @property
+    def camera_to_world_3x4(self):
+        return self.camera_to_world[0:3, 0:4]
 
     @property
     def camera_center_in_world(self):

@@ -10,7 +10,8 @@ padding bytes first (the wrapper then has `numpy_array_alignment_bytes`),
 then the raw data in the wrapper's order ("C" or "F"). An array of Python
 objects is a nested pickle at that place instead. `load` reads such a
 stream as joblib's NumpyUnpickler does, and plain pickles too; a
-compressed joblib file raises.
+compressed joblib file raises. `dump` writes a plain pickle, which both
+`load` and `joblib.load` read.
 """
 
 import io
@@ -80,3 +81,9 @@ def load(path):
             raise ValueError(f"{path} is a {name}-compressed joblib file; this reader takes "
                              "uncompressed ones (joblib.dump(..., compress=0))")
     return _Unpickler(io.BytesIO(data)).load()
+
+
+def dump(obj, path):
+    """Write `obj` (dicts, lists and numpy arrays) as a plain pickle."""
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)

@@ -165,10 +165,16 @@ def vertices2joints(J_regressor, vertices):
     return torch.einsum("bik,ji->bjk", vertices, J_regressor)
 
 
-def verts_transformations(model, poses, betas, transl=None):
+def verts_transformations(model, poses, betas, transl=None, concat_joints=False):
     """(rest vertices [1, V, 3], per-vertex LBS transforms [1, V, 4, 4]);
-    `transl` [1, 3] pre-multiplies the transforms by its translation."""
-    t_per_vert, v_shaped, _ = lbs(betas, poses, model)
+    `transl` [1, 3] pre-multiplies the transforms by its translation. With
+    `concat_joints` the rest joints follow the vertices and the joints'
+    transforms follow theirs ([1, V + J, ...]), as the JAX package's
+    lbs(return_T=True, concat_joints=True)."""
+    t_per_vert, v_shaped, _, rel, joints, _ = lbs_joints(betas, poses, model)
+    if concat_joints:
+        t_per_vert = torch.cat([t_per_vert, rel], dim=1)
+        v_shaped = torch.cat([v_shaped, joints], dim=1)
     if transl is not None:
         transl_mat = torch.eye(4, dtype=t_per_vert.dtype, device=t_per_vert.device)[None].repeat(
             transl.shape[0], 1, 1)

@@ -22,7 +22,16 @@ photometric_human=True, with no imageio, PIL or joblib):
                                             (`rig_body_proxy`)
 
 `write_mocap_npz` writes a motion in the AMASS layout the reposing and
-gathering command lines read.
+gathering command lines read. `write_preprocess_inputs` writes what
+preprocessing stages 9 and 10 read (COLMAP text with a ground plane, ROMP
+npz files, keypoints, DensePose labels, masks) and returns the truth:
+
+    <root>/scene/{images,segmentations}/00000.png ...
+    <root>/scene/sparse/{cameras,images,points3D}.txt
+    <root>/scene/romp/00000.npz ...           ROMP's `results`, one person
+    <root>/scene/keypoints/00000.png.npy      COCO-17 [17, 3]
+    <root>/scene/densepose/dp_00000.png.npy   part labels 0-24
+    <root>/data/smplx/smpl/SMPL_NEUTRAL.pkl
 
 Readers find the body model through NEUMAN_DATA_ROOT=<root>/data (or
 `smpl_model_path`). The masks are drawn with render/rasterize.py on the
@@ -37,11 +46,14 @@ import argparse
 import dataclasses
 import os
 import pickle
+import types
 
 import numpy as np
 import torch
 
 from neuman_tpu_torch.cameras.contents import write_colmap_depth_bin
+from neuman_tpu_torch.geometry import transforms
+from neuman_tpu_torch.models import smpl as smpl_module
 from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
 from neuman_tpu_torch.render.rasterize import rasterize_mesh
 from neuman_tpu_torch.utils import png
@@ -212,6 +224,152 @@ def build_synthetic_scene(root, num_frames=10, h=48, w=64, seed=3, body=None):
         png.write_png(os.path.join(scene_dir, "segmentations", fname),
                       np.where(rgba[..., 3] > 0.5, 0, 255).astype(np.uint8))
     return scene_dir
+
+
+def _rotation(rng, scale):
+    """A rotation by N(0, scale) about each axis, as one axis-angle."""
+    axis_angle = rng.normal(size=3) * scale
+    return transforms.rotation_matrix(np.linalg.norm(axis_angle), axis_angle)[:3, :3]
+
+
+def _colmap_text(sparse_dir, fnames, h, w, f, w2cs, points):
+    with open(os.path.join(sparse_dir, "cameras.txt"), "w") as fh:
+        fh.write("# Camera list with one line of data per camera:\n")
+        fh.write("#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+        fh.write("# Number of cameras: 1\n")
+        fh.write(f"1 PINHOLE {w} {h} {float(f)!r} {float(f)!r} {w / 2.0!r} {h / 2.0!r}\n")
+    with open(os.path.join(sparse_dir, "images.txt"), "w") as fh:
+        fh.write("# Image list with two lines of data per image:\n")
+        fh.write("#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME\n")
+        fh.write("#   POINTS2D[] as (X, Y, POINT3D_ID)\n")
+        fh.write(f"# Number of images: {len(fnames)}, mean observations per image: 100.0\n")
+        for i, (fname, w2c) in enumerate(zip(fnames, w2cs)):
+            q = transforms.quaternion_from_matrix(w2c)
+            fh.write(f"{i + 1} " + " ".join(repr(float(x)) for x in (*q, *w2c[:3, 3]))
+                     + f" 1 {fname}\n\n")
+    with open(os.path.join(sparse_dir, "points3D.txt"), "w") as fh:
+        fh.write("# 3D point list with one line of data per point:\n")
+        fh.write("#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[] as (IMAGE_ID, POINT2D_IDX)\n")
+        fh.write(f"# Number of points: {len(points)}, mean track length: 2.0\n")
+        for i, p in enumerate(points):
+            fh.write(f"{i} {float(p[0])!r} {float(p[1])!r} {float(p[2])!r} 128 128 128 0.5\n")
+
+
+def write_preprocess_inputs(root, num_frames=4, h=48, w=64, seed=0, body=None):
+    """Write a preprocessing scene under `root` (see the module docstring)
+    and return (scene directory, truth).
+
+    The COLMAP cameras stand 2.5 in front of the person, each turned a
+    little. ROMP's fits: pose = the true pose plus N(0, 0.15) on the limb
+    components stage 10 refines (inside the joint limits), betas N(0, 0.1),
+    `verts` and 54 joints (the body's 24, then 30 fixed vertices) posed by
+    LBS, `pj2d_org` their projections through a known SMPL camera. The
+    truth's alignment maps the fit into the COLMAP world as
+    world = c2w([p, 1] @ (s x smpl_w2c)^T), with s chosen so that the
+    fit's lowest joint stands on the ground plane y = y_g; points3D.txt
+    holds 300 points on that plane (N(0, 1 mm) off it) and 100 above it.
+    The masks, keypoints (COCO slots of the SMPL joints, confidence 1) and
+    DensePose labels (1-24 over the mask) are of the true pose.
+
+    truth: {"alignments": {image name: [4, 3]}, "plane": (a, b, c, d),
+    "pose": [frames, 72] true, "romp_pose": [frames, 72], "betas"}.
+    """
+    from neuman_tpu_torch.preprocess import optimize_smpl as osm
+
+    root = str(root)
+    scene_dir = os.path.join(root, "scene")
+    smpl_path = os.path.join(root, "data", "smplx", "smpl", "SMPL_NEUTRAL.pkl")
+    body = body if body is not None else rigged_body_proxy()
+    write_smpl_pickle(smpl_path, body)
+    for sub in ("images", "sparse", "segmentations", "romp", "keypoints", "densepose"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    focal = 35.0 * w / 64.0
+    k = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]])
+    fnames = [f"{i:05d}.png" for i in range(num_frames)]
+    extra = rng.choice(body.num_verts, 54 - body.num_joints, replace=False)
+
+    limits = osm.clip_smpl_vals()
+    enabled = osm.turn_smpl_gradient_on(np.arange(25)).astype(bool)
+    margin = np.minimum(0.05, (limits[:, 1] - limits[:, 0]) / 4)
+    poses = np.clip(rng.normal(size=(num_frames, 72)) * 0.1, limits[:, 0] + margin,
+                    limits[:, 1] - margin).astype(np.float32)
+    delta = np.where(enabled, rng.normal(size=(num_frames, 72)) * 0.15, 0.0)
+    start_margin = np.minimum(0.02, (limits[:, 1] - limits[:, 0]) / 8)
+    romp_poses = np.clip(poses + delta, limits[:, 0] + start_margin,
+                         limits[:, 1] - start_margin).astype(np.float32)
+    betas = (rng.normal(size=(num_frames, NUM_BETAS)) * 0.1).astype(np.float32)
+
+    def posed(pose, beta):
+        with torch.no_grad():
+            v, j = smpl_module.smpl_forward(body, torch.as_tensor(pose[None]),
+                                            torch.as_tensor(beta[None]))
+        return v[0].numpy().astype(np.float64), j[0].numpy().astype(np.float64)
+
+    flip = np.diag([1.0, -1.0, -1.0])  # SMPL's y up -> the camera's y down
+    w2cs, smpl_cams, alignments, y_ground = [], [], {}, None
+    for i, fname in enumerate(fnames):
+        r_c = _rotation(rng, 0.1)
+        w2c = np.eye(4)
+        w2c[:3, :3] = r_c
+        w2c[:3, 3] = -r_c @ np.array([0.2 * (i - num_frames / 2), 0.0, CAMERA_Z])
+        r_s = flip @ _rotation(rng, 0.2)
+        t_s = np.array([0.0, 0.0, -CAMERA_Z]) + rng.normal(size=3) * 0.05
+        verts, joints = posed(romp_poses[i], betas[i])
+        j54 = np.concatenate([joints, verts[extra]])
+        rays = (j54 @ r_s.T + t_s) @ r_c  # camera -> joint, in world axes, at scale 1
+        centre = -r_c.T @ w2c[:3, 3]
+        if y_ground is None:
+            y_ground = centre[1] + rays[:, 1].max()
+        s = (y_ground - centre[1]) / rays[:, 1].max()
+        m = np.eye(4)
+        m[:3, :3], m[:3, 3] = s * r_s, s * t_s
+        alignments[fname] = (np.linalg.inv(w2c)[:3] @ m).T
+        cam = j54 @ r_s.T + t_s
+        pj2d = cam[:, :2] / cam[:, 2:3] * focal + k[:2, 2]
+        res = np.empty(1, dtype=object)
+        res[0] = {"verts": verts.astype(np.float32), "j3d_all54": j54.astype(np.float32),
+                  "pj2d_org": pj2d.astype(np.float32), "poses": romp_poses[i],
+                  "betas": betas[i]}
+        np.savez(os.path.join(scene_dir, "romp", fname[:-4] + ".npz"), results=res)
+        w2cs.append(w2c)
+
+    ground = np.stack([rng.uniform(-1.5, 1.5, 300), y_ground + rng.normal(size=300) * 1e-3,
+                       rng.uniform(-0.5, 2.0, 300)], axis=1)
+    above = np.stack([rng.uniform(-1.5, 1.5, 100), y_ground - rng.uniform(0.1, 2.0, 100),
+                      rng.uniform(-0.5, 2.0, 100)], axis=1)
+    _colmap_text(os.path.join(scene_dir, "sparse"), fnames, h, w, focal, w2cs,
+                 np.concatenate([ground, above]))
+
+    faces = np.asarray(body.faces)
+    for i, fname in enumerate(fnames):
+        a = np.eye(4)
+        a[:, :3] = alignments[fname]
+        verts, joints = posed(poses[i], betas[i])
+        to_world = lambda p: np.concatenate([p, np.ones_like(p[:, :1])], axis=1) @ a[:, :3]
+        view = types.SimpleNamespace(intrinsic_matrix=k, shape=(h, w),
+                                     cam_pose=types.SimpleNamespace(world_to_camera=w2cs[i]))
+        rgba = rasterize_mesh(to_world(verts), faces, view)
+        covered = rgba[..., 3] > 0.5
+        if covered.sum() < 16:
+            raise ValueError(f"the body covers {covered.sum()} pixels of {fname}")
+        img = np.full((h, w, 3), 0.5) * (1 - rgba[..., 3:]) + rgba[..., :3] * rgba[..., 3:]
+        png.write_png(os.path.join(scene_dir, "images", fname),
+                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        png.write_png(os.path.join(scene_dir, "segmentations", fname),
+                      np.where(covered, 0, 255).astype(np.uint8))
+        cam = to_world(joints) @ w2cs[i][:3, :3].T + w2cs[i][:3, 3]
+        pj = cam[:, :2] / cam[:, 2:3] * focal + k[:2, 2]
+        coco = np.zeros((17, 3))
+        for smpl_slot, coco_slot in osm.COCO_OF_SMPL.items():
+            coco[coco_slot] = [*pj[smpl_slot], 1.0]
+        np.save(os.path.join(scene_dir, "keypoints", fname + ".npy"), coco)
+        parts = np.zeros((h, w), np.int64)
+        parts[covered] = 1 + np.arange(covered.sum()) % 24
+        np.save(os.path.join(scene_dir, "densepose", f"dp_{fname}.npy"), parts)
+    truth = {"alignments": alignments, "plane": (0.0, 1.0, 0.0, -y_ground), "pose": poses,
+             "romp_pose": romp_poses, "betas": betas}
+    return scene_dir, truth
 
 
 def main(argv=None):

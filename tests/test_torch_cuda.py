@@ -753,3 +753,34 @@ def test_render_command_lines_launch_the_kernels(cuda, tmp_path, monkeypatch):
         assert len(names) == frames and all(n.startswith("out_") for n in names)
         assert all(png.read_png(str(tmp_path / "demo" / what / n)).shape == (48, 64, 3)
                    for n in names)
+
+
+def test_preprocess_stages_on_the_card_match_the_cpu(cuda, tmp_path, monkeypatch):
+    """Preprocessing stages 9 and 10 (3 steps a frame) on a 4-frame 48x64
+    scene of tools/synthetic_scene.write_preprocess_inputs, on the card and
+    on the CPU from copies of one scene: the alignments within 1e-4 of
+    each matrix's largest entry (1000 f32 Adam steps of the translation in
+    two summation orders) and the refined poses within 1e-4 rad (the
+    port-vs-JAX bars of tests/test_torch_preprocess.py)."""
+    import shutil
+
+    import numpy as np
+
+    from neuman_tpu_torch.data_io import smpl_pickle
+    from neuman_tpu_torch.preprocess import cli as pcli
+    from neuman_tpu_torch.tools.synthetic_scene import write_preprocess_inputs
+
+    scene, _ = write_preprocess_inputs(str(tmp_path / "src"), num_frames=4, h=48, w=64)
+    monkeypatch.setenv("NEUMAN_DATA_ROOT", str(tmp_path / "src" / "data"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = str(tmp_path / dev)
+        shutil.copytree(scene, d)
+        align = pcli.run_alignment(os.path.join(d, "sparse"), os.path.join(d, "images"),
+                                   os.path.join(d, "romp"), device=dev)
+        pcli.run_optimize_smpl(d, num_iters=3, device=dev)
+        out[dev] = align, smpl_pickle.load(os.path.join(d, "smpl_output_optimized.pkl"))[1]
+    (ga, gfits), (ca, cfits) = out["cuda"], out["cpu"]
+    for name, a in ga.items():
+        assert np.abs(a - ca[name]).max() <= 1e-4 * np.abs(ca[name]).max()
+    np.testing.assert_allclose(gfits["pose"], cfits["pose"], atol=1e-4)

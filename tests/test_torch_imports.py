@@ -1,10 +1,11 @@
 """neuman_tpu_torch and chip_smoke.py import nothing of the JAX package.
 
 Neither `neuman_tpu` (not even its numpy-only modules: the port keeps its
-own copies) nor jax, flax, imageio, PIL, joblib, skimage, matplotlib or
-open3d, which the machine with the GPU does not have. `m.split('.')[0]` keeps `neuman_tpu_torch` apart
-from `neuman_tpu`. One interpreter imports every module in turn (a
-subprocess a module took ~5 s each, most of it importing torch).
+own copies) nor jax, flax, imageio, PIL, joblib, skimage, matplotlib,
+open3d, cv2 or optax, which the machine with the GPU does not have.
+`m.split('.')[0]` keeps `neuman_tpu_torch` apart from `neuman_tpu`. One
+interpreter imports every module in turn (a subprocess a module took ~5 s
+each, most of it importing torch).
 """
 
 import json
@@ -19,7 +20,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("neuman_tpu", "jax", "jaxlib", "flax", "imageio", "PIL", "joblib", "skimage",
-           "matplotlib", "open3d")
+           "matplotlib", "open3d", "cv2", "optax")
 MODULES = (
     "neuman_tpu_torch.render.renderer",
     "neuman_tpu_torch.ops.kernels._build",
@@ -73,6 +74,13 @@ MODULES = (
     "neuman_tpu_torch.render_360",
     "neuman_tpu_torch.render_reposing",
     "neuman_tpu_torch.render_gathering",
+    "neuman_tpu_torch.ops.precision",
+    "neuman_tpu_torch.preprocess.pnp",
+    "neuman_tpu_torch.preprocess.soft_raster",
+    "neuman_tpu_torch.preprocess.optimize_smpl",
+    "neuman_tpu_torch.preprocess.alignment",
+    "neuman_tpu_torch.preprocess.cli",
+    "neuman_tpu_torch.preprocess.gen_run",
     "chip_smoke",
 )
 
