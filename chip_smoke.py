@@ -108,7 +108,21 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      and gated pose gradient on the card against the CPU (270x480, the
      subdivision-3 proxy). No kernel of the port runs here: the
      rasteriser is plain PyTorch. Every line carries the card's name and
-     power limit.
+     power limit;
+ 16. parallel: data parallelism and the NeRF-T ablation. (a)
+     parallel.dryrun on two gloo ranks on the one card (NCCL cannot put
+     two ranks of one group on one GPU): 2 f32 steps of each stage at the
+     defaults (4096 rays, 128 + 128 samples; 1536 rays, LPIPS on with its
+     patch over both ranks' rows, V=10,242) against the same steps in this
+     process: the losses, the step-1 gradients, the parameters (the ranks'
+     equal), each rank's launches; (b) train.main --data_parallel on under
+     the torchrun environment (NCCL at world size 1) on phase 13's scene,
+     both stages for 2 steps, then 5 steps a turn with and without the
+     mesh on the one trainer: what the mesh costs a step; (c) stage 1 with
+     --ablate_nerft true --raw_pos_dim 4 (the plain net, as in the JAX
+     package): ms/step, peak GiB, the validation PNG, the step-1 loss
+     against the CPU's. --phases parallel runs phase 13 first. Every line
+     carries the card's name and power limit.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null), and last the device line.
@@ -254,6 +268,26 @@ PRE_ALIGN_REL = 1e-2
 # gradient's L2 error over its L2 norm, the port-vs-JAX bars of
 # tests/test_torch_preprocess.py (sums of the same terms in other orders)
 PRE_LOSS_REL, PRE_GRAD_REL = 1e-5, 1e-4
+
+# phase 16: (a) PAR_WORLD gloo ranks on the one card against one process,
+# PAR_STEPS f32 steps of each stage at the defaults (4096 and 1536 rays);
+# each step's loss within PAR_LOSS_RTOL (the JAX package's sharded-vs-
+# unsharded bar), the step-1 gradients within section 2's f32 bars, the
+# ranks' parameters equal and, against one process, within PAR_PARAM_LR_BAR
+# learning rates: in its first steps Adam moves an element by at most ~lr a
+# step whatever its gradient's size, so an element whose gradient is within
+# rounding of 0 may step the other way, and two runs can end 2 lr a step
+# apart (measured on the H100: 1.3e-6 and 1.1e-5, one element of 1.15 M over
+# 1e-5; the share over 1e-5 is printed); the kernels each rank must launch.
+# (b) train.main under NCCL at world size 1, 2 steps, then PAR_TIMED_STEPS
+# steps a turn with and without the mesh. (c) NeRF-T stage 1: its step-1
+# loss on the card against the CPU's
+PAR_WORLD, PAR_STEPS, PAR_TIMED_STEPS = 2, 2, 5
+PAR_SPAWN_TIMEOUT_S = 300.0
+PAR_LOSS_RTOL = 1e-4
+PAR_PARAM_LR_BAR = 2.0 * PAR_STEPS
+PAR_KERNELS = {"bkg": CLI_BKG_KERNELS, "human": CLI_HUMAN_KERNELS}
+PAR_NERFT_LOSS_REL = 1e-4
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1150,13 +1184,9 @@ def _human_config(out_dir, seed, **fields):
 
 
 def _kernel_counters():
-    from neuman_tpu_torch.ops.kernels import knn, meshquery, nerf_mlp, nerf_mlp_vjp, offset_mlp
+    from neuman_tpu_torch.ops import kernels
 
-    return {"nerf_mlp": nerf_mlp.nerf_mlp, "nerf_mlp_bwd": nerf_mlp_vjp.nerf_mlp_bwd,
-            "offset_mlp": offset_mlp.offset_mlp, "offset_mlp_bwd": offset_mlp.offset_mlp_bwd,
-            "ericson_select": meshquery.ericson_select,
-            "ericson_signed_select": meshquery.ericson_signed_select,
-            "bucketed_knn": knn.bucketed_knn}
+    return kernels.wrappers()
 
 
 def _cudnn_flags():
@@ -2269,6 +2299,230 @@ def phase_preprocess(device, seed, root, card):
     return out
 
 
+@contextlib.contextmanager
+def _environ(values):
+    """The environment variables `values` for the scope; the caller's back
+    after."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _grad_bar(kind, name):
+    """PERF.md section 2's f32 gradient bar of a parameter (L2 error over
+    L2 norm): the background nets and the poses 5e-3, the canonical net
+    1e-2, the offset net 5e-2."""
+    if kind == "bkg":
+        return STEP_TOL["float32"][1]
+    return HUMAN_STEP_TOL["float32"][1][name.split(".")[0]]
+
+
+def _swap_timed(trainer, step_fns, n):
+    """Each of `step_fns` ({label: step function}) on the one trainer, in
+    turns (a, b, a, b; n steps a turn): {label: the mean of its two turns'
+    median ms/step, label + "_losses": its steps' losses}."""
+    runs = {k: [] for k in step_fns}
+    for _ in range(2):
+        for label, fn in step_fns.items():
+            trainer.step_fn = fn
+            runs[label].append(_timed_steps(trainer, n))
+    out = {}
+    for label, turns in runs.items():
+        out[label] = sum(ms for ms, _ in turns) / len(turns)
+        out[label + "_losses"] = [v for _, losses in turns for v in losses]
+    return out
+
+
+def phase_parallel(device, seed, root, scene_dir, card):
+    """Data parallelism and the NeRF-T ablation (phase 16 of the module
+    docstring). Returns {path: {kernel: launches}} of its main paths: each
+    rank's two steps of (a) and the two train.main stages of (b), each
+    counted from 0 (the NeRF-T stage launches no kernel: its nets are the
+    plain PyTorch ones, as in the JAX package)."""
+    import torch
+    import torch.distributed as dist
+    from neuman_tpu_torch import train as ttrain
+    from neuman_tpu_torch.models import nerf as nerf_module
+    from neuman_tpu_torch.parallel import dryrun
+    from neuman_tpu_torch.trainers import background as bkg
+    from neuman_tpu_torch.trainers import human
+
+    stamp = dict(card=json.dumps(card))
+    launches = {}
+
+    # (a) two gloo ranks on the one card against one process, f32, 2 steps
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        jobs = [dryrun.Job("bkg", _bkg_config(out_dir, seed, name="par_bkg"), steps=PAR_STEPS,
+                           views=SLICE_VIEWS, hw=SLICE_HW, seed=seed),
+                dryrun.Job("human", _human_config(out_dir, seed, name="par_human"),
+                           steps=PAR_STEPS, views=SLICE_VIEWS, hw=SLICE_HW, seed=seed,
+                           body_subdivisions=BODY_SUBDIVISIONS)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results = dryrun.dryrun_equality(PAR_WORLD, jobs, backend="gloo", device=str(device),
+                                         timeout_s=PAR_SPAWN_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for job, eq in zip(jobs, results):
+        kernels = PAR_KERNELS[job.kind]
+        worst = {}
+        for name, rel in eq["grad_rel_l2"].items():
+            group = name.split(".")[0]
+            worst[group] = max(worst.get(group, 0.0), rel)
+        grads_ok = all(rel <= _grad_bar(job.kind, name) for name, rel in eq["grad_rel_l2"].items())
+        launched = all(r[k] > 0 for r in eq["launches"] for k in kernels)
+        lr = max(job.cfg.learning_rate, job.cfg.smpl_lr if job.kind == "human" else 0.0)
+        # the human steps score the LPIPS patch (rays 0-1023 of 1536: both ranks' rows)
+        patch_steps = sum(m.get("lpips_loss", 0.0) > 0 for m in eq["metrics"])
+        ok = (eq["max_loss_rel_diff"] <= PAR_LOSS_RTOL and grads_ok and eq["ranks_equal"]
+              and eq["max_param_abs_diff"] <= PAR_PARAM_LR_BAR * lr and launched
+              and (job.kind == "bkg" or patch_steps > 0))
+        log("parallel_ranks", kind=job.kind, world=PAR_WORLD, backend="gloo",
+            rays=job.cfg.rays_per_batch, rays_per_rank=job.cfg.rays_per_batch // PAR_WORLD,
+            steps=PAR_STEPS, loss_1=json.dumps(eq["loss_unsharded"]),
+            loss_n=json.dumps(eq["loss_sharded"]), max_loss_rel=f"{eq['max_loss_rel_diff']:.3e}",
+            grad_rel_l2=json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}),
+            max_param_abs=f"{eq['max_param_abs_diff']:.3e}",
+            param_share_off=f"{eq['param_share_over_atol']:.2e}",
+            lpips_steps=patch_steps if job.kind == "human" else "-",
+            param_bar=f"{PAR_PARAM_LR_BAR * lr:.1e}", ranks_equal=eq["ranks_equal"],
+            launches=json.dumps([{k: v for k, v in r.items() if v} for r in eq["launches"]],
+                                separators=(",", ":")),
+            wall_s=f"{wall_s:.1f}", **stamp, ok=ok)
+        if not ok:
+            raise RuntimeError(f"parallel {job.kind}: two ranks differ from one process, the "
+                               "ranks differ, or a kernel of the step was not launched on a rank")
+        for rank, counts in enumerate(eq["launches"]):
+            launches[f"parallel_{job.kind}_rank{rank}"] = counts
+
+    # (b) train.main under the torchrun environment: NCCL at world size 1
+    counters = _kernel_counters()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    out_dir = os.path.join(root, "out_parallel")
+    common = ["--scene_dir", scene_dir, "--out_dir", out_dir, "--max_iter", str(CLI_MAX_ITER),
+              "--data_parallel", "on", *CLI_FLAGS]
+    stages = (("bkg", ["--train_mode", "bkg", "--name", "par_bkg"]),
+              ("human", ["--train_mode", "smpl_and_offset", "--name", "par_human",
+                         "--load_background", "par_bkg"]))
+    try:
+        with _environ(env), _data_root(root):
+            for stage, argv in stages:
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                trainer = ttrain.main(argv + common, device=device)
+                torch.cuda.synchronize()
+                counts = {k: c.launches for k, c in counters.items()}
+                mesh = trainer.mesh
+                if stage == "bkg":
+                    plain = bkg.make_bkg_train_step(trainer.spec, trainer.opt, trainer.optimizer,
+                                                    trainer.mlp)
+                else:
+                    plain = human.make_human_train_step(trainer.model, trainer.opt,
+                                                        trainer.optimizer, trainer.ctx)
+                timed = _swap_timed(trainer, {"mesh": trainer.step_fn, "no_mesh": plain},
+                                    PAR_TIMED_STEPS)
+                losses = timed["mesh_losses"] + timed["no_mesh_losses"]
+                out_ok, _ = _cli_outputs_ok(os.path.join(out_dir, argv[3]),
+                                            ("val",) if stage == "bkg" else VAL_IMAGES)
+                backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+                ok = (mesh is not None and dist.get_backend() == backend and mesh.size == 1
+                      and out_ok and all(counts[k] > 0 for k in PAR_KERNELS[stage])
+                      and all(math.isfinite(v) for v in losses))
+                cost = timed["mesh"] - timed["no_mesh"]
+                log("parallel_nccl", stage=stage, argv=" ".join(argv + ["--data_parallel", "on"]),
+                    backend=dist.get_backend(), world=dist.get_world_size(),
+                    ms_per_step_mesh=f"{timed['mesh']:.3f}",
+                    ms_per_step_no_mesh=f"{timed['no_mesh']:.3f}",
+                    mesh_cost_ms=f"{cost:.3f}", mesh_cost_share=f"{cost / timed['no_mesh']:.4f}",
+                    timed_steps=2 * PAR_TIMED_STEPS,
+                    launches=json.dumps({k: v for k, v in counts.items() if v},
+                                        separators=(",", ":")), **stamp, ok=ok)
+                if not ok:
+                    raise RuntimeError(f"parallel nccl {stage}: no NCCL mesh, a missing output, a "
+                                       "kernel not launched or a loss not finite")
+                launches[f"parallel_nccl_{stage}"] = counts
+                del trainer
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    # (c) the NeRF-T ablation: stage 1 with the time channel, card vs CPU at step 1
+    first = {}
+    draw, step = bkg.NeRFTrainer.draw_batch, bkg.NeRFTrainer.train_step
+
+    def first_batch(self, view_ids=None, generator=None):
+        batch = draw(self, view_ids, generator)
+        if view_ids is None and "batch" not in first:
+            first["batch"] = {k: v.cpu() for k, v in batch.items()}
+        return batch
+
+    def first_step(self):
+        metrics = step(self)
+        first.setdefault("loss", float(metrics["total_loss"]))
+        return metrics
+
+    argv = ["--train_mode", "bkg", "--name", "par_nerft", "--ablate_nerft", "true",
+            "--raw_pos_dim", "4", "--scene_dir", scene_dir, "--out_dir", out_dir,
+            "--max_iter", str(CLI_MAX_ITER), *CLI_FLAGS]
+    bkg.NeRFTrainer.draw_batch, bkg.NeRFTrainer.train_step = first_batch, first_step
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _data_root(root):
+            trainer = ttrain.main(argv, device=device)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        bkg.NeRFTrainer.draw_batch, bkg.NeRFTrainer.train_step = draw, step
+    ms, losses = _timed_steps(trainer, PAR_TIMED_STEPS)
+    out_ok, shapes = _cli_outputs_ok(os.path.join(out_dir, "par_nerft"), ("val",))
+    opt = trainer.opt
+    spec = nerf_module.build_nerf_specs(opt)
+    params = ttrain.init_bkg_params(spec, opt.seed, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        c_rgb, c_emp, f_rgb, f_emp, _ = bkg.bkg_loss_fn(params, spec, first["batch"], opt,
+                                                        opt.penalize_empty_space)
+    cpu_loss = float(c_rgb + f_rgb + (c_emp + f_emp if 0 >= opt.delay_iters else 0.0))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(first["loss"] - cpu_loss) / abs(cpu_loss)
+    ok = (out_ok and all(math.isfinite(v) for v in losses + [first["loss"]])
+          and rel <= PAR_NERFT_LOSS_REL and not any(counts.values()))
+    log("parallel_nerft", argv=" ".join(argv[:6]), rays=opt.rays_per_batch,
+        S=opt.samples_per_ray, pe_columns=spec.nerf.input_ch, ms_per_step=f"{ms:.3f}",
+        timed_steps=PAR_TIMED_STEPS, peak_gib=f"{gib:.2f}", step1_loss=repr(first["loss"]),
+        cpu_step1_loss=repr(cpu_loss), rel=f"{rel:.2e}", cpu_s=f"{cpu_s:.1f}",
+        val_pngs=json.dumps(shapes, separators=(",", ":")),
+        launches=json.dumps({k: v for k, v in counts.items() if v}), **stamp, ok=ok)
+    if not ok:
+        raise RuntimeError("parallel nerft: a missing output, a loss not finite, the card's "
+                           "step-1 loss off the CPU's, or a kernel launched on the plain path")
+    return launches
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -2293,7 +2547,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli", "render_cli", "preprocess")
+          "renders", "cli", "render_cli", "preprocess", "parallel")
 
 
 def main(argv=None):
@@ -2305,8 +2559,8 @@ def main(argv=None):
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phase in {phases}")
-    if "render_cli" in phases and "cli" not in phases:
-        phases.append("cli")  # the render command lines read phase 13's scene and checkpoint
+    if {"render_cli", "parallel"} & set(phases) and "cli" not in phases:
+        phases.append("cli")  # phases 14 and 16 read phase 13's scene (and checkpoint)
 
     import torch
 
@@ -2341,6 +2595,7 @@ def main(argv=None):
         "render_cli": lambda: phase_render_cli(device, args.seed, cli_root, out["cli"][2]),
         "preprocess": lambda: phase_preprocess(device, args.seed,
                                                os.path.join(cli_root, "preprocess"), card),
+        "parallel": lambda: phase_parallel(device, args.seed, cli_root, out["cli"][2], card),
     }
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = {}
@@ -2358,7 +2613,7 @@ def main(argv=None):
     mlp, mesh, launches, bwd, train = (out[k] for k in ("mlp", "mesh", "slice", "bwd", "train"))
     offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
                                                             "renders"))
-    cli, render_cli = out["cli"][0], out["render_cli"]
+    cli, render_cli, parallel = out["cli"][0], out["render_cli"], out["parallel"]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -2372,8 +2627,10 @@ def main(argv=None):
     # steps, 2 validations) and the 20 timed steps, in both tape
     # configurations, the f32 human train path (phase 9) split likewise, its
     # 2 steps with the fused signed distance, the three frames of phase
-    # 12, the command line's two stages (phase 13, train.main each) and the
-    # five render command lines (phase 14, main() each).
+    # 12, the command line's two stages (phase 13, train.main each), the
+    # five render command lines (phase 14, main() each), and phase 16's two
+    # ranks' steps of each stage (counted in each rank) and its two
+    # train.main stages under NCCL.
     # No single PyTorch call computes any of the seven functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by, *dev = timing
@@ -2392,6 +2649,7 @@ def main(argv=None):
         paths.update({f"render_{frame}": counts.get(name, 0) for frame, counts in renders.items()})
         paths.update({f"cli_{stage}": run[1].get(name, 0) for stage, run in cli.items()})
         paths.update({f"render_cli_{cmd}": run[0].get(name, 0) for cmd, run in render_cli.items()})
+        paths.update({path: counts.get(name, 0) for path, counts in parallel.items()})
         return {k: v for k, v in paths.items() if v}
 
     kernels = [

@@ -27,6 +27,12 @@ Layer map, entry points first:
                          over cameras/, geometry/, scenes/
     trainers/            NeRFTrainer, HumanNeRFTrainer: batches, losses,
                          autograd, Adam, validation, checkpoints, PNG logging
+                         (the background one also the NeRF-T ablation)
+    parallel/            data parallelism over torch.distributed (mesh.py:
+                         the process group, the data mesh, sharded batches
+                         and draws, global means, the all-reduces; torchrun
+                         launches it) and its dry run against one process
+                         (dryrun.py)
     datasets/            scene arrays in device memory, ray batch samplers
     render/renderer.py   render_hybrid_nerf, render_smpl_nerf (posed and
                          canonical), render_hybrid_nerf_multi_persons,

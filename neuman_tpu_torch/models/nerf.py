@@ -141,11 +141,17 @@ class Joiner(nn.Module):
         self.nerf = NeRF(spec.nerf, device=device)
 
     def forward(self, input_pts, input_views=None):
-        pts = embedder_module.embed(self.spec.pos_pe, input_pts)
-        views = None
-        if input_views is not None and self.spec.nerf.use_viewdirs:
-            views = embedder_module.embed(self.spec.dir_pe, input_views)
-        return self.nerf(pts, views)
+        return apply_joiner(self.spec, self.nerf, input_pts, input_views)
+
+
+def apply_joiner(spec: JoinerSpec, nerf, input_pts, input_views=None):
+    """The PE of `spec` and the NeRF module `nerf` on raw points [..., D]
+    and view directions [..., 3]: raw outputs [..., 4]."""
+    pts = embedder_module.embed(spec.pos_pe, input_pts)
+    views = None
+    if input_views is not None and spec.nerf.use_viewdirs:
+        views = embedder_module.embed(spec.dir_pe, input_views)
+    return nerf(pts, views)
 
 
 class OffsetNet(nn.Module):

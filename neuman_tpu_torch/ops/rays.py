@@ -3,6 +3,7 @@
 import torch
 
 from neuman_tpu_torch.ops.precision import matmul_f32
+from neuman_tpu_torch.parallel.mesh import draw_rows
 from neuman_tpu_torch.utils.constants import PERTURB_EPSILON
 
 
@@ -27,17 +28,20 @@ def pixels_to_rays(xy, intrinsic, cam2world):
     return origin.expand_as(dirs), dirs
 
 
-def sample_z_vals(near, far, samples_per_ray, perturb=0.0, generator=None):
+def sample_z_vals(near, far, samples_per_ray, perturb=0.0, generator=None, mesh=None):
     """z values [R, S] between near and far ([R] or [R, 1]): evenly spaced,
     or with perturb > 0 one uniform draw from `generator` (a torch.Generator
-    on near's device) inside each stratum, clipped away from its edges."""
+    on near's device) inside each stratum, clipped away from its edges.
+    With a data `mesh` the rays are this rank's rows, and the draw is
+    this rank's rows of the draw for every rank's rays."""
     t = torch.linspace(0.0, 1.0, samples_per_ray, device=near.device)
     z = near.reshape(-1, 1) * (1.0 - t) + far.reshape(-1, 1) * t
     if perturb > 0.0:
         mids = 0.5 * (z[:, 1:] + z[:, :-1])
         upper = torch.cat([mids, z[:, -1:]], dim=-1)
         lower = torch.cat([z[:, :1], mids], dim=-1)
-        u = torch.rand(z.shape, generator=generator, device=z.device)
+        u = draw_rows(lambda n: torch.rand((n, z.shape[1]), generator=generator,
+                                           device=z.device), z.shape[0], mesh)
         z = lower + (upper - lower) * u.clamp(PERTURB_EPSILON, 1 - PERTURB_EPSILON)
     return z
 

@@ -10,9 +10,9 @@ as the JAX config's does, and imports nothing.
 
 Fields the port parses and saves but does not act on: those that steer XLA
 or the TPU (`use_cuda`, `pe_recurrence`, `tb_dir`), the JAX profiler's
-(`profile_dir`, `profile_steps`) and data mesh's (`data_axis`,
-`data_parallel`), and those of options not ported (`chunk`,
-`penalize_outside`, `random_view`). The render fields (`render_h`,
+(`profile_dir`, `profile_steps`), and those of options not ported (`chunk`,
+`penalize_outside`, `random_view`). `data_parallel` and `data_axis` pick
+the trainers' data mesh (parallel/mesh.resolve_mesh). The render fields (`render_h`,
 `render_w`, `weights_path`, `trajectory_resolution`, `motion_name`,
 `mocap_*`) are read by the render command lines. `use_pallas` False
 selects the plain PyTorch ops in both train steps and in the renders;

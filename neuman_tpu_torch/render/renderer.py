@@ -22,6 +22,7 @@ the kernels against).
 
 import torch
 
+from neuman_tpu_torch.models import nerf as nerf_module
 from neuman_tpu_torch.utils.constants import DEFAULT_GEO_THRESH
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops import rays as ray_ops
@@ -35,14 +36,23 @@ def _mlp(use_kernels):
 
 def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far,
                 samples_per_ray, importance_samples_per_ray, white_bkg,
-                compute_dtype, use_kernels=True):
+                compute_dtype, use_kernels=True, time_val=None):
     """Background coarse -> importance -> fine. Returns (f_z, f_sigma,
     f_rgb_c, dir_norm): the fine samples' z [R, S+I], raw sigma [R, S+I],
-    raw colour 3x[R, S+I], and |d| [R]."""
+    raw colour 3x[R, S+I], and |d| [R]. time_val: NeRF-T nets, which take
+    the samples' (x, y, z, time_val) through the 4-D PE and the plain
+    PyTorch net in f32, as the JAX package's `_vanilla_chunk(use_time=True)`
+    (the NeRF kernels take one 64-column PE block; the 4-D PE has 84)."""
     mlp = _mlp(use_kernels)
     dir_norm = torch.linalg.norm(dirs, dim=-1)
 
     def run(net, z):
+        if time_val is not None:
+            r, s = z.shape
+            pts = origins[:, None, :] + dirs[:, None, :] * z[..., None]
+            pts = torch.cat([pts, torch.full((r, s, 1), time_val, device=z.device)], dim=-1)
+            out = nerf_module.apply_joiner(bkg_spec, net, pts, dirs[:, None, :].expand(r, s, 3))
+            return out[..., 3], [out[..., c] for c in range(3)]
         planes = [origins[:, a, None] + dirs[:, a, None] * z for a in range(3)]
         dirp = dir_projection(bkg_spec, net, dirs, compute_dtype)
         return mlp(bkg_spec, net, *planes, dir_part=dirp, compute_dtype=compute_dtype)
@@ -143,14 +153,18 @@ def cap_rays(cap, device):
 @torch.no_grad()
 def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768,
                    samples_per_ray=64, importance_samples_per_ray=128, white_bkg=True,
-                   compute_dtype=torch.bfloat16, use_kernels=True):
+                   compute_dtype=torch.bfloat16, use_kernels=True, ablate_nerft=False):
     """Background-only frame: coarse -> importance -> fine over every pixel
     of `cap` (as render_hybrid_nerf reads it, near/far from the "bkg"
     entries), chunk by chunk. spec: the nets' JoinerSpec; coarse_net,
-    fine_net: NeRF modules on `device`. Returns rgb [H, W, 3] on `device`."""
+    fine_net: NeRF modules on `device`. ablate_nerft: NeRF-T nets, which
+    take the frame's time frame_id / total_frames of `cap.frame_id` as a
+    fourth input (plain PyTorch in f32, as in the JAX package).
+    Returns rgb [H, W, 3] on `device`."""
     origins, dirs = cap_rays(cap, device)
     total = origins.shape[0]
     rgb = torch.empty(total, 3, device=device)
+    time_val = cap.frame_id["frame_id"] / cap.frame_id["total_frames"] if ablate_nerft else None
     for i in range(0, total, rays_per_batch):
         o, d = origins[i:i + rays_per_batch], dirs[i:i + rays_per_batch]
         n = o.shape[0]
@@ -158,7 +172,7 @@ def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768
         far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             spec, coarse_net, fine_net, o, d, near, far, samples_per_ray,
-            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels)
+            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels, time_val)
         rgb[i:i + n] = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)[0]
     h, w = cap.shape
     return rgb.reshape(h, w, 3)

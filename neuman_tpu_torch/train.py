@@ -11,7 +11,13 @@ options/config.py), with the same mode-dependent defaults, writes
 (data_io/neuman.py) and trains stage 1 (`--train_mode bkg`, the
 background NeRF) or stage 2 (`smpl_only` / `smpl_and_offset`, the human
 NeRF, on the background of `--load_background`). `main(argv, device)`
-runs on the card unless device="cpu".
+runs on the card unless device="cpu". On N GPUs, data parallel:
+
+    torchrun --nproc_per_node N -m neuman_tpu_torch.train --train_mode bkg ...
+
+(parallel/mesh.py: every rank trains on its share of each batch, rank 0
+writes the outputs). The NeRF-T ablation: `--train_mode bkg
+--ablate_nerft true --raw_pos_dim 4`.
 
     from neuman_tpu_torch.train import train_background, train_human
     trainer = train_background(opt, scene, train_views, val_views)
@@ -36,6 +42,7 @@ from neuman_tpu_torch.models import nerf as nerf_module
 from neuman_tpu_torch.ops.kernels.nerf_mlp import nerf_mlp_plain
 from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn
 from neuman_tpu_torch.options import config as config_module
+from neuman_tpu_torch.parallel import mesh as pmesh
 from neuman_tpu_torch.trainers import checkpoint as ckpt
 from neuman_tpu_torch.trainers.background import NeRFTrainer
 from neuman_tpu_torch.trainers.human import KERNELS, PLAIN, HumanNeRFTrainer
@@ -234,15 +241,19 @@ def require_device(device, what):
 
 def main(argv=None, device="cuda"):
     """The command line: parse `argv`, write params.json, train the stage
-    `--train_mode` names on `device`. Returns the trainer."""
+    `--train_mode` names on `device`. Returns the trainer. Launched as one
+    of several ranks (torchrun), it first joins their process group (NCCL
+    on the card, gloo on the CPU), and rank 0 alone writes params.json."""
     opt = config_module.from_cli(argv)
     if opt.scene_dir is None:
         raise ValueError("--scene_dir is required")
     if opt.normalize is not True:
         raise ValueError("the trainers need a normalised scene (--normalize true)")
     require_device(device, "train")
-    config_module.print_opt(opt)
-    opt.save()
+    pmesh.maybe_init_distributed("nccl" if torch.device(device).type == "cuda" else "gloo")
+    if not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0:
+        config_module.print_opt(opt)
+        opt.save()
     if opt.train_mode == "bkg":
         return run_background(opt, device)
     if opt.train_mode in ("smpl_only", "smpl_and_offset"):

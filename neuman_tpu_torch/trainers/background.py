@@ -28,6 +28,7 @@ from neuman_tpu_torch.ops import rays as ray_ops
 from neuman_tpu_torch.ops import volume
 from neuman_tpu_torch.ops.kernels.nerf_mlp import dir_projection
 from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn, with_tape_mode
+from neuman_tpu_torch.parallel import mesh as pmesh
 from neuman_tpu_torch.render import renderer
 from neuman_tpu_torch.trainers import checkpoint as ckpt
 from neuman_tpu_torch.trainers import logging as tlog
@@ -82,48 +83,64 @@ def named_params(params):
     return {k: dict(net.named_parameters()) for k, net in params.items()}
 
 
-def _masked_penalty(sigma, mask, loss_fn_name):
+def _masked_penalty(sigma, mask, loss_fn_name, mesh=None):
     val = torch.tanh(torch.relu(sigma))
-    denom = torch.clamp(mask.sum(), min=1.0)
-    if loss_fn_name == "mse":
-        return (mask * val**2).sum() / denom
-    return (mask * val.abs()).sum() / denom
+    val = val**2 if loss_fn_name == "mse" else val.abs()
+    return pmesh.masked_mean(val, mask, mesh)
 
 
-def bkg_loss_fn(params, spec, batch, opt, penalty_weight, generator=None, mlp=nerf_mlp_fn):
+def bkg_loss_fn(params, spec, batch, opt, penalty_weight, generator=None, mlp=nerf_mlp_fn,
+                mesh=None):
     """Coarse + fine losses of one ray batch: (coarse_rgb, coarse_empty,
     fine_rgb, fine_empty, aux). params {"coarse", "fine"} Joiners; the
     perturbation and density noise (both 0 at the bkg defaults) draw from
     `generator`. `mlp` is the differentiable MLP: `nerf_mlp_fn` (the kernel
     pair); checks pass `nerf_mlp_fn` with plain=True (the kernels' plain
     versions) or `nerf_mlp_plain` (autograd of the plain forward). The
-    Functions run in the configuration `opt.mlp_tape` names."""
-    if opt.ablate_nerft:
-        raise NotImplementedError("the NeRF-T ablation (ablate_nerft) is not ported")
-    mlp = with_tape_mode(mlp, opt.mlp_tape)
+    Functions run in the configuration `opt.mlp_tape` names. With a data
+    `mesh` the batch is this rank's rows and each loss is this rank's share
+    of the global one (parallel/mesh.py); aux's max_sigma_* are this rank's.
+
+    Under `opt.ablate_nerft` (NeRF-T) the nets take (x, y, z, t), t the
+    ray's `viewf_list`, through the Joiner: autograd of the plain PyTorch
+    net, on the card too, as the JAX package runs this path without its
+    kernels (use_pallas ... and not use_time). This is the configuration,
+    not a fallback: the 4-D input has 84 PE columns and the NeRF kernels
+    take one 64-column block (`check_envelope`), so no kernel is tried."""
     compute_dtype = DTYPES[opt.compute_dtype]
     origin, direction, color = batch["origin"], batch["direction"], batch["color"]
     dir_norm = torch.linalg.norm(direction, dim=-1)
     depth = batch["depth"][:, None]
 
-    def run(net, z):
-        planes = [origin[:, a, None] + direction[:, a, None] * z for a in range(3)]
-        dirp = dir_projection(spec, net, direction, compute_dtype)
-        return mlp(spec, net, *planes, dir_part=dirp, compute_dtype=compute_dtype)
+    if opt.ablate_nerft:
+        def run(joiner, z):
+            r, s = z.shape
+            pts = origin[:, None, :] + direction[:, None, :] * z[..., None]
+            pts = torch.cat([pts, batch["viewf_list"][:, None].expand(r, s, 1)], dim=-1)
+            out = joiner(pts, direction[:, None, :].expand(r, s, 3))
+            return out[..., 3], [out[..., c] for c in range(3)]
+    else:
+        mlp = with_tape_mode(mlp, opt.mlp_tape)
 
-    def losses(net, z):
-        sigma, rgb_c = run(net, z)
+        def run(joiner, z):
+            net = joiner.nerf
+            planes = [origin[:, a, None] + direction[:, a, None] * z for a in range(3)]
+            dirp = dir_projection(spec, net, direction, compute_dtype)
+            return mlp(spec, net, *planes, dir_part=dirp, compute_dtype=compute_dtype)
+
+    def losses(joiner, z):
+        sigma, rgb_c = run(joiner, z)
         rgb, _, _, weights, _ = volume.integrate_planar(
-            sigma, rgb_c, z, dir_norm, opt.white_bkg, opt.raw_noise_std, generator)
+            sigma, rgb_c, z, dir_norm, opt.white_bkg, opt.raw_noise_std, generator, mesh=mesh)
         closer = (z < depth * opt.margin).float()
-        empty = _masked_penalty(sigma, closer, opt.empty_space_loss_fn) * penalty_weight
-        return torch.mean((rgb - color) ** 2), empty, weights, sigma.detach().max()
+        empty = _masked_penalty(sigma, closer, opt.empty_space_loss_fn, mesh) * penalty_weight
+        return pmesh.mean((rgb - color) ** 2, mesh), empty, weights, sigma.detach().max()
 
     z = ray_ops.sample_z_vals(batch["near"], batch["far"], opt.samples_per_ray,
-                              perturb=opt.perturb, generator=generator)
-    c_rgb, c_emp, weights, c_max = losses(params["coarse"].nerf, z)
+                              perturb=opt.perturb, generator=generator, mesh=mesh)
+    c_rgb, c_emp, weights, c_max = losses(params["coarse"], z)
     f_z = volume.importance_z(z, weights, opt.importance_samples_per_ray)
-    f_rgb, f_emp, _, f_max = losses(params["fine"].nerf, f_z)
+    f_rgb, f_emp, _, f_max = losses(params["fine"], f_z)
     aux = {
         "coarse_rgb_loss": c_rgb, "coarse_empty_space_loss": c_emp,
         "fine_rgb_loss": f_rgb, "fine_empty_space_loss": f_emp,
@@ -133,30 +150,46 @@ def bkg_loss_fn(params, spec, batch, opt, penalty_weight, generator=None, mlp=ne
     return c_rgb, c_emp, f_rgb, f_emp, aux
 
 
-def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn):
+def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn, mesh=None):
     """train_step(state, batch) -> (state, metrics), updating in place;
     `mlp` the differentiable MLP, as in bkg_loss_fn.
 
     state: {"params": {"coarse", "fine"} Joiners, "opt_state", "iteration"
     (int), "generator" (the device draws), "init_generator" (a CPU
-    generator for the dead-net restart)}. metrics are tensors, not read."""
+    generator for the dead-net restart)}. metrics are tensors, not read.
+
+    With a data `mesh` (parallel/mesh.py) `batch` is the whole batch, as
+    every rank draws it; the step takes this rank's rows, sums the
+    gradients and the losses over the ranks in one all-reduce and takes the
+    maxima of the densities in another, so every rank makes the unsharded
+    step's update, skip and restart; metrics are the global values."""
 
     def train_step(state, batch):
+        batch = pmesh.shard_leading_axis(batch, mesh)
         it = state["iteration"]
         penalty_weight = opt.penalize_empty_space * max(0.0, 1.0 - it / 60000.0)
         lr = opt.learning_rate * 0.1 ** (it / (opt.lrate_decay * 1000.0))
         named = named_params(state["params"])
         c_rgb, c_emp, f_rgb, f_emp, aux = bkg_loss_fn(
-            state["params"], spec, batch, opt, penalty_weight, state["generator"], mlp=mlp)
+            state["params"], spec, batch, opt, penalty_weight, state["generator"], mlp=mlp,
+            mesh=mesh)
         total = c_rgb + f_rgb + (c_emp + f_emp if it >= opt.delay_iters else 0.0)
         aux["total_loss"] = total.detach()
         flat = [(k, n, p) for k, ps in named.items() for n, p in ps.items()]
         g = torch.autograd.grad(total, [p for _, _, p in flat])
+        if mesh is not None:
+            sums = [k for k in aux if "sigma" not in k]
+            reduced = pmesh.all_reduce_flat(mesh, list(g) + [aux[k].detach() for k in sums])
+            g = reduced[:len(g)]
+            aux.update(zip(sums, reduced[len(g):]))
+            maxima = mesh.all_reduce(torch.stack([aux["max_sigma_coarse"], aux["max_sigma_fine"]]),
+                                     op="max")
+            aux["max_sigma_coarse"], aux["max_sigma_fine"] = maxima[0], maxima[1]
         grads = {k: {} for k in named}
         for (k, n, _), gk in zip(flat, g):
             grads[k][n] = gk
         dead = (aux["max_sigma_coarse"] <= 0.0) | (aux["max_sigma_fine"] <= 0.0)
-        bad = dead | torch.isnan(total.detach())
+        bad = dead | torch.isnan(aux["total_loss"])
         optimizer.step(named, grads, state["opt_state"], lr, bad)
         dead_now = bool(dead.item())  # the step's one read back
         if dead_now:  # dead-network restart; the optimizer state is kept
@@ -174,7 +207,12 @@ def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn):
 class NeRFTrainer:
     """Host loop: validation cadence, checkpoints, metrics (structure of
     the JAX NeRFTrainer). `params` {"coarse", "fine"} Joiners on `device`;
-    `mlp` the differentiable MLP of the loss (bkg_loss_fn)."""
+    `mlp` the differentiable MLP of the loss (bkg_loss_fn).
+
+    The data mesh comes from `resolve_mesh(opt)`: with one, every rank
+    trains on its rows of each batch, rank 0 alone validates and writes
+    checkpoints and metrics while the others wait at a barrier, and a
+    resume reads the checkpoint on every rank."""
 
     def __init__(self, opt, spec, params, scene, train_views, val_views, device="cuda",
                  mlp=nerf_mlp_fn):
@@ -197,7 +235,9 @@ class NeRFTrainer:
             "generator": torch.Generator(self.device).manual_seed(opt.seed),
             "init_generator": torch.Generator().manual_seed(opt.seed + 1),
         }
-        self.step_fn = make_bkg_train_step(spec, opt, self.optimizer, mlp)
+        self.mesh = pmesh.resolve_mesh(opt)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.step_fn = make_bkg_train_step(spec, opt, self.optimizer, mlp, mesh=self.mesh)
         self.pusher = tlog.MetricsPusher(opt)
         self.meter = tlog.ThroughputMeter(
             opt.rays_per_batch * (2 * opt.samples_per_ray + 2 * opt.importance_samples_per_ray))
@@ -205,12 +245,15 @@ class NeRFTrainer:
             self.resume()
         elif opt.load_weights:
             self.load_pretrained_weights()
+        pmesh.put_replicated([self.state["params"], self.state["opt_state"]], self.mesh)
 
     @property
     def iteration(self):
         return self.state["iteration"]
 
     def draw_batch(self, view_ids=None, generator=None):
+        """A whole batch (with a mesh, each rank draws it; the step keeps
+        the rank's rows)."""
         return sampler.sample_background_batch(
             generator or self.state["generator"], self.arrays,
             self.train_ids if view_ids is None else view_ids, self.opt.rays_per_batch,
@@ -228,7 +271,7 @@ class NeRFTrainer:
             if self.iteration % opt.valid_iter == 0:
                 self.validate()
             metrics = self.train_step()
-            if self.iteration % push_every == 0:
+            if self.is_main and self.iteration % push_every == 0:
                 scalars = {f"train_loss/{k}": float(v) for k, v in metrics.items() if "loss" in k}
                 scalars["params/lr"] = metrics["lr"]
                 scalars["params/penalize_empty_space"] = metrics["penalize_empty_space"]
@@ -239,7 +282,16 @@ class NeRFTrainer:
     def validate(self):
         """Losses on a batch of the validation views, a background render of
         the middle one (written as `val_<iteration:08d>.png` beside
-        metrics.jsonl; `last_val_images` keeps its path), and a checkpoint."""
+        metrics.jsonl; `last_val_images` keeps its path), and a checkpoint;
+        with a mesh on rank 0 alone, the other ranks waiting. Under the
+        NeRF-T ablation the render takes the view's time channel, which the
+        JAX validation leaves out (and so raises there)."""
+        if self.is_main:
+            self._validate()
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _validate(self):
         opt = self.opt
         gen = torch.Generator(self.device).manual_seed(self.iteration)
         pw = opt.penalize_empty_space * max(0.0, 1.0 - self.iteration / 60000.0)
@@ -257,7 +309,7 @@ class NeRFTrainer:
                 self.state["params"]["fine"].nerf, self.device,
                 rays_per_batch=opt.rays_per_batch, samples_per_ray=opt.samples_per_ray,
                 importance_samples_per_ray=opt.importance_samples_per_ray,
-                white_bkg=opt.white_bkg)
+                white_bkg=opt.white_bkg, ablate_nerft=opt.ablate_nerft)
             self.last_val_rgb = rgb
             self.last_val_images = self.pusher.push_images(self.iteration,
                                                            {"val": rgb.cpu().numpy()})

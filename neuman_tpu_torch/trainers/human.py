@@ -45,6 +45,7 @@ from neuman_tpu_torch.ops import volume
 from neuman_tpu_torch.ops.kernels.nerf_mlp import dir_projection, nerf_mlp_plain
 from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import nerf_mlp_fn, with_tape_mode
 from neuman_tpu_torch.ops.kernels.offset_mlp import offset_mlp_fn, offset_mlp_plain
+from neuman_tpu_torch.parallel import mesh as pmesh
 from neuman_tpu_torch.trainers import checkpoint as ckpt
 from neuman_tpu_torch.trainers import logging as tlog
 from neuman_tpu_torch.trainers.background import DTYPES, make_optimizer
@@ -140,10 +141,6 @@ def build_pose_grad_masks(scene, view_indices, device=None):
     return torch.as_tensor(np.stack(masks), device=device)
 
 
-def _masked_mean(values, mask):
-    return (values * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-
-
 def clustered_box_points(generator, r, s, group=1, half=1.5, jitter=0.005, device=None):
     """[r, s, 3] uniform dummy samples in the [-half, half]^3 box (the
     shape regulariser's domain), drawn in groups of `group` consecutive
@@ -162,14 +159,23 @@ def clustered_box_points(generator, r, s, group=1, half=1.5, jitter=0.005, devic
     return (t - half).reshape(r, s, 3)
 
 
-def _hard_surface(x):
-    return torch.mean(-torch.log(torch.exp(-x.abs()) + torch.exp(-(1 - x).abs()))
-                      + HARD_SURFACE_OFFSET)
+def _hard_surface(x, mesh=None):
+    return pmesh.mean(-torch.log(torch.exp(-x.abs()) + torch.exp(-(1 - x).abs()))
+                      + HARD_SURFACE_OFFSET, mesh)
 
 
-def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
+def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=None):
     """loss_fn(batch, generator, anneals) -> (total, {"losses", "dead"}) for
     the HumanNeRF `model` (nets and SMPL state).
+
+    With a data `mesh` (parallel/mesh.py) the batch is this rank's rows
+    and every loss is this rank's share of the global one: each draw is
+    made at the global shape and sliced (the sparsity term's canonical rays
+    too, so that it counts once in all), each mean divides by the global
+    count, the LPIPS patch's fine colours are gathered from every rank and
+    rank 0 scores the patch (its gradient comes back to every rank's rows),
+    and the dead-net test is the maximum over the ranks. The pinned draws
+    of `parity_inject` then hold every rank's rows.
 
     ctx: body_model, da_smpl, scale, topo, can_verts [N, V, 3], can_k
     [C, 3, 3], can_c2w [C, 4, 4], can_hw, interval_comp, lpips_params,
@@ -220,7 +226,7 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
     def eval_human(batch, generator, offset_scale):
         origin, direction = batch["origin"], batch["direction"]
         z = ray_ops.sample_z_vals(batch["human_near"], batch["human_far"], opt.samples_per_ray,
-                                  perturb=opt.perturb, generator=generator)
+                                  perturb=opt.perturb, generator=generator, mesh=mesh)
         r, s = z.shape
         planes = ray_planes(origin, direction, z)
         t_plane = batch["cur_view_f"].expand(r, s).contiguous()
@@ -239,31 +245,39 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
         norm = torch.sqrt(diffs[0] ** 2 + diffs[1] ** 2 + diffs[2] ** 2) + 1e-20
         return z, can_planes, [p / norm for p in diffs]
 
+    def pinned(key, device):  # a pinned draw holds every rank's rows
+        return lambda n: torch.as_tensor(pi[key], dtype=torch.float32, device=device)
+
     def color_dummy_dirs(generator, r, s, device):
         if "color_dirs" in pi:
-            dummy = torch.as_tensor(pi["color_dirs"], dtype=torch.float32, device=device)
+            draw = pinned("color_dirs", device)
         else:
-            dummy = torch.randn(r, s, 3, generator=generator, device=device)
-            dummy = dummy / torch.linalg.norm(dummy, dim=-1, keepdim=True)
+            def draw(n):
+                dummy = torch.randn(n, s, 3, generator=generator, device=device)
+                return dummy / torch.linalg.norm(dummy, dim=-1, keepdim=True)
+        dummy = pmesh.draw_rows(draw, r, mesh)
         return [dummy[..., a] for a in range(3)]
 
     def shape_dummy_planes(generator, r, s, device):
         if "dummy_pts" in pi:
-            dummy = torch.as_tensor(pi["dummy_pts"], dtype=torch.float32, device=device)
+            draw = pinned("dummy_pts", device)
         else:
             # clustered, so that the group KNN stride applies to them too
-            dummy = clustered_box_points(generator, r, s, group=knn_stride, device=device)
+            draw = lambda n: clustered_box_points(generator, n, s, group=knn_stride,
+                                                  device=device)
+        dummy = pmesh.draw_rows(draw, r, mesh)
         return [dummy[..., a] for a in range(3)]
 
     def color_range_reg(d_rgb, rgb_c, weight):
         r, s = rgb_c[0].shape
+        rows = r if mesh is None else r * mesh.size
         se = sum(((torch.sigmoid(d_rgb[c]) - torch.sigmoid(rgb_c[c])) ** 2).sum()
                  for c in range(3))
-        return se / (3 * r * s) * weight
+        return se / (3 * rows * s) * weight
 
     def sym_reg(sg, sg_flip, weight):
-        return torch.mean((torch.tanh(torch.relu(sg)) - torch.tanh(torch.relu(sg_flip))) ** 2
-                          ) * weight
+        return pmesh.mean((torch.tanh(torch.relu(sg)) - torch.tanh(torch.relu(sg_flip))) ** 2,
+                          mesh) * weight
 
     def shape_reg(batch, can_planes, sg, d_planes, d_sg, w_alpha, w_dummy):
         cap = batch["cap_id"]
@@ -277,13 +291,13 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
             dummy_flat = torch.stack([p.reshape(-1) for p in d_planes], dim=-1)
             sd_d = mesh_ops.signed_distance(dummy_flat, verts, topo, **sd_kw)[0]
         occ = 1.0 - torch.exp(-torch.relu(sg.reshape(-1)))
-        reg = _masked_mean((occ - 1.0) ** 2, (sd < 0).float()) * w_alpha
+        reg = pmesh.masked_mean((occ - 1.0) ** 2, (sd < 0).float(), mesh) * w_alpha
         d_occ = 1.0 - torch.exp(-torch.relu(d_sg.reshape(-1)))
-        reg = reg + _masked_mean((d_occ - 1.0) ** 2, (sd_d < 0).float()) * w_dummy
+        reg = reg + pmesh.masked_mean((d_occ - 1.0) ** 2, (sd_d < 0).float(), mesh) * w_dummy
         outside_val = d_occ * torch.pow(sd_d.abs() * opt.penalize_outside_factor,
                                         opt.dist_exponent)
         outside_val = outside_val ** 2 if opt.penalize_outside_loss == "mse" else outside_val.abs()
-        return reg + _masked_mean(outside_val, (sd_d > 0).float()) * w_dummy
+        return reg + pmesh.masked_mean(outside_val, (sd_d > 0).float(), mesh) * w_dummy
 
     def sparsity_reg(generator, device):
         h, w = ctx["can_hw"]
@@ -296,12 +310,15 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
                                                    device=device)
             c = draw(ctx["can_k"].shape[0], ())
             x, y = draw(w, (NUM_CAN_RAYS,)).float(), draw(h, (NUM_CAN_RAYS,)).float()
-        origin, direction = ray_ops.pixels_to_rays(torch.stack([x, y], dim=-1), ctx["can_k"][c],
-                                                   ctx["can_c2w"][c])
-        near = torch.zeros(NUM_CAN_RAYS, 1, device=device)
-        far = torch.full((NUM_CAN_RAYS, 1), CANONICAL_CAMERA_DIST * 1.667, device=device)
+        xy = torch.stack([x, y], dim=-1)
+        if mesh is not None:  # every rank's rays were drawn: this rank renders its rows
+            xy = mesh.shard(xy)
+        origin, direction = ray_ops.pixels_to_rays(xy, ctx["can_k"][c], ctx["can_c2w"][c])
+        n = xy.shape[0]
+        near = torch.zeros(n, 1, device=device)
+        far = torch.full((n, 1), CANONICAL_CAMERA_DIST * 1.667, device=device)
         z = ray_ops.sample_z_vals(near, far, opt.samples_per_ray, perturb=opt.perturb,
-                                  generator=generator)
+                                  generator=generator, mesh=mesh)
         net = model.coarse_human_net.nerf
         dirp = dir_projection(spec.human, net, direction, cd)
         sg, rgb_c = ops.mlp(spec.human, net, *ray_planes(origin, direction, z), dir_part=dirp,
@@ -311,9 +328,9 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
             sg * ctx["interval_comp"], rgb_c, z, dir_norm, white_bkg=True)
         reg = 0.0
         if opt.penalize_sharp_edge > 0:
-            reg = reg + _hard_surface(can_mask.clamp(0.0, 1.0)) * opt.penalize_sharp_edge
+            reg = reg + _hard_surface(can_mask.clamp(0.0, 1.0), mesh) * opt.penalize_sharp_edge
         if opt.penalize_hard_surface > 0:
-            reg = reg + _hard_surface(can_w.clamp(0.0, 1.0)) * opt.penalize_hard_surface
+            reg = reg + _hard_surface(can_w.clamp(0.0, 1.0), mesh) * opt.penalize_hard_surface
         return reg
 
     def loss_fn(batch, generator, anneals):
@@ -362,8 +379,8 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
             human_mask = volume.integrate_planar(h_sg, h_rgb_c, human_z, dir_norm,
                                                  opt.white_bkg)[2]
             tgt = (1 - batch["is_bkg"]).float()
-            losses["mask_loss"] = torch.mean((human_mask.clamp(0.0, 1.0) - tgt) ** 2
-                                             ) * anneals["mask_w"]
+            losses["mask_loss"] = pmesh.mean((human_mask.clamp(0.0, 1.0) - tgt) ** 2,
+                                             mesh) * anneals["mask_w"]
         if opt.penalize_sharp_edge > 0 or opt.penalize_hard_surface > 0:
             losses["sparsity_reg"] = sparsity_reg(generator, device)
 
@@ -372,17 +389,27 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS):
         fine_rgb_map = volume.integrate_planar(total_sg, total_rgb_c, total_z, dir_norm,
                                                opt.white_bkg)[0]
         se = torch.mean((fine_rgb_map - batch["color"]) ** 2, dim=-1)
-        losses["fine_rgb_loss"] = _masked_mean(se, batch["is_hit"].float())
+        losses["fine_rgb_loss"] = pmesh.masked_mean(se, batch["is_hit"].float(), mesh)
 
         if opt.penalize_lpips > 0 and ctx["lpips_params"] is not None:
-            as_img = lambda t: t[:PATCH_SIZE_SQUARED].reshape(
-                PATCH_SIZE, PATCH_SIZE, 3).permute(2, 0, 1)[None] * 2 - 1
-            d = lpips_module.lpips(ctx["lpips_params"], as_img(fine_rgb_map),
-                                   as_img(batch["color"]))[0]
-            losses["lpips_loss"] = d * opt.penalize_lpips * batch["patch_counter"].float()
+            rgb_all, color_all = fine_rgb_map, batch["color"]
+            if mesh is not None:  # the patch may straddle ranks: every rank's rows
+                rgb_all, color_all = mesh.gather_rows(rgb_all), mesh.gather_rows(color_all)
+            if mesh is None or mesh.rank == 0:
+                as_img = lambda t: t[:PATCH_SIZE_SQUARED].reshape(
+                    PATCH_SIZE, PATCH_SIZE, 3).permute(2, 0, 1)[None] * 2 - 1
+                d = lpips_module.lpips(ctx["lpips_params"], as_img(rgb_all), as_img(color_all))[0]
+                losses["lpips_loss"] = d * opt.penalize_lpips * batch["patch_counter"].float()
+            else:
+                # rank 0 scores the patch; this rank's share is 0, but its loss
+                # must reach gather_rows, whose backward every rank joins
+                losses["lpips_loss"] = 0.0 * rgb_all[:PATCH_SIZE_SQUARED].sum()
 
         # a dead canonical net zeroes every loss and is restarted by the step
-        dead = h_sg.detach().max() <= 0.0
+        h_max = h_sg.detach().max()
+        if mesh is not None:
+            h_max = mesh.all_reduce(h_max.clone(), op="max")
+        dead = h_max <= 0.0
         losses = {k: torch.where(dead, 0.0, v) for k, v in losses.items()}
         losses["rgb_loss"] = (losses["fine_rgb_loss"] + losses["color_range_reg"]
                               + losses["lpips_loss"])
@@ -461,7 +488,8 @@ def warn_lpips_divergence(opt, ctx):
     return skipped
 
 
-def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KERNELS):
+def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KERNELS,
+                          mesh=None):
     """train_step(state, batch) -> (state, metrics), updating `model` and
     the optimiser state in place. state: {"opt_state", "iteration" (int),
     "generator" (the device draws), "init_generator" (a CPU generator for
@@ -469,9 +497,15 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
     canonical net died); the skip itself is decided on the device. The
     step is deterministic: two runs from one seed give the same bits (on
     the card too: cuDNN's deterministic convolutions, TF32 off), and the
-    caller's cuDNN flags are as they were after it."""
+    caller's cuDNN flags are as they were after it.
+
+    With a data `mesh` (parallel/mesh.py) `batch` is the whole batch, as
+    every rank draws it; the step takes this rank's rows and sums the
+    gradients and the losses over the ranks in one all-reduce, so every
+    rank makes the unsharded step's update, skip and restart; metrics are
+    the global values."""
     lpips_skipped = warn_lpips_divergence(opt, ctx)
-    loss_fn = make_human_loss_fn(model, opt, ctx, parity_inject, ops)
+    loss_fn = make_human_loss_fn(model, opt, ctx, parity_inject, ops, mesh=mesh)
 
     def train_step(state, batch):
         # the whole step (loss, autograd.grad, the update) in one scope:
@@ -483,6 +517,7 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
             return _step(state, batch)
 
     def _step(state, batch):
+        batch = pmesh.shard_leading_axis(batch, mesh)
         it = state["iteration"]
         anneals = compute_anneals(opt, it)
         total, aux = loss_fn(batch, state["generator"], anneals)
@@ -490,10 +525,16 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
         flat = [(k, n, p) for k, ps in named.items() for n, p in ps.items()]
         g = torch.autograd.grad(total, [p for _, _, p in flat], allow_unused=True)
         grads = {k: {} for k in named}
-        for (k, n, p), gk in zip(flat, g):
-            grads[k][n] = torch.zeros_like(p) if gk is None else gk
+        g = [torch.zeros_like(p) if gk is None else gk for (_, _, p), gk in zip(flat, g)]
+        if mesh is not None:
+            names = list(aux["losses"])
+            reduced = pmesh.all_reduce_flat(mesh, g + [aux["losses"][k].detach() for k in names])
+            g = reduced[:len(g)]
+            aux["losses"].update(zip(names, reduced[len(g):]))
+        for (k, n, _), gk in zip(flat, g):
+            grads[k][n] = gk
         dead = aux["dead"]
-        bad = dead | torch.isnan(total.detach())
+        bad = dead | torch.isnan(aux["losses"]["total_loss"].detach())
         # DensePose gating: joints of body parts a frame does not show
         if opt.block_grad:
             grads["poses"]["poses"] = grads["poses"]["poses"] * ctx["grad_masks"]
@@ -522,7 +563,11 @@ class HumanNeRFTrainer:
     metrics (structure of the JAX HumanNeRFTrainer). `model`: a HumanNeRF
     with its SMPL state, on `device`. `scene` is duck-typed as the JAX
     package's Scene: what `build_scene_arrays` reads, and static_vert
-    [N][V, 3], faces, scale, and per capture an optional `densepose` map."""
+    [N][V, 3], faces, scale, and per capture an optional `densepose` map.
+
+    The data mesh comes from `resolve_mesh(opt)`, as in NeRFTrainer: each
+    rank trains on its rows of each batch; rank 0 alone validates and
+    writes, the others waiting at a barrier."""
 
     def __init__(self, opt, model, scene, train_views, val_views, body_model,
                  interval_comp=1.0, lpips_params=None, device="cuda", ops=KERNELS):
@@ -569,7 +614,10 @@ class HumanNeRFTrainer:
             "generator": torch.Generator(self.device).manual_seed(opt.seed),
             "init_generator": torch.Generator().manual_seed(opt.seed + 1),
         }
-        self.step_fn = make_human_train_step(model, opt, self.optimizer, self.ctx, ops=ops)
+        self.mesh = pmesh.resolve_mesh(opt)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.step_fn = make_human_train_step(model, opt, self.optimizer, self.ctx, ops=ops,
+                                             mesh=self.mesh)
         self.loss_fn = make_human_loss_fn(model, opt, self.ctx, ops=ops)
         self.pusher = tlog.MetricsPusher(opt)
         self.meter = tlog.ThroughputMeter(opt.rays_per_batch * 4 * opt.samples_per_ray)
@@ -577,12 +625,15 @@ class HumanNeRFTrainer:
             self.resume()
         elif opt.load_weights:
             self.load_pretrained_weights()
+        pmesh.put_replicated([model, self.state["opt_state"]], self.mesh)
 
     @property
     def iteration(self):
         return self.state["iteration"]
 
     def draw_batch(self, view_ids=None, generator=None):
+        """A whole batch (with a mesh, each rank draws it; the step keeps
+        the rank's rows)."""
         opt = self.opt
         return sampler.sample_human_batch(
             generator or self.state["generator"], self.arrays,
@@ -603,7 +654,7 @@ class HumanNeRFTrainer:
             if self.iteration % opt.valid_iter == 0:
                 self.validate()
             metrics = self.train_step()
-            if self.iteration % push_every == 0:
+            if self.is_main and self.iteration % push_every == 0:
                 scalars = {f"train_loss/{k}": float(v) for k, v in metrics.items()
                            if "loss" in k or "reg" in k}
                 for k in ("lr", "offset_scale", "penalize_mask"):
@@ -617,7 +668,14 @@ class HumanNeRFTrainer:
         render of canonical camera 0 (white background, with its depth and
         acc maps, the depth clipped to the solid region) and the current body
         shaded over the middle training view, written as PNGs beside
-        metrics.jsonl (`last_val_images` keeps their paths); a checkpoint."""
+        metrics.jsonl (`last_val_images` keeps their paths); a checkpoint.
+        With a mesh on rank 0 alone, the other ranks waiting."""
+        if self.is_main:
+            self._validate()
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _validate(self):
         gen = torch.Generator(self.device).manual_seed(self.iteration + 1)
         with torch.no_grad():
             batch = self.draw_batch(self.val_ids, gen)

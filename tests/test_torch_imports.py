@@ -81,6 +81,8 @@ MODULES = (
     "neuman_tpu_torch.preprocess.alignment",
     "neuman_tpu_torch.preprocess.cli",
     "neuman_tpu_torch.preprocess.gen_run",
+    "neuman_tpu_torch.parallel.mesh",
+    "neuman_tpu_torch.parallel.dryrun",
     "chip_smoke",
 )
 
