@@ -3,7 +3,6 @@
 import torch
 
 from neuman_tpu_torch.ops.precision import matmul_f32
-from neuman_tpu_torch.parallel.mesh import draw_rows
 from neuman_tpu_torch.utils.constants import PERTURB_EPSILON
 
 
@@ -28,20 +27,18 @@ def pixels_to_rays(xy, intrinsic, cam2world):
     return origin.expand_as(dirs), dirs
 
 
-def sample_z_vals(near, far, samples_per_ray, perturb=0.0, generator=None, mesh=None):
+def sample_z_vals(near, far, samples_per_ray, perturb=0.0, generator=None, rand=torch.rand):
     """z values [R, S] between near and far ([R] or [R, 1]): evenly spaced,
     or with perturb > 0 one uniform draw from `generator` (a torch.Generator
     on near's device) inside each stratum, clipped away from its edges.
-    With a data `mesh` the rays are this rank's rows, and the draw is
-    this rank's rows of the draw for every rank's rays."""
+    `rand` draws it (torch.rand's signature)."""
     t = torch.linspace(0.0, 1.0, samples_per_ray, device=near.device)
     z = near.reshape(-1, 1) * (1.0 - t) + far.reshape(-1, 1) * t
     if perturb > 0.0:
         mids = 0.5 * (z[:, 1:] + z[:, :-1])
         upper = torch.cat([mids, z[:, -1:]], dim=-1)
         lower = torch.cat([z[:, :1], mids], dim=-1)
-        u = draw_rows(lambda n: torch.rand((n, z.shape[1]), generator=generator,
-                                           device=z.device), z.shape[0], mesh)
+        u = rand(z.shape, generator=generator, device=z.device)
         z = lower + (upper - lower) * u.clamp(PERTURB_EPSILON, 1 - PERTURB_EPSILON)
     return z
 

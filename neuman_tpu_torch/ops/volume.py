@@ -10,7 +10,6 @@ rank merge of the JAX package exist for the TPU's layout only.
 import torch
 
 from neuman_tpu_torch.ops.rays import sample_pdf, sample_z_vals
-from neuman_tpu_torch.parallel.mesh import draw_rows
 
 sample_z = sample_z_vals
 
@@ -34,18 +33,17 @@ def sort_merge_planar(z_list, sigma_list, rgb_c_list):
 
 
 def integrate_planar(sigma, rgb_c, z_vals, dir_norm, white_bkg=True,
-                     raw_noise_std=0.0, generator=None, mesh=None):
+                     raw_noise_std=0.0, generator=None, randn=torch.randn):
     """Volume rendering of raw outputs. sigma, z_vals [R, S]; rgb_c 3x[R, S];
     dir_norm [R]. With raw_noise_std > 0 the densities get Gaussian noise
-    drawn from `generator` (on sigma's device; with a data `mesh`, this
-    rank's rows of the draw for every rank's rays). Returns (rgb [R, 3],
-    disp [R], acc [R], weights [R, S], depth [R])."""
+    drawn from `generator` (on sigma's device) by `randn` (torch.randn's
+    signature). Returns (rgb [R, 3], disp [R], acc [R], weights [R, S],
+    depth [R])."""
     dists = z_vals[:, 1:] - z_vals[:, :-1]
     dists = torch.cat([dists, torch.full_like(dists[:, :1], 1e10)], dim=-1)
     dists = dists * dir_norm[:, None]
     if raw_noise_std > 0.0:
-        noise = draw_rows(lambda n: torch.randn((n, sigma.shape[1]), generator=generator,
-                                                device=sigma.device), sigma.shape[0], mesh)
+        noise = randn(sigma.shape, generator=generator, device=sigma.device)
         sigma = sigma + noise * raw_noise_std
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     trans = torch.cumprod(

@@ -11,8 +11,9 @@ result:
   from the same seed, and `put_replicated` broadcasts rank 0's;
 - every rank draws the whole batch, and every random draw inside the loss,
   at the global shape from identical generators, and keeps its contiguous
-  block of rows (`shard_leading_axis`, `draw_rows`). Rows are rays, so the
-  group-KNN stride's groups of consecutive samples along a ray stay whole;
+  block of rows (`shard_leading_axis`, `draw_rows`, `sharded_draw`). Rows
+  are rays, so the group-KNN stride's groups of consecutive samples along
+  a ray stay whole;
 - a mean over rays or samples divides this rank's sum by the global count
   (`mean`, `masked_mean`; a count that comes from a mask is all-reduced
   first), so that the losses of the ranks sum to the global loss, and their
@@ -69,50 +70,37 @@ def maybe_init_distributed(backend="nccl"):
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
     """This rank's place on the data axis: `rank` of the `size` processes
-    of the default process group. With gloo, CUDA tensors go through host
-    copies (`via_host`): the collectives are given CPU tensors only, which
-    every gloo build takes."""
+    of the default process group."""
 
     rank: int
     size: int
     axis: str = "data"
-    via_host: bool = False
 
     @classmethod
     def of_process_group(cls, axis="data"):
-        return cls(dist.get_rank(), dist.get_world_size(), axis,
-                   via_host=dist.get_backend() == "gloo")
+        return cls(dist.get_rank(), dist.get_world_size(), axis)
 
     def rows(self, n):
         """This rank's contiguous block of n rows."""
         if n % self.size:
-            raise ValueError(f"{n} rows do not split over {self.size} ranks: choose a batch "
-                             f"whose ray count the world size divides")
+            raise ValueError(f"a batch of {n} rays does not split over {self.size} ranks: "
+                             "choose a rays_per_batch that the world size divides")
         k = n // self.size
         return slice(self.rank * k, (self.rank + 1) * k)
 
     def shard(self, x):
         return x[self.rows(x.shape[0])]
 
-    def _run(self, collective, t):
-        if self.via_host and t.is_cuda:
-            host = t.cpu()
-            collective(host)
-            return host.to(t.device)
-        collective(t)
-        return t
-
     def all_reduce(self, t, op="sum"):
-        """The sum (or "max") of `t` over the ranks: `t` reduced in place
-        (with `via_host`, a new tensor); returns it."""
+        """The sum (or "max") of `t` over the ranks, reduced in place;
+        returns `t`."""
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        return self._run(lambda x: dist.all_reduce(x, op=red), t)
+        dist.all_reduce(t, op=red)
+        return t
 
     def broadcast(self, t):
         """Rank 0's `t` on every rank, in place; returns it."""
-        out = self._run(lambda x: dist.broadcast(x, src=0), t)
-        if out is not t:
-            t.copy_(out)
+        dist.broadcast(t, src=0)
         return t
 
     def gather_rows(self, t):
@@ -129,10 +117,10 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh):
         ctx.mesh = mesh
-        src = t.detach().cpu() if mesh.via_host else t.detach().contiguous()
+        src = t.detach().contiguous()
         parts = [torch.empty_like(src) for _ in range(mesh.size)]
         dist.all_gather(parts, src)
-        return torch.cat(parts).to(t.device)
+        return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
@@ -144,7 +132,8 @@ def resolve_mesh(opt):
     """The run's data mesh from the config, as the JAX package resolves it:
     data_parallel "auto" gives a mesh over the process group when there
     is more than one process, "on" even with one, "off" none. "off" with
-    more than one process raises: the ranks would each train apart. A mesh
+    more than one process raises: the ranks would each train apart, and
+    so does a rays_per_batch that the world size does not divide. A mesh
     needs the process group (`maybe_init_distributed`)."""
     dp = opt.data_parallel
     if dp not in ("auto", "on", "off"):
@@ -160,7 +149,9 @@ def resolve_mesh(opt):
     if not dist.is_initialized():
         raise ValueError("data_parallel on needs a process group: launch with torchrun (or set "
                          "NEUMAN_TPU_DISTRIBUTED=1 and the torchrun variables)")
-    return DataMesh.of_process_group(axis=opt.data_axis)
+    mesh = DataMesh.of_process_group(axis=opt.data_axis)
+    mesh.rows(opt.rays_per_batch)
+    return mesh
 
 
 def shard_leading_axis(batch, mesh):
@@ -180,6 +171,16 @@ def draw_rows(draw, n, mesh):
     if mesh is None:
         return draw(n)
     return mesh.shard(draw(n * mesh.size))
+
+
+def sharded_draw(draw, mesh):
+    """`draw` (torch.rand's signature: a shape, then keywords) made to give
+    this rank's rows of the draw at the global row count (`draw_rows`):
+    what the ops that draw (`sample_z_vals`, `integrate_planar`) take under
+    a mesh. No mesh: `draw`."""
+    if mesh is None:
+        return draw
+    return lambda shape, **kw: draw_rows(lambda n: draw((n, *shape[1:]), **kw), shape[0], mesh)
 
 
 def mean(x, mesh):

@@ -131,13 +131,15 @@ def bkg_loss_fn(params, spec, batch, opt, penalty_weight, generator=None, mlp=ne
     def losses(joiner, z):
         sigma, rgb_c = run(joiner, z)
         rgb, _, _, weights, _ = volume.integrate_planar(
-            sigma, rgb_c, z, dir_norm, opt.white_bkg, opt.raw_noise_std, generator, mesh=mesh)
+            sigma, rgb_c, z, dir_norm, opt.white_bkg, opt.raw_noise_std, generator,
+            randn=pmesh.sharded_draw(torch.randn, mesh))
         closer = (z < depth * opt.margin).float()
         empty = _masked_penalty(sigma, closer, opt.empty_space_loss_fn, mesh) * penalty_weight
         return pmesh.mean((rgb - color) ** 2, mesh), empty, weights, sigma.detach().max()
 
     z = ray_ops.sample_z_vals(batch["near"], batch["far"], opt.samples_per_ray,
-                              perturb=opt.perturb, generator=generator, mesh=mesh)
+                              perturb=opt.perturb, generator=generator,
+                              rand=pmesh.sharded_draw(torch.rand, mesh))
     c_rgb, c_emp, weights, c_max = losses(params["coarse"], z)
     f_z = volume.importance_z(z, weights, opt.importance_samples_per_ray)
     f_rgb, f_emp, _, f_max = losses(params["fine"], f_z)

@@ -159,9 +159,9 @@ def clustered_box_points(generator, r, s, group=1, half=1.5, jitter=0.005, devic
     return (t - half).reshape(r, s, 3)
 
 
-def _hard_surface(x, mesh=None):
-    return pmesh.mean(-torch.log(torch.exp(-x.abs()) + torch.exp(-(1 - x).abs()))
-                      + HARD_SURFACE_OFFSET, mesh)
+def _hard_surface(x):
+    return torch.mean(-torch.log(torch.exp(-x.abs()) + torch.exp(-(1 - x).abs()))
+                      + HARD_SURFACE_OFFSET)
 
 
 def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=None):
@@ -170,12 +170,14 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
 
     With a data `mesh` (parallel/mesh.py) the batch is this rank's rows
     and every loss is this rank's share of the global one: each draw is
-    made at the global shape and sliced (the sparsity term's canonical rays
-    too, so that it counts once in all), each mean divides by the global
-    count, the LPIPS patch's fine colours are gathered from every rank and
-    rank 0 scores the patch (its gradient comes back to every rank's rows),
-    and the dead-net test is the maximum over the ranks. The pinned draws
-    of `parity_inject` then hold every rank's rows.
+    made at the global shape and sliced, each mean divides by the global
+    count, the sparsity term's canonical rays (not rays of the batch) are
+    rendered whole on every rank, which takes 1 / size of the term, the
+    LPIPS patch's fine colours are gathered from every rank and rank 0
+    scores the patch (its gradient comes back to every rank's rows), and
+    the dead-net test is the maximum over the ranks. The pinned draws of
+    `parity_inject` then hold every rank's rows (the canonical rays' are
+    the same on every rank).
 
     ctx: body_model, da_smpl, scale, topo, can_verts [N, V, 3], can_k
     [C, 3, 3], can_c2w [C, 4, 4], can_hw, interval_comp, lpips_params,
@@ -226,7 +228,8 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
     def eval_human(batch, generator, offset_scale):
         origin, direction = batch["origin"], batch["direction"]
         z = ray_ops.sample_z_vals(batch["human_near"], batch["human_far"], opt.samples_per_ray,
-                                  perturb=opt.perturb, generator=generator, mesh=mesh)
+                                  perturb=opt.perturb, generator=generator,
+                                  rand=pmesh.sharded_draw(torch.rand, mesh))
         r, s = z.shape
         planes = ray_planes(origin, direction, z)
         t_plane = batch["cur_view_f"].expand(r, s).contiguous()
@@ -300,6 +303,9 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
         return reg + pmesh.masked_mean(outside_val, (sd_d > 0).float(), mesh) * w_dummy
 
     def sparsity_reg(generator, device):
+        # not rays of the batch: every rank renders all of them from the
+        # same draws (its generator stays in step) and takes 1 / size of
+        # the term, so that the sum over the ranks is the unsharded term
         h, w = ctx["can_hw"]
         if "can_x" in pi:
             c = int(pi.get("can_cam", 0))
@@ -310,15 +316,12 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
                                                    device=device)
             c = draw(ctx["can_k"].shape[0], ())
             x, y = draw(w, (NUM_CAN_RAYS,)).float(), draw(h, (NUM_CAN_RAYS,)).float()
-        xy = torch.stack([x, y], dim=-1)
-        if mesh is not None:  # every rank's rays were drawn: this rank renders its rows
-            xy = mesh.shard(xy)
-        origin, direction = ray_ops.pixels_to_rays(xy, ctx["can_k"][c], ctx["can_c2w"][c])
-        n = xy.shape[0]
-        near = torch.zeros(n, 1, device=device)
-        far = torch.full((n, 1), CANONICAL_CAMERA_DIST * 1.667, device=device)
+        origin, direction = ray_ops.pixels_to_rays(torch.stack([x, y], dim=-1), ctx["can_k"][c],
+                                                   ctx["can_c2w"][c])
+        near = torch.zeros(NUM_CAN_RAYS, 1, device=device)
+        far = torch.full((NUM_CAN_RAYS, 1), CANONICAL_CAMERA_DIST * 1.667, device=device)
         z = ray_ops.sample_z_vals(near, far, opt.samples_per_ray, perturb=opt.perturb,
-                                  generator=generator, mesh=mesh)
+                                  generator=generator)
         net = model.coarse_human_net.nerf
         dirp = dir_projection(spec.human, net, direction, cd)
         sg, rgb_c = ops.mlp(spec.human, net, *ray_planes(origin, direction, z), dir_part=dirp,
@@ -328,10 +331,10 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
             sg * ctx["interval_comp"], rgb_c, z, dir_norm, white_bkg=True)
         reg = 0.0
         if opt.penalize_sharp_edge > 0:
-            reg = reg + _hard_surface(can_mask.clamp(0.0, 1.0), mesh) * opt.penalize_sharp_edge
+            reg = reg + _hard_surface(can_mask.clamp(0.0, 1.0)) * opt.penalize_sharp_edge
         if opt.penalize_hard_surface > 0:
-            reg = reg + _hard_surface(can_w.clamp(0.0, 1.0), mesh) * opt.penalize_hard_surface
-        return reg
+            reg = reg + _hard_surface(can_w.clamp(0.0, 1.0)) * opt.penalize_hard_surface
+        return reg if mesh is None else reg / mesh.size
 
     def loss_fn(batch, generator, anneals):
         device = batch["origin"].device

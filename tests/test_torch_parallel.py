@@ -31,8 +31,9 @@ KINDS = ("bkg", "human")
 
 
 class _Opt:
-    def __init__(self, data_parallel, data_axis="data"):
+    def __init__(self, data_parallel, data_axis="data", rays_per_batch=64):
         self.data_parallel, self.data_axis = data_parallel, data_axis
+        self.rays_per_batch = rays_per_batch
 
 
 def _train_with_validations(out_dir):
@@ -57,6 +58,11 @@ def _rank_work(jobs, out_dir):
         modes["off"] = "no error"
     except ValueError as e:
         modes["off"] = str(e)
+    try:
+        pmesh.resolve_mesh(_Opt("on", rays_per_batch=63))
+        modes["odd"] = "no error"
+    except ValueError as e:
+        modes["odd"] = str(e)
     # the gathered rows and their gradient
     rows = torch.arange(6.0).reshape(3, 2) + 10 * mesh.rank
     rows.requires_grad_(True)
@@ -119,12 +125,13 @@ def test_human_step_scores_the_straddling_patch(runs):
 
 def test_resolve_mesh_on_two_ranks(runs):
     """"auto" and "on" give this rank's place on the axis; "off" with two
-    processes raises."""
+    processes raises, and so does a batch that does not split over them."""
     ranks, _, _ = runs
     for rank, r in enumerate(ranks):
         assert r["modes"]["auto"] == (rank, WORLD)
         assert r["modes"]["on"] == (rank, WORLD, "rays")
         assert "each rank would train apart" in r["modes"]["off"]
+        assert "63 rays does not split over 2 ranks" in r["modes"]["odd"]
 
 
 @pytest.mark.parametrize("mode", ["auto", "on", "off"])
@@ -175,8 +182,8 @@ def test_rank_0_alone_writes_the_outputs(runs):
 
 def test_shards_and_draws_are_the_unsharded_rows():
     """shard_leading_axis keeps the 0-dim entries whole and gives each
-    rank a contiguous block; draw_rows gives a rank its rows of the
-    unsharded draw; an indivisible ray count raises."""
+    rank a contiguous block; draw_rows and sharded_draw give a rank its
+    rows of the unsharded draw; an indivisible ray count raises."""
     batch = {"origin": torch.arange(24.0).reshape(8, 3), "cap_id": torch.tensor(3)}
     gen = lambda: torch.Generator().manual_seed(4)
     whole = torch.rand(8, 5, generator=gen())
@@ -188,7 +195,11 @@ def test_shards_and_draws_are_the_unsharded_rows():
         g = gen()
         drawn = pmesh.draw_rows(lambda n: torch.rand(n, 5, generator=g), 2, mesh)
         assert torch.equal(drawn, whole[2 * rank:2 * rank + 2])
-    with pytest.raises(ValueError, match="do not split"):
+        g = gen()
+        drawn = pmesh.sharded_draw(torch.rand, mesh)((2, 5), generator=g)
+        assert torch.equal(drawn, whole[2 * rank:2 * rank + 2])
+    assert pmesh.sharded_draw(torch.rand, None) is torch.rand
+    with pytest.raises(ValueError, match="does not split"):
         pmesh.shard_leading_axis({"origin": torch.zeros(6, 3)}, pmesh.DataMesh(0, 4))
 
 
