@@ -122,10 +122,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      --ablate_nerft true --raw_pos_dim 4 (the plain net, as in the JAX
      package): ms/step, peak GiB, the validation PNG, the step-1 loss
      against the CPU's. --phases parallel runs phase 13 first. Every line
-     carries the card's name and power limit.
+     carries the card's name and power limit;
+ 17. envelope: the quick subset of the kernel shape sweep
+     (neuman_tpu_torch/tools/sweep_kernel_envelope.py --quick), at the
+     shapes a real SMPL mesh gives (vertices of degree 9, V=6,890):
+     ericson_select at C=36 and 72 (N=262,144, stride 1), the signed table
+     kernel at C=36 (a degree-9 mesh, k=4, N=196,608, strides 1 and 4),
+     bucketed_knn at Nq=196,608, V=6,890, k=8 and nerf_mlp at R=1536 x
+     S=16 in both direction modes, bf16; each held to its plain version at
+     the bars of phases 3, 4, 8 and 11, one JSON line a case.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
-own time by torch.profiler, else null), and last the device line.
+own time by torch.profiler, else null; `launches_by_path` also lists phase
+17's comparison launches as `envelope_quick`, which `launches` leaves
+out), and last the device line.
 --phases runs a subset (for work on one kernel); the contract is the run
 with no arguments.
 
@@ -326,26 +336,32 @@ def cuda_ms_min(fn, repeats=5, iters=20, warmup=20):
 
 
 def device_ms(fn, kernel, iters=20):
-    """Mean device time in ms of the kernels whose name holds `kernel` over
-    `iters` calls of fn, by torch.profiler: for the mesh kernels, whose
+    """Mean device time in ms a call of fn of the kernels whose name holds
+    `kernel` (or one of a tuple of names: a wrapper that launches several),
+    over `iters` calls, by torch.profiler: for the mesh kernels, whose
     wrappers' host time is longer than the kernel at these sizes, so that
-    CUDA events around the calls time the host. Raises if the profiler saw
-    no device time of that kernel."""
+    CUDA events around the calls time the host. Each kernel counts its mean
+    time a launch times its launches a call (the profiler may miss a launch
+    of a window: 4 of 5 seen on the H100). Raises if the profiler saw no
+    device time of those kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "device_time_total", 0) or 0 for e in events)
-    count = sum(e.count for e in events)
-    if not (total and count):
+    total = 0.0
+    for e in prof.key_averages():
+        time_us = getattr(e, "device_time_total", 0) or 0
+        if time_us and e.count and any(n in e.key for n in names):
+            total += time_us / e.count * max(1, round(e.count / iters))
+    if not total:
         raise RuntimeError(f"torch.profiler saw no device time of {kernel}")
-    return total / count / 1e3
+    return total / 1e3
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -2525,6 +2541,30 @@ def phase_parallel(device, seed, root, scene_dir, card):
     return launches
 
 
+def phase_envelope(model, spec, device, seed):
+    """Phase 17: the kernel shape sweep's quick cases (see
+    neuman_tpu_torch/tools/sweep_kernel_envelope.py for each case's bars),
+    with this run's model, untimed: the sweep alone times them (this late
+    in a run torch.profiler saw no launch of the mesh kernels on the
+    H100). Raises if a case failed. Returns each kernel's launches in the
+    phase: comparisons with the plain versions, not a main path."""
+    from neuman_tpu_torch.tools import sweep_kernel_envelope as sweep
+
+    counters = _kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    ctx = sweep.Context(device, seed, model=(spec, model), timed=False)
+    quick = [case for case in sweep.cases() if case.quick]
+    failed = sweep.run_cases(quick, ctx)
+    launches = {name: w.launches for name, w in counters.items() if w.launches}
+    log("envelope", cases=len(quick), failed=len(failed),
+        seconds=f"{time.perf_counter() - t0:.2f}", launches=launches)
+    if failed:
+        raise RuntimeError(f"kernel shape sweep: {failed}")
+    return launches
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -2549,7 +2589,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli", "render_cli", "preprocess", "parallel")
+          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope")
 
 
 def main(argv=None):
@@ -2598,6 +2638,7 @@ def main(argv=None):
         "preprocess": lambda: phase_preprocess(device, args.seed,
                                                os.path.join(cli_root, "preprocess"), card),
         "parallel": lambda: phase_parallel(device, args.seed, cli_root, out["cli"][2], card),
+        "envelope": lambda: phase_envelope(model, spec, device, args.seed),
     }
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = {}
@@ -2616,6 +2657,7 @@ def main(argv=None):
     offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
                                                             "renders"))
     cli, render_cli, parallel = out["cli"][0], out["render_cli"], out["parallel"]
+    envelope = out["envelope"]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -2632,12 +2674,15 @@ def main(argv=None):
     # 12, the command line's two stages (phase 13, train.main each), the
     # five render command lines (phase 14, main() each), and phase 16's two
     # ranks' steps of each stage (counted in each rank) and its two
-    # train.main stages under NCCL.
+    # train.main stages under NCCL. Phase 17's launches are listed as
+    # envelope_quick and left out of `launches`: they compare the kernels
+    # with their plain versions.
     # No single PyTorch call computes any of the seven functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by, *dev = timing
+        main_paths = sum(v for k, v in by_path.items() if not k.startswith("envelope_"))
         return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{source}.cu",
-                "replaces": replaces, "launches": sum(by_path.values()),
+                "replaces": replaces, "launches": main_paths,
                 "launches_by_path": by_path, "max_abs_err": max_abs_err, "ms": ms,
                 "device_ms": dev[0] if dev else None, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None}
@@ -2652,6 +2697,7 @@ def main(argv=None):
         paths.update({f"cli_{stage}": run[1].get(name, 0) for stage, run in cli.items()})
         paths.update({f"render_cli_{cmd}": run[0].get(name, 0) for cmd, run in render_cli.items()})
         paths.update({path: counts.get(name, 0) for path, counts in parallel.items()})
+        paths["envelope_quick"] = envelope.get(name, 0)
         return {k: v for k, v in paths.items() if v}
 
     kernels = [

@@ -16,6 +16,8 @@ Layer map, entry points first:
                          by utils/metrics.py, 360 orbits (render/paths.py),
                          mocap reposing, several actors; render/cli.py holds
                          what they share
+    visualize_scene.py   a scene's point cloud, bodies and cameras drawn into
+                         a PNG (`python -m neuman_tpu_torch.visualize_scene`)
     preprocess/          stages 9-10 of a video's preprocessing (cli.py;
                          run.sh by gen_run.py): the SMPL-to-scene alignment
                          (alignment.py, EPnP in RANSAC in pnp.py) and the
@@ -56,7 +58,9 @@ Layer map, entry points first:
     utils/               PNG codec, PIL-exact resize, border masks and fused depth,
                          PSNR / SSIM / LPIPS
     tools/               per-kernel device-time profiles of a step or a frame,
-                         timings over tape chunks and of the mesh kernels, a
+                         timings over tape chunks and of the mesh kernels,
+                         the kernel shape sweep (every kernel against its
+                         plain version over the command lines' shapes), a
                          synthetic scene directory writer (a rigged body
                          proxy, AMASS-layout motions, a video's stage-9/10
                          inputs with their truth)

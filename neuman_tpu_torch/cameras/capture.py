@@ -12,6 +12,7 @@ import numpy as np
 
 from neuman_tpu_torch.cameras import contents
 from neuman_tpu_torch.cameras.pinhole import resize_pinhole_camera
+from neuman_tpu_torch.geometry import pcd
 from neuman_tpu_torch.utils.misc import fused_depth
 
 
@@ -22,6 +23,11 @@ class BasePinholeCapture:
 
     def __str__(self):
         return f"pinhole camera: {self.pinhole_cam}\ncamera pose: {self.cam_pose}"
+
+    @property
+    def mvp_mat(self):
+        """The 3x4 projection: intrinsic @ world-to-camera."""
+        return np.matmul(self.pinhole_cam.intrinsic_matrix, self.cam_pose.extrinsic_matrix)
 
     @property
     def intrinsic_matrix(self):
@@ -156,3 +162,9 @@ class Capture(RGBPinholeCapture):
                                                 self.mono_depth_map.astype(np.float32),
                                                 self.binary_mask.astype(np.uint8))
         return self._fused_depth_map
+
+    def point_cloud_world(self):
+        """[M, 3] float32 world points of the depth map's pixels with depth
+        > 0."""
+        return pcd.img_to_pcd_3d(self.depth_map, self.pinhole_cam.intrinsic_matrix,
+                                 cam2world=self.cam_pose.camera_to_world).astype(np.float32)

@@ -381,6 +381,30 @@ def test_bucketed_knn_kernel_over_the_shared_budget(cuda, k):
     assert torch.equal(idx, ref_idx) and torch.equal(score, ref_score)
 
 
+def test_bucketed_knn_kernel_refuses_k_over_8(cuda, monkeypatch):
+    """k > 8 is no instantiation of the kernel: a ValueError naming k, never
+    the plain version."""
+    verts = body_proxy_smpl_model(subdivisions=3, device=cuda).v_template
+    monkeypatch.setattr(kknn, "bucketed_knn_plain", None)
+    with pytest.raises(ValueError, match="k=9"):
+        kknn.bucketed_knn(verts[:64] * 1.1, verts, 9)
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_mesh_kernels_on_a_degree9_mesh(cuda, stride):
+    """SMPL's vertex degree: the proxy at subdivision 4 (V=2,562) with
+    vertices of degree 9 (tools/sweep_kernel_envelope.degree9_mesh), k=8,
+    C=72; N=4,096 ray samples. ericson_select and the signed table kernel
+    equal their plain versions bit for bit."""
+    from neuman_tpu_torch.tools import sweep_kernel_envelope as sweep
+
+    ctx = sweep.Context(cuda, subdivisions=4, timed=False)
+    assert ctx.meshes["deg9"].topo.incidence.shape[1] == 9
+    for case in (sweep.select_case, sweep.signed_case):
+        rec, ok = case(ctx, c=72, n=4096, stride=stride)
+        assert ok and rec["bit_equal_plain"], rec
+
+
 def _select_operands(num_cands, nq, stride, device, seed=3):
     """Random triangles around the points, some candidates duplicated (exact
     d2 ties), 20% invalid ids, group 1 all invalid."""

@@ -83,6 +83,8 @@ MODULES = (
     "neuman_tpu_torch.preprocess.gen_run",
     "neuman_tpu_torch.parallel.mesh",
     "neuman_tpu_torch.parallel.dryrun",
+    "neuman_tpu_torch.tools.sweep_kernel_envelope",
+    "neuman_tpu_torch.visualize_scene",
     "chip_smoke",
 )
 
