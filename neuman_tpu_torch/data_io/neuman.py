@@ -119,11 +119,10 @@ class NeuManReader:
                 for cam_id in range(scene.num_cams):
                     cap = scene.get_capture_by_view_cam_id(view_id, cam_id)
                     if key == "bkg":
-                        pcd_2d = pcd.project_point_cloud_at_capture(scene.point_cloud, cap, "pcd")
+                        pcd_2d = pcd.project_point_cloud_at_capture(scene.point_cloud, cap)
                         near, far = 0, np.percentile(pcd_2d[:, 2], 95)
                     else:
-                        pcd_2d = pcd.project_point_cloud_at_capture(scene.verts[view_id], cap,
-                                                                    "pcd")
+                        pcd_2d = pcd.project_point_cloud_at_capture(scene.verts[view_id], cap)
                         near, far = pcd_2d[:, 2].min(), pcd_2d[:, 2].max()
                     center = (near + far) / 2
                     length = (far - near) * range_scale

@@ -88,13 +88,14 @@ def pcd_2d_to_img(pcd, size, has_z=False, keep_z=False):
     return canvas
 
 
-def project_point_cloud_at_capture(point_cloud, capture, render_type="rgb"):
+def project_point_cloud_at_capture(point_cloud, capture, render_type="pcd"):
     """A world point cloud projected at `capture` (duck-typed:
-    .intrinsic_matrix, .extrinsic_matrix, .size). render_type "pcd": the
-    [M, 3] pixel x, y and camera z of `pcd_3d_to_pcd_2d` (what the scene
-    reader's near/far planes take); "rgb": the colours of a [N, 6] cloud
-    splatted into an [H, W, 3] image; "bw": ones where a point falls; any
-    other: its camera z splatted ([H, W, 1])."""
+    .intrinsic_matrix, .extrinsic_matrix, .size). render_type "pcd" (the
+    default here, the JAX function's is "rgb"): the [M, 3] pixel x, y and
+    camera z of `pcd_3d_to_pcd_2d`, what the scene reader's near/far planes
+    take; "rgb": the colours of a [N, 6] cloud splatted into an [H, W, 3]
+    image; "bw": ones where a point falls; any other: its camera z
+    splatted ([H, W, 1])."""
     if render_type == "rgb":
         if point_cloud.shape[1] != 6:
             raise ValueError(f"an rgb point cloud is [N, 6], not {point_cloud.shape}")

@@ -7,21 +7,22 @@ The counterpart of tools/sweep_pallas_envelope.py, which compiles and runs
 the JAX package's Pallas kernels at the candidate-count, sample-count and
 dtype corners of its command lines and asks only for finite outputs. Here
 each case runs a kernel through its public wrapper and its plain PyTorch
-version on the same inputs, and holds the one to the other at
-chip_smoke.py's bars:
+version on the same inputs, and holds the one to the other by the
+comparison chip_smoke.py's phases make, one function a kernel:
 
-- mesh kernels (`ericson_select`, `ericson_signed_select_tables`): d2 (or
-  sd) and the closest point within MESH_ATOL; a face id may differ only
-  where another candidate face ties within MESH_ATOL (`kmq.tie_gap`);
-- `bucketed_knn`: scores within KNN_SCORE_ATOL, indices in range and
-  different only at score ties; the recall of the exact nearest vertex and
-  of the exact top k printed;
-- MLP forwards: chip_smoke's `_fwd_ok` (f32 1e-3 absolute, bf16 5e-2 of
-  the output scale);
-- MLP backwards: PERF.md section 2's gradient bars, L2 error over L2 norm
-  of each output (f32: background net 5e-3, canonical net 1e-2, offset
-  net 5e-2; bf16 5e-2, offset net 1e-1); with the tape ("hbm") every
-  gradient `torch.equal` to the recompute's.
+- mesh kernels (`ericson_select`, `ericson_signed_select_tables`):
+  `hold_closest`, d2 (or sd) and the closest point within MESH_ATOL; a
+  face id may differ only where another candidate face ties within
+  MESH_ATOL (`kmq.tie_gap`);
+- `bucketed_knn`: `hold_knn`, scores within KNN_SCORE_ATOL, indices in
+  range, and where one differs from the plain version's, the score of the
+  vertex it names ties with the plain score there; the first pick an exact
+  nearest vertex up to a tie; the recall of the exact top k printed;
+- MLP forwards: `_fwd_compare` / `hold_offset_fwd` at `_fwd_ok`'s bars
+  (f32 1e-3 absolute, bf16 5e-2 of the output scale);
+- MLP backwards: `hold_grads` (f32: the largest error within 1e-3 of each
+  output's largest value; bf16: L2 error within 5e-2 of the L2 norm); with
+  the tape ("hbm") every gradient `torch.equal` to the recompute's.
 
 The candidate counts C = k x incidence width: the body proxy (an
 icosphere, degree 6) gives C = 24 at k = 4 and 48 at k = 8; SMPL's mesh
@@ -34,8 +35,8 @@ case (its shape, plan, errors, `device_ms` by torch.profiler, `plain_ms`
 by CUDA events, `bound_ms` and what bounds it, PASS or FAIL), then a
 summary line. Exits 0 only if every case passed; a case that raises has
 failed. --quick runs the cases marked quick (chip_smoke.py's phase
-`envelope` runs them untimed). Run from the repo root: the timers, `_ray_samples`, the bars
-and the bounds are chip_smoke.py's.
+`envelope` runs them untimed). Run from the repo root: the timers,
+`_ray_samples`, the comparisons and the bounds are chip_smoke.py's.
 """
 
 import argparse
@@ -50,10 +51,10 @@ import traceback
 import numpy as np
 import torch
 
-from chip_smoke import (HUMAN_STEP_TOL, KNN_OPS_PER_SCORE, MESH_ATOL, KNN_SCORE_ATOL,
-                        STEP_TOL, _flat_grads, _fwd_ok, _ray_samples, bound_ms, build_model,
-                        cuda_ms, device_ms, ericson_bound, mlp_bound, offset_bound,
-                        phase_build, signed_bound)
+from chip_smoke import (HUMAN_STEP_TOL, MESH_ATOL, _flat_grads, _fwd_compare, _fwd_ok,
+                        _ray_samples, build_model, cuda_ms, device_ms, ericson_bound,
+                        hold_closest, hold_grads, hold_knn, hold_offset_fwd, knn_bound, knn_exact,
+                        mlp_bound, offset_bound, phase_build, signed_bound)
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops.kernels import knn as kknn
 from neuman_tpu_torch.ops.kernels import meshquery as kmq
@@ -216,22 +217,6 @@ class Context:
             torch.cuda.synchronize()
 
 
-def _hold_closest(got, want, gap):
-    """A mesh kernel's (dist, f_id, cp) against its plain version's:
-    (fields, ok). dist and cp within MESH_ATOL, face ids different only
-    where `gap` (kmq.tie_gap) <= MESH_ATOL."""
-    (dist, f_id, cp), (pdist, pf, pcp) = got, want
-    err = max((dist - pdist).abs().max().item(),
-              max((a - b).abs().max().item() for a, b in zip(cp, pcp)))
-    diff = f_id != pf
-    ties_only = bool((gap[diff] <= MESH_ATOL).all())
-    bit_equal = (torch.equal(dist, pdist) and torch.equal(f_id, pf)
-                 and all(torch.equal(a, b) for a, b in zip(cp, pcp)))
-    ok = err <= MESH_ATOL and ties_only and bool(torch.isfinite(dist).all())
-    return {"max_abs_err": err, "f_id_diff": int(diff.sum()), "f_id_diff_ties_only": ties_only,
-            "bit_equal_plain": bit_equal}, ok
-
-
 def _bound(pair):
     return {"bound_ms": pair[0], "bound_by": pair[1]}
 
@@ -253,7 +238,7 @@ def select_case(ctx, c, n, stride, grad=False):
     got, want = run_k(), run_p()
     ctx.sync()
     plan = kmq.select_plan(n, c, st)
-    rec, ok = _hold_closest(got, want, kmq.tie_gap(*ops))
+    rec, ok = hold_closest(got, want, kmq.tie_gap(*ops))
     rec = {"kernel": "ericson_select", "C": c, "N": n, "stride": st,
            "members": plan["members"], "slices": plan["slices"], **rec}
     if grad:
@@ -291,7 +276,7 @@ def signed_case(ctx, c, n, stride):
     cand = tabs.incidence[knn_idx].reshape(nq, -1).T.contiguous()
     if cand.shape[0] != c:
         raise ValueError(f"the mesh gives C={cand.shape[0]}, not {c}")
-    rec, ok = _hold_closest(got, want, kmq.tie_gap(p3, rows9, cand, st))
+    rec, ok = hold_closest(got, want, kmq.tie_gap(p3, rows9, cand, st))
     plan = kmq.select_plan(n, c, st)
     rec = {"kernel": "ericson_signed_select", "C": c, "N": n, "stride": st,
            "D": tabs.incidence.shape[1], "k": k, "knn_idx": str(knn_idx.dtype)[6:],
@@ -309,29 +294,21 @@ def knn_case(ctx, nq, num_verts, k):
     pts = ctx.samples(verts, nq)
     run_k = lambda: kknn.bucketed_knn(pts, verts, k)
     run_p = lambda: kknn.bucketed_knn_plain(pts, verts, k)
-    (ki, ks), (pi, ps) = run_k(), run_p()
+    got, want = run_k(), run_p()
     ctx.sync()
-    err = (ks - ps).abs().max().item()
-    diff = ki != pi
-    ties_only = bool(((ks - ps).abs()[diff] <= KNN_SCORE_ATOL).all())
-    in_range = bool(((ki >= 0) & (ki < verts.shape[0])).all())
-    exact = torch.cat([mesh_ops._query_knn(q, verts, k)[0] for q in pts.split(16384)])
+    held, ok = hold_knn(verts, pts, got, want, knn_exact(verts, pts, k))
+    del got, want
     on_card = ctx.device.type == "cuda"
     sms = torch.cuda.get_device_properties(ctx.device).multi_processor_count if on_card else 132
     plan = kknn.knn_plan(nq, verts.shape[0], k, sms)
-    work = bound_ms(KNN_OPS_PER_SCORE * nq * verts.shape[0],
-                    3 * nq * 4 + 3 * verts.shape[0] * 4 + 2 * k * nq * 4, "f32")
+    work = knn_bound(nq, verts.shape[0], k)
     rec = {"kernel": "bucketed_knn", "Nq": nq, "V": verts.shape[0], "k": k,
            "queries_a_thread": plan["queries"],
            "table": "resident" if plan["resident"] else f"staged in {plan['stages']}",
-           "smem_bytes": plan["smem_bytes"], "grid": plan["grid"], "score_max_abs_err": err,
-           "idx_diff": int(diff.sum()), "idx_diff_ties_only": ties_only, "in_range": in_range,
-           "bit_equal_plain": torch.equal(ki, pi) and torch.equal(ks, ps),
-           "recall_nearest": (ki[:, 0] == exact[:, 0]).float().mean().item(),
-           "recall_top_k": (ki[:, :, None] == exact[:, None, :]).any(1).float().mean().item(),
+           "smem_bytes": plan["smem_bytes"], "grid": plan["grid"], **held,
            "device_ms": ctx.kernel_ms(run_k, "bucketed_knn"),
            "plain_ms": ctx.plain_ms(run_p, iters=1), **_bound(work)}
-    return rec, err <= KNN_SCORE_ATOL and ties_only and in_range
+    return rec, ok
 
 
 def _nerf_inputs(ctx, mode, r, s, dtype):
@@ -354,40 +331,17 @@ def _dtype_name(dtype):
     return "f32" if dtype == torch.float32 else "bf16"
 
 
-def dtype_key(dtype):
-    return "float32" if dtype == torch.float32 else "bfloat16"
-
-
 def mlp_case(ctx, s, mode, dtype, r=MLP_RAYS):
     """`nerf_mlp` at R x S in one direction mode and compute dtype."""
     spec, net, planes, kw = _nerf_inputs(ctx, mode, r, s, dtype)
-    run_k = lambda: kmlp.nerf_mlp(spec, net, *planes, compute_dtype=dtype, **kw)
-    run_p = lambda: kmlp.nerf_mlp_plain(spec, net, *planes, compute_dtype=dtype, **kw)
-    (ks, krgb), (ps, prgb) = run_k(), run_p()
-    ctx.sync()
-    out_k, out_p = torch.stack([ks, *krgb]), torch.stack([ps, *prgb])
-    err, scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
+    err, scale, run_k, run_p = _fwd_compare(spec, net, planes, kw, dtype)
     name = _dtype_name(dtype)
-    ok = _fwd_ok(err, scale, name) and bool(torch.isfinite(out_k).all())
+    ok = _fwd_ok(err, scale, name)
     rec = {"kernel": "nerf_mlp", "R": r, "S": s, "dirs": mode, "dtype": name,
            "max_abs_err": err, "out_scale": scale, "device_ms": ctx.kernel_ms(run_k, "nerf_mlp"),
            "plain_ms": ctx.plain_ms(run_p),
            **_bound(mlp_bound(spec, net, mode == "per_sample", r, s, name, backward=False))}
     return rec, ok
-
-
-def grad_bar(net, dtype):
-    """PERF.md section 2's bar of a gradient (L2 error over L2 norm) of the
-    background ("bkg"), canonical ("human") or offset ("offset") net."""
-    if net == "bkg":
-        return STEP_TOL[dtype][1]
-    return HUMAN_STEP_TOL[dtype][1]["offset_nets" if net == "offset" else "coarse_human_net"]
-
-
-def _hold_grads(got, want, bar):
-    """(the worst L2 error over L2 norm of the outputs, ok)."""
-    l2 = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(got, want))
-    return l2, l2 <= bar and all(bool(torch.isfinite(a).all()) for a in got)
 
 
 def mlp_bwd_case(ctx, s, mode, tape, dtype, r=MLP_RAYS):
@@ -401,10 +355,9 @@ def mlp_bwd_case(ctx, s, mode, tape, dtype, r=MLP_RAYS):
     got, want = _flat_grads(bwd()), _flat_grads(bwd(fn=kvjp.nerf_mlp_bwd_plain))
     ctx.sync()
     name = _dtype_name(dtype)
-    bar = grad_bar("human" if mode == "per_sample" else "bkg", dtype_key(dtype))
-    l2, ok = _hold_grads(got, want, bar)
+    held, ok = hold_grads(got, want, name)
     rec = {"kernel": "nerf_mlp_bwd", "R": r, "S": s, "dirs": mode, "tape": tape, "dtype": name,
-           "l2_rel_err": l2, "bar": bar}
+           **held}
     run_k = bwd
     if tape == "hbm":
         tape_t = kmlp.nerf_mlp(spec, net, *planes, compute_dtype=dtype, emit_tape=True, **kw)[1]
@@ -435,12 +388,9 @@ def offset_case(ctx, tape, dtype, r=MLP_RAYS, s=128):
     (out_k, tape_k), (out_p, tape_p) = (out_k, out_p) if hbm else ((out_k, None), (out_p, None))
     ctx.sync()
     name = _dtype_name(dtype)
-    out_k, out_p = torch.stack(out_k), torch.stack(out_p)
-    f_err, f_scale = (out_k - out_p).abs().max().item(), out_p.abs().max().item()
-    f_ok = (_fwd_ok(f_err, f_scale, name) and bool(torch.isfinite(out_k).all())
-            and out_k.std(dim=1).min().item() > 0)
+    f_rec, f_ok = hold_offset_fwd(torch.stack(out_k), torch.stack(out_p), name)
     rec = {"kernel": "offset_mlp+offset_mlp_bwd", "R": r, "S": s, "tape": tape, "dtype": name,
-           "fwd_max_abs_err": f_err, "fwd_out_scale": f_scale}
+           **f_rec}
     if hbm:
         t_err = (tape_k.float() - tape_p.float()).abs().max().item()
         t_ok = _fwd_ok(t_err, tape_p.float().abs().max().item(), name)
@@ -450,9 +400,8 @@ def offset_case(ctx, tape, dtype, r=MLP_RAYS, s=128):
     flat = lambda out: [t for wb in out[0] for t in wb] + list(out[1])
     bwd = lambda t=None, fn=koff.offset_mlp_bwd: fn(ospec, net, axes, cot, dtype, tape=t)
     got, want = flat(bwd()), flat(bwd(fn=koff.offset_mlp_bwd_plain))
-    bar = grad_bar("offset", dtype_key(dtype))
-    l2, b_ok = _hold_grads(got, want, bar)
-    rec.update(fwd_ok=f_ok, bwd_l2_rel_err=l2, bwd_bar=bar)
+    held, b_ok = hold_grads(got, want, name)
+    rec.update(fwd_ok=f_ok, **{f"bwd_{k}": v for k, v in held.items()})
     ok = f_ok and b_ok
     if hbm:
         equal = all(torch.equal(a, b) for a, b in zip(flat(bwd(tape_k)), got))
@@ -483,7 +432,7 @@ def signed_distance_case(ctx, k, n, stride=4):
     ctx.sync()
     ops = mesh_ops.candidate_operands(pts, mesh.verts, mesh.topo, k, stride, "bucketed",
                                       tables=mesh.tables)
-    rec, ok = _hold_closest(tuple(got[:2]) + (got[2].T,), tuple(want[:2]) + (want[2].T,),
+    rec, ok = hold_closest(tuple(got[:2]) + (got[2].T,), tuple(want[:2]) + (want[2].T,),
                             kmq.tie_gap(*ops[:4]))
     rec = {"path": "signed_distance", "mesh": "deg9", "C": ops[2].shape[0], "N": n,
            "stride": ops[3], **rec, "inside_share": (got[0] < 0).float().mean().item(),
@@ -520,7 +469,8 @@ def warp_case(ctx, k, n, stride=4):
     ctx.sync()
     err = (can - pcan).abs().max().item()
     bar = HUMAN_STEP_TOL["float32"][1]["poses"]
-    l2, g_ok = _hold_grads(grads, pgrads, bar)
+    l2 = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(grads, pgrads))
+    g_ok = l2 <= bar and all(bool(torch.isfinite(a).all()) for a in grads)
     rec = {"path": "warp_points_to_canonical_diff", "mesh": "deg9",
            "C": k * mesh.topo.incidence.shape[1], "N": n,
            "stride": stride, "max_abs_err": err, "f_id_diff": int((f_id != pf).sum()),

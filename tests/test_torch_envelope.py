@@ -225,6 +225,42 @@ def test_sweep_fails_a_case_whose_kernel_disagrees(monkeypatch, capsys, fault):
     assert sweep.main([]) == 1
 
 
+@pytest.mark.parametrize("fault", ["ids_shifted", "ids_of_another_query"])
+def test_sweep_fails_a_knn_case_whose_ids_do_not_carry_their_scores(monkeypatch, capsys, fault):
+    """The kernel's scores are the plain version's, its vertex ids are not
+    (an off-by-one, or another query's): the sweep holds each id to the
+    score it comes with and prints FAIL."""
+    plain = kknn.bucketed_knn_plain
+
+    def faulty(points, verts, k):
+        idx, score = plain(points, verts, k)
+        bad = (idx + 1) % verts.shape[0] if fault == "ids_shifted" else idx.roll(1, dims=0)
+        return bad, score
+
+    monkeypatch.setattr(kknn, "bucketed_knn", faulty)
+    ctx = sweep.Context("cpu", subdivisions=3)
+    case = sweep.Case("knn", functools.partial(sweep.knn_case, nq=1024, num_verts=600, k=8))
+    assert sweep.run_cases([case], ctx) == ["knn"]
+    line = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert line["status"] == "FAIL" and line["score_max_abs_err"] == 0.0
+    assert not line["idx_diff_ties_only"] and line["in_range"]
+
+
+def test_hold_knn_fails_a_first_pick_that_is_not_the_nearest():
+    """Kernel and plain agree, but their first pick is each point's second
+    nearest vertex: hold_knn's nearest check fails it (the bucketed KNN
+    always finds the nearest vertex, which is its bucket's minimum)."""
+    verts = torch.tensor(synthetic_body_mesh(subdivisions=3)[0], dtype=torch.float32)
+    pts = sweep._ray_samples(verts, 8, 128, torch.Generator().manual_seed(2))
+    idx, score = kknn.bucketed_knn_plain(pts, verts, 4)
+    exact = sweep.knn_exact(verts, pts, 4)
+    rec, ok = sweep.hold_knn(verts, pts, (idx, score), (idx, score), exact)
+    assert ok and rec["nearest_up_to_ties"] and rec["recall_nearest"] > 0.99
+    skipped = (idx[:, 1:], score[:, 1:])
+    rec, ok = sweep.hold_knn(verts, pts, skipped, skipped, exact)
+    assert not ok and not rec["nearest_up_to_ties"] and rec["bit_equal_plain"]
+
+
 def test_sweep_main_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert sweep.main(["--quick"]) != 0
