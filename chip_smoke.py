@@ -131,7 +131,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      kernel at C=36 (a degree-9 mesh, k=4, N=196,608, strides 1 and 4),
      bucketed_knn at Nq=196,608, V=6,890, k=8 and nerf_mlp at R=1536 x
      S=16 in both direction modes, bf16; each held to its plain version at
-     the bars of phases 3, 4, 8 and 11, one JSON line a case.
+     the bars of phases 3, 4, 8 and 11, one JSON line a case;
+ 18. render_parallel: rendering on N ranks. (a) parallel.dryrun's render
+     job on two gloo ranks on the one card: each of phase 14's five
+     render command lines renders two frames (two cameras, two motion
+     frames; the test view its one, last) of phase 13's scene and
+     checkpoint at 270x480 and the render defaults, each chunk's rays
+     split over the ranks, against the same command line in this
+     process: the frames within the JAX package's sharded-render bars
+     (rgb 1e-5; depth 1e-4 for the multi-person render, 1e-5 for the
+     others) and whether they are bit-equal, both ranks holding the
+     frame, rank 0 alone writing the PNGs (the same bytes as one
+     process's), the same scores on every rank; each rank's s/frame (the
+     last frame's), rays through the human branch and launches (nerf_mlp
+     on every rank, ericson_select on every rank with hits where the
+     command line warps); (b) render_test_views.main --data_parallel on
+     under the torchrun environment (NCCL at world size 1): its scores
+     equal one process's. --phases render_parallel runs phase 13 first.
+     Every line carries the card's name and power limit.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null; `launches_by_path` also lists phase
@@ -148,6 +165,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import os
@@ -300,6 +318,16 @@ PAR_LOSS_RTOL = 1e-4
 PAR_PARAM_ABS_BAR, PAR_PARAM_SHARE_BAR = 1e-4, 5e-6
 PAR_KERNELS = {"bkg": CLI_BKG_KERNELS, "human": CLI_HUMAN_KERNELS}
 PAR_NERFT_LOSS_REL = 1e-4
+
+# phase 18: PAR_WORLD gloo ranks on the one card render RENDER_PAR_FRAMES
+# frames of each render command line (the test view: its one) on phase 13's
+# scene and checkpoint against one process, each frame within
+# parallel.dryrun.RENDER_BARS (the JAX package's sharded-render bars); the
+# test view last, so that each process's s/frame is its last frame's, after
+# the first call's set-up (kernel libraries loaded, cuBLAS handles made);
+# then render_test_views.main under NCCL at world size 1
+RENDER_PAR_FRAMES = 2
+RENDER_PAR_TIMEOUT_S = 300.0
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2129,6 +2157,53 @@ def _png_psnr(a, b):
     return math.inf if mse == 0 else -10.0 * math.log10(mse)
 
 
+def _render_cli_runs(root, scene_dir, seed, work, trajectory, mocap_frames, gather_mocap_frames):
+    """The render command lines' inputs laid out under the working
+    directory `work` (LPIPS weights drawn from `seed`, a motion of
+    `mocap_frames` for the reposing; the gathering's fixed paths: the
+    actors' nets (phase 13's stage-2 checkpoint) and fits, and its preset
+    motion of `gather_mocap_frames`, of which it renders every 4th).
+    Returns (the flags every command line takes, [(command, module, its
+    flags, the kernels it must launch, frames, where it writes them)])."""
+    from neuman_tpu_torch import render_gathering
+    from neuman_tpu_torch.models import lpips
+    from neuman_tpu_torch.tools import synthetic_scene
+    from neuman_tpu_torch.trainers import checkpoint as ckpt
+
+    name = os.path.basename(scene_dir)
+    weights = os.path.join(root, "out", "cli_human", "checkpoint.npz")
+    lpips_path = os.path.join(work, "lpips_seeded.npz")
+    os.makedirs(work)
+    ckpt.save_checkpoint(lpips_path, lpips.lpips_params_to_jax(lpips.init_lpips_params(seed)))
+    mocap = synthetic_scene.write_mocap_npz(os.path.join(work, "motion_poses.npz"), mocap_frames,
+                                            seed)
+    for actor in RENDER_CLI_ACTORS:
+        nets = os.path.join(work, "out", render_gathering.ACTOR_WEIGHTS_DICT[actor])
+        os.makedirs(nets)
+        shutil.copy(weights, nets)
+        fits = os.path.join(os.path.dirname(scene_dir), actor)
+        os.makedirs(fits, exist_ok=True)
+        shutil.copy(os.path.join(scene_dir, "smpl_output_optimized.pkl"), fits)
+    synthetic_scene.write_mocap_npz(os.path.join(work, "data", "SFU", "0018",
+                                                 "0018_XinJiang002_poses.npz"),
+                                    gather_mocap_frames, seed + 1)
+    common = ["--scene_dir", scene_dir, "--weights_path", weights, *RENDER_CLI_FLAGS]
+    orbit = ["--trajectory_resolution", str(trajectory)]
+    warp = ("nerf_mlp", "ericson_select")
+    return common, (
+        ("test_views", "render_test_views", ["--lpips_weights", lpips_path], warp, 1,
+         f"test_views/{name}"),
+        ("canonical_360", "render_360", ["--mode", "canonical_360", *orbit], ("nerf_mlp",),
+         trajectory, f"canonical_360/{name}"),
+        ("posed_360", "render_360", ["--mode", "posed_360", *orbit], warp, trajectory,
+         f"posed_360/{name}"),
+        ("reposing", "render_reposing", ["--mocap_path", mocap], warp, mocap_frames,
+         f"reposing/{name}"),
+        ("gathering", "render_gathering", ["--actors", *RENDER_CLI_ACTORS], warp,
+         -(-gather_mocap_frames // 4), "gathering/dance_together"),
+    )
+
+
 def phase_render_cli(device, seed, root, scene_dir):
     """The four render command lines (phase 14 of the module docstring), run
     from a working directory under `root`, on phase 13's scene and its
@@ -2139,60 +2214,26 @@ def phase_render_cli(device, seed, root, scene_dir):
     frames, median s/frame, hit fraction)}."""
     import numpy as np
     import torch
-    from neuman_tpu_torch import (render_360, render_gathering, render_reposing,
-                                  render_test_views)
-    from neuman_tpu_torch.models import lpips
-    from neuman_tpu_torch.tools import synthetic_scene
-    from neuman_tpu_torch.trainers import checkpoint as ckpt
+    from neuman_tpu_torch import render_test_views
     from neuman_tpu_torch.utils import png
 
-    name = os.path.basename(scene_dir)
-    weights = os.path.join(root, "out", "cli_human", "checkpoint.npz")
-    lpips_path = os.path.join(root, "lpips_seeded.npz")
-    ckpt.save_checkpoint(lpips_path, lpips.lpips_params_to_jax(lpips.init_lpips_params(seed)))
-    mocap = synthetic_scene.write_mocap_npz(os.path.join(root, "motion_poses.npz"),
-                                            RENDER_CLI_MOCAP_FRAMES, seed)
     work = os.path.join(root, "render_cwd")
-    # the gathering's fixed paths: the actors' nets and fits, and its motion
-    for actor in RENDER_CLI_ACTORS:
-        nets = os.path.join(work, "out", render_gathering.ACTOR_WEIGHTS_DICT[actor])
-        os.makedirs(nets)
-        shutil.copy(weights, nets)
-        fits = os.path.join(os.path.dirname(scene_dir), actor)
-        os.makedirs(fits)
-        shutil.copy(os.path.join(scene_dir, "smpl_output_optimized.pkl"), fits)
-    synthetic_scene.write_mocap_npz(os.path.join(work, "data", "SFU", "0018",
-                                                 "0018_XinJiang002_poses.npz"),
-                                    RENDER_CLI_GATHER_MOCAP_FRAMES, seed + 1)
-    common = ["--scene_dir", scene_dir, "--weights_path", weights, *RENDER_CLI_FLAGS]
-    orbit = ["--trajectory_resolution", str(RENDER_CLI_TRAJECTORY)]
-    warp = ("nerf_mlp", "ericson_select")
-    # (command line, main, flags, kernels it must launch, frames, where it writes them)
-    runs = (
-        ("test_views", render_test_views.main, ["--lpips_weights", lpips_path], warp, 1,
-         f"test_views/{name}"),
-        ("canonical_360", render_360.main, ["--mode", "canonical_360", *orbit], ("nerf_mlp",),
-         RENDER_CLI_TRAJECTORY, f"canonical_360/{name}"),
-        ("posed_360", render_360.main, ["--mode", "posed_360", *orbit], warp,
-         RENDER_CLI_TRAJECTORY, f"posed_360/{name}"),
-        ("reposing", render_reposing.main, ["--mocap_path", mocap], warp,
-         RENDER_CLI_MOCAP_FRAMES, f"reposing/{name}"),
-        ("gathering", render_gathering.main, ["--actors", *RENDER_CLI_ACTORS], warp,
-         -(-RENDER_CLI_GATHER_MOCAP_FRAMES // 4), "gathering/dance_together"),
-    )
+    common, runs = _render_cli_runs(root, scene_dir, seed, work, RENDER_CLI_TRAJECTORY,
+                                    RENDER_CLI_MOCAP_FRAMES, RENDER_CLI_GATHER_MOCAP_FRAMES)
     counters = _kernel_counters()
     results = {}
     cwd = os.getcwd()
     with _data_root(root):
         try:
             os.chdir(work)
-            for what, main, argv, kernels, frames, demo in runs:
+            for what, module, argv, kernels, frames, demo in runs:
                 torch.cuda.synchronize()
                 for c in counters.values():
                     c.launches = 0
                 t0 = time.perf_counter()
                 with _frame_probe() as (seconds, hits):
-                    ret = main(argv + common, device=device)
+                    ret = importlib.import_module(f"neuman_tpu_torch.{module}").main(
+                        argv + common, device=device)
                 torch.cuda.synchronize()
                 main_s = time.perf_counter() - t0
                 launches = {k: c.launches for k, c in counters.items() if c.launches}
@@ -2224,8 +2265,8 @@ def phase_render_cli(device, seed, root, scene_dir):
             plain_dir = os.path.join(work, "plain")
             os.makedirs(plain_dir)
             os.chdir(plain_dir)
-            plain_scores = render_test_views.main(
-                ["--lpips_weights", lpips_path, "--use_pallas", "false"] + common, device=device)
+            plain_scores = render_test_views.main(runs[0][2] + ["--use_pallas", "false"] + common,
+                                                  device=device)
             kernel_frame = png.read_png(os.path.join(work, tv_dir, view))
             plain_frame = png.read_png(os.path.join(plain_dir, tv_dir, view))
             psnr = _png_psnr(kernel_frame, plain_frame)
@@ -2610,6 +2651,94 @@ def phase_parallel(device, seed, root, scene_dir, card):
     return launches
 
 
+def phase_render_parallel(device, seed, root, scene_dir, card):
+    """Rendering on N ranks (phase 18 of the module docstring). Returns
+    {path: {kernel: launches}} of its main paths: each rank's render of
+    each command line and the NCCL run, each counted from 0."""
+    import torch
+    import torch.distributed as dist
+    from neuman_tpu_torch import render_test_views
+    from neuman_tpu_torch.parallel import dryrun
+
+    stamp = dict(card=json.dumps(card))
+    work = os.path.join(root, "render_par_cwd")
+    common, runs = _render_cli_runs(root, scene_dir, seed, work, RENDER_PAR_FRAMES,
+                                    RENDER_PAR_FRAMES, 4 * RENDER_PAR_FRAMES - 3)
+    runs = runs[1:] + runs[:1]
+    jobs = [dryrun.RenderJob(what, dryrun.command_line, (module, argv + common), work)
+            for what, module, argv, *_ in runs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _data_root(root):
+        results = dryrun.render_equality(PAR_WORLD, jobs, backend="gloo", device=str(device),
+                                         timeout_s=RENDER_PAR_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    launches, scores = {}, None
+    for (what, _, _, kernels, frames, _), eq in zip(runs, results):
+        faults = dryrun.render_faults(eq)
+        # nerf_mlp on every rank; ericson_select on every rank whose share had hits
+        launched = all(r.get("nerf_mlp", 0) > 0 for r in eq["launches"]) and all(
+            r.get("ericson_select", 0) > 0 for r, rays in zip(eq["launches"], eq["human_rays"])
+            if "ericson_select" in kernels and rays > 0)
+        unsharded = any("UNSHARDED" in w for caught in eq["warnings"] for w in caught)
+        ok = (not faults and launched and len(eq["renderers"]) == frames
+              and eq["hw"] == list(CLI_HW) and eq["single_human_rays"] > 0 and not unsharded)
+        if what == "test_views":
+            scores = eq["single_returned"]
+            ok = ok and all(r == scores for r in eq["returned"])
+        log("render_parallel", cmd=what, world=PAR_WORLD, backend="gloo", H=CLI_HW[0],
+            W=CLI_HW[1], renderer=eq["renderers"][0], frames=len(eq["renderers"]),
+            max_abs=json.dumps({k: float(f"{v:.3e}") for k, v in eq["max_abs"].items()}),
+            bit_equal=eq["bit_equal"], ranks_equal=eq["ranks_equal"],
+            pngs_equal=eq["pngs_equal"], pngs_by_rank=json.dumps(eq["pngs_written"]),
+            s_last_frame_ranks=json.dumps([round(s[-1], 4) for s in eq["seconds"]]),
+            s_last_frame_single=f"{eq['single_seconds'][-1]:.4f}",
+            human_rays_ranks=json.dumps(eq["human_rays"]),
+            human_rays_single=eq["single_human_rays"],
+            launches=json.dumps([{k: v for k, v in r.items() if v} for r in eq["launches"]],
+                                separators=(",", ":")), faults=json.dumps(faults),
+            wall_s=f"{wall_s:.1f}", **stamp, ok=ok)
+        if not ok:
+            raise RuntimeError(f"render_parallel {what}: {faults or 'a kernel not launched on a '
+                               'rank, a frame missing, or no ray hit the body'}")
+        for rank, counts in enumerate(eq["launches"]):
+            launches[f"render_parallel_{what}_rank{rank}"] = counts
+
+    # render_test_views.main under the torchrun environment: NCCL at world size 1
+    counters = _kernel_counters()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    what, _, argv, kernels, _, _ = runs[-1]
+    nccl_dir = os.path.join(work, "nccl")
+    os.makedirs(nccl_dir)
+    cwd = os.getcwd()
+    try:
+        with _environ(env), _data_root(root):
+            os.chdir(nccl_dir)
+            for c in counters.values():
+                c.launches = 0
+            got = render_test_views.main(argv + common + ["--data_parallel", "on"], device=device)
+            torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            backend, world = dist.get_backend(), dist.get_world_size()
+    finally:
+        os.chdir(cwd)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    want = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    ok = (backend == want and world == 1 and got == scores
+          and all(counts[k] > 0 for k in kernels))
+    log("render_parallel_nccl", cmd=what, backend=backend, world=world,
+        scores=json.dumps(got, separators=(",", ":")), scores_equal_one_process=got == scores,
+        launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")),
+        **stamp, ok=ok)
+    if not ok:
+        raise RuntimeError("render_parallel nccl: no NCCL group, scores off one process's, or a "
+                           "kernel not launched")
+    launches["render_parallel_nccl"] = counts
+    return launches
+
+
 def phase_envelope(model, spec, device, seed):
     """Phase 17: the kernel shape sweep's quick cases (see
     neuman_tpu_torch/tools/sweep_kernel_envelope.py for each case's bars),
@@ -2658,7 +2787,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope")
+          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope", "render_parallel")
 
 
 def main(argv=None):
@@ -2670,8 +2799,8 @@ def main(argv=None):
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         parser.error(f"unknown phase in {phases}")
-    if {"render_cli", "parallel"} & set(phases) and "cli" not in phases:
-        phases.append("cli")  # phases 14 and 16 read phase 13's scene (and checkpoint)
+    if {"render_cli", "parallel", "render_parallel"} & set(phases) and "cli" not in phases:
+        phases.append("cli")  # phases 14, 16 and 18 read phase 13's scene (and checkpoint)
 
     import torch
 
@@ -2708,6 +2837,8 @@ def main(argv=None):
                                                os.path.join(cli_root, "preprocess"), card),
         "parallel": lambda: phase_parallel(device, args.seed, cli_root, out["cli"][2], card),
         "envelope": lambda: phase_envelope(model, spec, device, args.seed),
+        "render_parallel": lambda: phase_render_parallel(device, args.seed, cli_root,
+                                                         out["cli"][2], card),
     }
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = {}
@@ -2726,7 +2857,7 @@ def main(argv=None):
     offset, knn, human, signed, renders = (out[k] for k in ("offset", "knn", "human", "signed",
                                                             "renders"))
     cli, render_cli, parallel = out["cli"][0], out["render_cli"], out["parallel"]
-    envelope = out["envelope"]
+    envelope, render_parallel = out["envelope"], out["render_parallel"]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -2741,9 +2872,11 @@ def main(argv=None):
     # configurations, the f32 human train path (phase 9) split likewise, its
     # 2 steps with the fused signed distance, the three frames of phase
     # 12, the command line's two stages (phase 13, train.main each), the
-    # five render command lines (phase 14, main() each), and phase 16's two
+    # five render command lines (phase 14, main() each), phase 16's two
     # ranks' steps of each stage (counted in each rank) and its two
-    # train.main stages under NCCL. Phase 17's launches are listed as
+    # train.main stages under NCCL, and phase 18's two ranks' frame of each
+    # render command line (counted in each rank) and its NCCL test view.
+    # Phase 17's launches are listed as
     # envelope_quick and left out of `launches`: they compare the kernels
     # with their plain versions.
     # No single PyTorch call computes any of the seven functions.
@@ -2766,6 +2899,7 @@ def main(argv=None):
         paths.update({f"cli_{stage}": run[1].get(name, 0) for stage, run in cli.items()})
         paths.update({f"render_cli_{cmd}": run[0].get(name, 0) for cmd, run in render_cli.items()})
         paths.update({path: counts.get(name, 0) for path, counts in parallel.items()})
+        paths.update({path: counts.get(name, 0) for path, counts in render_parallel.items()})
         paths["envelope_quick"] = envelope.get(name, 0)
         return {k: v for k, v in paths.items() if v}
 

@@ -1,5 +1,5 @@
-"""Data-parallel dry runs: both train steps on N ranks against one process
-(counterpart of neuman_tpu/parallel/dryrun.py).
+"""Data-parallel dry runs: both train steps, and renders, on N ranks
+against one process (counterpart of neuman_tpu/parallel/dryrun.py).
 
 `dryrun_equality(n, jobs)` spawns n ranks (torch.multiprocessing, spawn),
 joins them into one process group with an explicit backend (gloo on the
@@ -15,6 +15,16 @@ the step-1 gradients, the parameters after the steps and each rank's
 kernel launches, on both sides.
 
     eq = dryrun_step_equality("human", 2, steps=2)   # tiny, on the CPU, JAX's bars
+
+A `RenderJob` is one render (a function that calls the renderers of
+render/renderer.py, or a command line's `main`) run on the ranks with the
+process group's mesh and in this process without one; `render_equality`
+records every renderer call on both sides (its outputs and seconds), the
+PNGs each process wrote, each rank's kernel launches and the rays it ran
+through the human branch, and compares the frames (`compare_renders`;
+`render_faults`: the JAX package's sharded-render bars).
+
+    eq = render_equality(2, [RenderJob("hybrid", tiny_render, ("hybrid",))])
 """
 
 import copy
@@ -23,6 +33,7 @@ import os
 import shutil
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -108,7 +119,7 @@ def human_training_setup(cfg, device, views=4, hw=(36, 48), seed=0, body_subdivi
     from neuman_tpu_torch.models import smpl
     from neuman_tpu_torch.trainers.human import HumanNeRFTrainer
 
-    body = smpl.body_proxy_smpl_model(subdivisions=body_subdivisions, device=device)
+    body = smpl.body_proxy_smpl_model(subdivisions=1, device=device)
     scene = darrays.synthetic_human_scene(body, views, *hw, seed=seed, device=device)
     model = hn.HumanNeRF(hn.build_human_nerf_spec(cfg), device=device,
                          generator=torch.Generator().manual_seed(cfg.seed),
@@ -284,3 +295,239 @@ def dryrun_step_equality(kind, n_devices, steps=2):
     patch over the ranks' rows), held to `check_bars`: the compare dict."""
     with tempfile.TemporaryDirectory(prefix="neuman_dryrun_out_") as out:
         return check_bars(dryrun_equality(n_devices, tiny_jobs(kind, n_devices, steps, out))[0])
+
+
+# the renderers a RenderJob records
+RENDERERS = ("render_vanilla", "render_hybrid_nerf", "render_smpl_nerf",
+             "render_hybrid_nerf_multi_persons")
+# the names of a renderer's outputs, in order
+OUTPUTS = ("rgb", "depth", "acc")
+# the JAX package's sharded-vs-unsharded render bars (tests/test_parallel.py):
+# rgb 1e-5, depth 1e-4 for render_vanilla and the multi-person render, the
+# hybrid render's 1e-5 for the others
+RENDER_BARS = {"render_vanilla": {"rgb": 1e-5, "depth": 1e-4},
+               "render_hybrid_nerf": {"rgb": 1e-5, "depth": 1e-5, "acc": 1e-5},
+               "render_smpl_nerf": {"rgb": 1e-5, "depth": 1e-5, "acc": 1e-5},
+               "render_hybrid_nerf_multi_persons": {"rgb": 1e-5, "depth": 1e-4}}
+
+
+@dataclasses.dataclass
+class RenderJob:
+    """fn(device, mesh, *args): a module-level function that renders
+    through the renderers (every rank calls it with the process group's
+    DataMesh, this process with None), from the working directory
+    `workdir` (the command lines write ./demo there; None: unchanged)."""
+
+    name: str
+    fn: object
+    args: tuple = ()
+    workdir: str = None
+
+
+def _synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_render(job, device):
+    """`job` in this process, recorded: {"calls": [(renderer, its outputs
+    on the host)], "seconds": each call's wall time (synchronised on the
+    card), "human_rays": the rays this process ran through the human
+    branch, "launches": each kernel's launches, "pngs": {path: bytes} of
+    the PNGs it wrote, "warnings", "returned": what fn returned}."""
+    from neuman_tpu_torch.ops import kernels
+    from neuman_tpu_torch.parallel.mesh import DataMesh
+    from neuman_tpu_torch.render import renderer
+    from neuman_tpu_torch.utils import png
+
+    mesh = DataMesh.of_process_group() if dist.is_initialized() else None
+    rec = {"calls": [], "seconds": [], "human_rays": 0, "pngs": {}}
+    saved = {name: getattr(renderer, name) for name in RENDERERS}
+    branch, write = renderer._human_branch, png.write_png
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            _synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _synchronize(device)
+            rec["seconds"].append(time.perf_counter() - t0)
+            outs = out if isinstance(out, tuple) else (out,)
+            rec["calls"].append((name, tuple(t.detach().cpu().clone() for t in outs)))
+            return out
+        return call
+
+    def counted(*args, **kwargs):
+        rec["human_rays"] += args[3].shape[0]  # origins
+        return branch(*args, **kwargs)
+
+    def written(path, img):
+        write(path, img)
+        with open(path, "rb") as f:
+            rec["pngs"][os.path.normpath(path)] = f.read()
+
+    counters = kernels.wrappers()
+    for c in counters.values():
+        c.launches = 0
+    cwd = os.getcwd()
+    for name, fn in saved.items():
+        setattr(renderer, name, timed(name, fn))
+    renderer._human_branch, png.write_png = counted, written
+    try:
+        if job.workdir is not None:
+            os.chdir(job.workdir)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rec["returned"] = job.fn(device, mesh, *job.args)
+    finally:
+        os.chdir(cwd)
+        for name, fn in saved.items():
+            setattr(renderer, name, fn)
+        renderer._human_branch, png.write_png = branch, write
+    rec["warnings"] = [str(w.message) for w in caught]
+    rec["launches"] = {k: c.launches for k, c in counters.items()}
+    return rec
+
+
+def run_renders(jobs, device):
+    return [run_render(job, device) for job in jobs]
+
+
+def compare_renders(ranks, single):
+    """The comparison values of one RenderJob: each rank's run_render
+    result against the unsharded one's. `calls`: rank 0's renderer calls
+    and their outputs; `max_abs`: {output: the largest absolute difference
+    of rank 0's frames from the unsharded ones}, over the job's renderer
+    calls; `bit_equal`: every output torch.equal; `ranks_equal`: every
+    rank holds rank 0's frames."""
+    r0 = ranks[0]
+    if [n for n, _ in r0["calls"]] != [n for n, _ in single["calls"]]:
+        raise AssertionError(f"the ranks called {[n for n, _ in r0['calls']]}, one process "
+                             f"{[n for n, _ in single['calls']]}")
+    max_abs, bit_equal = {}, True
+    for (name, got), (_, want) in zip(r0["calls"], single["calls"]):
+        for out, a, b in zip(OUTPUTS, got, want):
+            if a.shape != b.shape:
+                raise AssertionError(f"{name} {out}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+            max_abs[out] = max(max_abs.get(out, 0.0), float((a - b).abs().max()))
+            bit_equal = bit_equal and torch.equal(a, b)
+    return {
+        "renderers": [n for n, _ in single["calls"]],
+        "calls": r0["calls"],
+        "max_abs": max_abs,
+        "bit_equal": bit_equal,
+        "ranks_equal": all(torch.equal(a, b) for r in ranks[1:]
+                           for (_, outs), (_, outs0) in zip(r["calls"], r0["calls"])
+                           for a, b in zip(outs, outs0)),
+        "hw": list(single["calls"][0][1][0].shape[:2]) if single["calls"] else None,
+        "seconds": [r["seconds"] for r in ranks], "single_seconds": single["seconds"],
+        "human_rays": [r["human_rays"] for r in ranks], "single_human_rays": single["human_rays"],
+        "launches": [r["launches"] for r in ranks],
+        "pngs_equal": r0["pngs"] == single["pngs"],
+        "pngs_written": [len(r["pngs"]) for r in ranks], "single_pngs": len(single["pngs"]),
+        "warnings": [r["warnings"] for r in ranks],
+        "returned": [r["returned"] for r in ranks], "single_returned": single["returned"],
+    }
+
+
+def render_faults(eq):
+    """What a `compare_renders` dict breaks of the JAX package's
+    sharded-render contract: an output over its bar (RENDER_BARS, by
+    renderer), ranks that hold different frames, PNGs written by a rank
+    other than 0 or other than one process's. [] when none."""
+    faults = [f"{name} {out}: {eq['max_abs'][out]} apart, over {atol}"
+              for name in sorted(set(eq["renderers"]))
+              for out, atol in RENDER_BARS[name].items() if eq["max_abs"].get(out, 0.0) > atol]
+    if not eq["ranks_equal"]:
+        faults.append("the ranks hold different frames")
+    if not eq["pngs_equal"] or any(eq["pngs_written"][1:]):
+        faults.append(f"PNGs: rank 0's equal one process's: {eq['pngs_equal']}; written by "
+                      f"each rank {eq['pngs_written']}")
+    return faults
+
+
+def render_equality(n, jobs, backend="gloo", device="cpu", timeout_s=600.0):
+    """Each RenderJob on n ranks (spawn_ranks), then in this process
+    without a mesh: a list of `compare_renders` dicts, one a job."""
+    cpu = torch.device(device).type == "cpu"
+    ranks = spawn_ranks(n, run_renders, (jobs, device), backend, cpu, timeout_s)
+    single = run_renders(jobs, device)
+    return [compare_renders([r[i] for r in ranks], s) for i, s in enumerate(single)]
+
+
+def tiny_render_scene(device="cpu", seed=0):
+    """A tiny frame to render: (spec, HumanNeRF at the TINY widths drawn
+    from `seed`, density biases +0.5 background and +2 body so that both
+    branches show; a 16x16 capture 2.5 in front of the body proxy at
+    subdivision 1 (V=42) posed by a random pose; its posed vertices, faces
+    and Ts)."""
+    from neuman_tpu_torch.cameras.capture import ResizedPinholeCapture
+    from neuman_tpu_torch.cameras.pinhole import PinholeCamera
+    from neuman_tpu_torch.cameras.pose import CameraPose
+    from neuman_tpu_torch.geometry.rotation import Rotation, Translation
+    from neuman_tpu_torch.models import human_nerf as hn
+    from neuman_tpu_torch.models import smpl
+
+    cfg = NeuManConfig(**TINY)
+    spec = hn.build_human_nerf_spec(cfg)
+    model = hn.HumanNeRF(spec, device=device, generator=torch.Generator().manual_seed(seed))
+    model.requires_grad_(False)
+    for net, bias in ((model.coarse_bkg_net, 0.5), (model.fine_bkg_net, 0.5),
+                      (model.coarse_human_net, 2.0)):
+        net.nerf.alpha_linear.bias.add_(bias)
+    body = smpl.body_proxy_smpl_model(subdivisions=1, device=device)
+    pose = torch.zeros(1, 72, device=device)
+    pose[0, 3:] = torch.as_tensor(np.random.default_rng(seed + 4).normal(size=69) * 0.05,
+                                  dtype=torch.float32, device=device)
+    verts, ts = smpl.da_pose_to_scene(body, pose, torch.zeros(1, 10, device=device))
+    cap = ResizedPinholeCapture(
+        PinholeCamera(16, 16, 16.0, 16.0, 8.0, 8.0),
+        CameraPose(Translation(np.array([0.0, 0.0, 2.5], np.float32)),
+                   Rotation(np.array([1.0, 0.0, 0.0, 0.0]))), (16, 16))
+    cap.near, cap.far = {"bkg": 0.5}, {"bkg": 6.0}
+    return spec, model, cap, verts.cpu().numpy(), np.asarray(body.faces), ts.cpu().numpy()
+
+
+def tiny_render(device, mesh, what, rays_per_batch=64):
+    """One tiny frame (`tiny_render_scene`) in f32 at TINY's samples, k=4,
+    stride 4, geo_threshold 0.3: `what` "vanilla" (render_vanilla),
+    "hybrid", "smpl" (posed), "smpl_can" (the vertices as canonical ones,
+    no Ts) or "multi" (the body and a copy 0.6 to its side). Returns the
+    renderer's outputs."""
+    from neuman_tpu_torch.render import renderer
+
+    spec, model, cap, verts, faces, ts = tiny_render_scene(device)
+    kw = dict(rays_per_batch=rays_per_batch, samples_per_ray=TINY["samples_per_ray"],
+              compute_dtype=torch.float32, mesh=mesh)
+    human = dict(geo_threshold=0.3, knn_k=4, knn_stride=4)
+    bkg_samples = TINY["importance_samples_per_ray"]
+    if what == "vanilla":
+        return renderer.render_vanilla(spec.bkg, model.coarse_bkg_net.nerf, cap,
+                                       model.fine_bkg_net.nerf, device,
+                                       importance_samples_per_ray=bkg_samples, **kw)
+    if what == "hybrid":
+        return renderer.render_hybrid_nerf(spec, model, cap, verts, faces, ts, device,
+                                           importance_samples_per_ray=bkg_samples, **human, **kw)
+    if what in ("smpl", "smpl_can"):
+        can = what == "smpl_can"
+        return renderer.render_smpl_nerf(spec, model, cap, verts, faces, None if can else ts,
+                                         device, render_can=can, interval_comp=1.3, **human, **kw)
+    if what == "multi":
+        shift = np.array([0.6, 0.0, 0.0], np.float32)
+        ts2 = ts.copy()
+        ts2[:, :3, 3] += shift
+        return renderer.render_hybrid_nerf_multi_persons(
+            spec, model, cap, [spec, spec], [model, model], [verts, verts + shift],
+            [faces, faces], [ts, ts2], device, importance_samples_per_ray=bkg_samples,
+            **human, **kw)
+    raise ValueError(f"unknown tiny render {what!r}")
+
+
+def command_line(device, mesh, module, argv):
+    """`neuman_tpu_torch.<module>.main(argv)` on `device`, with
+    --data_parallel on under a mesh and off without one. Returns what main
+    returns."""
+    import importlib
+
+    main = importlib.import_module(f"neuman_tpu_torch.{module}").main
+    return main([*argv, "--data_parallel", "on" if mesh is not None else "off"], device=device)

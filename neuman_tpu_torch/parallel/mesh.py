@@ -22,12 +22,18 @@ result:
   all-reduce (`all_reduce_flat`), and the dead-net tests are maxima over
   the ranks, so every rank takes the same skip, restart and update.
 
+Renders shard each chunk's rays over the ranks (the JAX renderers'
+`mesh=`): `ChunkRows` gives this rank its contiguous block of each chunk,
+and one all_gather a frame joins the blocks.
+
 Launch N processes, one GPU each, with
 
     torchrun --nproc_per_node N -m neuman_tpu_torch.train ...
+    torchrun --nproc_per_node N -m neuman_tpu_torch.render_test_views ...
 
 `maybe_init_distributed` joins them into one NCCL group; `resolve_mesh`
-turns the config's `data_parallel` into a `DataMesh` or None.
+(training) and `resolve_render_mesh` (rendering) turn the config's
+`data_parallel` into a `DataMesh` or None.
 """
 
 import dataclasses
@@ -109,6 +115,12 @@ class DataMesh:
         tensor is summed over the ranks and each rank keeps its own rows."""
         return _GatherRows.apply(t, self)
 
+    def broadcast_object(self, obj):
+        """Rank 0's picklable `obj` on every rank."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     def barrier(self):
         dist.barrier()
 
@@ -128,30 +140,91 @@ class _GatherRows(torch.autograd.Function):
         return mesh.shard(mesh.all_reduce(grad.contiguous().clone())), None
 
 
-def resolve_mesh(opt):
+def resolve_render_mesh(opt, what="render"):
     """The run's data mesh from the config, as the JAX package resolves it:
     data_parallel "auto" gives a mesh over the process group when there
     is more than one process, "on" even with one, "off" none. "off" with
-    more than one process raises: the ranks would each train apart, and
-    so does a rays_per_batch that the world size does not divide. A mesh
-    needs the process group (`maybe_init_distributed`)."""
+    more than one process raises: the ranks would each `what` apart. A
+    mesh needs the process group (`maybe_init_distributed`). A chunk that
+    the world size does not divide is the renderer's warning, not an
+    error here."""
     dp = opt.data_parallel
     if dp not in ("auto", "on", "off"):
         raise ValueError(f"data_parallel must be auto, on or off, not {dp!r}")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if dp == "off":
         if world > 1:
-            raise ValueError(f"data_parallel off with {world} processes: each rank would train "
-                             "apart; use data_parallel auto or on, or start one process")
+            raise ValueError(f"data_parallel off with {world} processes: each rank would {what} "
+                             f"apart; use data_parallel auto or on, or start one process")
         return None
     if dp == "auto" and world == 1:
         return None
     if not dist.is_initialized():
         raise ValueError("data_parallel on needs a process group: launch with torchrun (or set "
                          "NEUMAN_TPU_DISTRIBUTED=1 and the torchrun variables)")
-    mesh = DataMesh.of_process_group(axis=opt.data_axis)
-    mesh.rows(opt.rays_per_batch)
+    return DataMesh.of_process_group(axis=opt.data_axis)
+
+
+def resolve_mesh(opt):
+    """The training mesh: `resolve_render_mesh`, and a rays_per_batch that
+    the world size does not divide raises (every rank takes an equal share
+    of each batch)."""
+    mesh = resolve_render_mesh(opt, "train")
+    if mesh is not None:
+        mesh.rows(opt.rays_per_batch)
     return mesh
+
+
+class ChunkRows:
+    """The rows of `total` rays, taken in chunks of `chunk`, that this rank
+    renders (the JAX renderers' row-sharded chunks: `_chunked`,
+    `_maybe_shard_stacked`). Iterating gives, chunk by chunk, (this rank's
+    rows of the frame, where they go in its buffers of `local` rows, the
+    whole chunk: slice(i, i + n) of the frame). Without a mesh the rows are
+    the whole chunk, at the same place. With one, the chunk is padded by
+    repeating its last ray to a multiple of the mesh size, and this rank
+    takes its contiguous block of it (an index tensor on `device`);
+    `gather` joins the ranks' buffers into the frame in one all_gather."""
+
+    def __init__(self, total, chunk, mesh=None, device=None):
+        size = 1 if mesh is None else mesh.size
+        self.total, self.mesh, self.device = total, mesh, device
+        # (first row, rows, rows a rank) of each chunk
+        self.spans = [(i, min(chunk, total - i), -(-min(chunk, total - i) // size))
+                      for i in range(0, total, chunk)]
+        self.local = sum(k for _, _, k in self.spans)
+
+    def __iter__(self):
+        at = 0
+        for i, n, k in self.spans:
+            if self.mesh is None:
+                yield slice(i, i + n), slice(at, at + n), slice(i, i + n)
+            else:
+                first = i + self.mesh.rank * k
+                rows = torch.arange(first, first + k, device=self.device).clamp_(max=i + n - 1)
+                yield rows, slice(at, at + k), slice(i, i + n)
+            at += k
+
+    def gather(self, *local):
+        """Each of this rank's buffers (`local` rows each) as the frame's
+        `total` rows, every rank's blocks in their places (the JAX order
+        [ranks, chunks, chunk/ranks] -> [chunks, ranks, chunk/ranks] ->
+        [:total]), the padding dropped: one all_gather of the buffers'
+        columns side by side. Without a mesh (or rows), the buffers."""
+        if self.mesh is None or not self.total:
+            return local
+        cols = [t.reshape(self.local, -1) for t in local]
+        every = self.mesh.gather_rows(torch.cat(cols, 1))  # [size * local, columns]
+        ranks = torch.arange(self.mesh.size)[:, None]
+        pos = torch.cat([i + ranks * k + torch.arange(k) for i, _, k in self.spans], 1)
+        real = torch.cat([ranks * k + torch.arange(k) < n for _, n, k in self.spans], 1)
+        frame = every.new_empty(self.total, every.shape[1])
+        frame[pos[real].to(every.device)] = every[real.reshape(-1).to(every.device)]
+        out, at = [], 0
+        for t, c in zip(local, cols):
+            out.append(frame[:, at:at + c.shape[1]].reshape(self.total, *t.shape[1:]))
+            at += c.shape[1]
+        return tuple(out)
 
 
 def shard_leading_axis(batch, mesh):

@@ -18,7 +18,15 @@ Per chunk the MLPs run through the `nerf_mlp` kernel and the warp's
 closest-point query through the `ericson_select` kernel; `use_kernels=False`
 runs their plain PyTorch versions instead (the reference the card checks
 the kernels against).
+
+With a data `mesh` (parallel/mesh.py, the JAX renderers' `mesh=`) each
+chunk's rays are split over the ranks (`ChunkRows`): every rank runs its
+contiguous block of each chunk, and one all_gather at the end of the frame
+gives every rank the whole frame. A chunk size that the mesh size does not
+divide warns "UNSHARDED", and every rank renders the whole frame.
 """
+
+import warnings
 
 import torch
 
@@ -28,21 +36,53 @@ from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops import rays as ray_ops
 from neuman_tpu_torch.ops import volume
 from neuman_tpu_torch.ops.kernels.nerf_mlp import dir_projection, nerf_mlp, nerf_mlp_plain
+from neuman_tpu_torch.parallel.mesh import ChunkRows
 
 
 def _mlp(use_kernels):
     return nerf_mlp if use_kernels else nerf_mlp_plain
 
 
+def _shard_mesh(mesh, chunk):
+    """The mesh a frame's chunks split over: `mesh`, or None (with a
+    warning) when its size does not divide the chunk size."""
+    if mesh is not None and chunk % mesh.size:
+        warnings.warn(
+            f"render: chunk size {chunk} is not divisible by the mesh size {mesh.size}; "
+            "rendering UNSHARDED on every rank. Pick rays_per_batch as a multiple of the rank "
+            "count to parallelize.", stacklevel=3)
+        return None
+    return mesh
+
+
+def _dir_term(spec, net, dirs, compute_dtype, dir_chunk=None):
+    """The per-ray direction term of `dirs`. dir_chunk: (the whole chunk's
+    directions, the rows of it that `dirs` are): the term is computed on
+    the whole chunk, as one process computes it, and the rows taken, so
+    that a rank of a mesh rounds as one process does (the GEMM kernel that
+    cuBLAS picks, and with it the rounding, changes with the row count)."""
+    if dir_chunk is None:
+        return dir_projection(spec, net, dirs, compute_dtype)
+    whole, rows = dir_chunk
+    return dir_projection(spec, net, whole, compute_dtype)[rows]
+
+
+def _dir_chunk(rows, dirs, src, whole):
+    """A renderer's `dir_chunk` for the rows `src` of the chunk `whole`
+    (ChunkRows' iteration): None without a mesh."""
+    return None if rows.mesh is None else (dirs[whole], src - whole.start)
+
+
 def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far,
                 samples_per_ray, importance_samples_per_ray, white_bkg,
-                compute_dtype, use_kernels=True, time_val=None):
+                compute_dtype, use_kernels=True, time_val=None, dir_chunk=None):
     """Background coarse -> importance -> fine. Returns (f_z, f_sigma,
     f_rgb_c, dir_norm): the fine samples' z [R, S+I], raw sigma [R, S+I],
     raw colour 3x[R, S+I], and |d| [R]. time_val: NeRF-T nets, which take
     the samples' (x, y, z, time_val) through the 4-D PE and the plain
     PyTorch net in f32, as the JAX package's `_vanilla_chunk(use_time=True)`
-    (the NeRF kernels take one 64-column PE block; the 4-D PE has 84)."""
+    (the NeRF kernels take one 64-column PE block; the 4-D PE has 84).
+    dir_chunk: as `_dir_term`."""
     mlp = _mlp(use_kernels)
     dir_norm = torch.linalg.norm(dirs, dim=-1)
 
@@ -54,7 +94,7 @@ def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far
             out = nerf_module.apply_joiner(bkg_spec, net, pts, dirs[:, None, :].expand(r, s, 3))
             return out[..., 3], [out[..., c] for c in range(3)]
         planes = [origins[:, a, None] + dirs[:, a, None] * z for a in range(3)]
-        dirp = dir_projection(bkg_spec, net, dirs, compute_dtype)
+        dirp = _dir_term(bkg_spec, net, dirs, compute_dtype, dir_chunk)
         return mlp(bkg_spec, net, *planes, dir_part=dirp, compute_dtype=compute_dtype)
 
     z = volume.sample_z(bkg_near, bkg_far, samples_per_ray)
@@ -67,13 +107,13 @@ def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far
 
 def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, posed_verts,
                   Ts, samples_per_ray, knn_k, compute_dtype, knn_stride=1, use_kernels=True,
-                  render_can=False, interval_comp=1.0):
+                  render_can=False, interval_comp=1.0, dir_chunk=None):
     """Samples between the geometry-guided near/far [R] -> warp to canonical
     -> canonical MLP with per-sample directions. Rays with near >= far miss
     the body and get placeholder samples on [0, 1]. render_can: the samples
     are canonical points already (no warp) and the net takes the ray's
-    direction. sigma is scaled by interval_comp. Returns (z [R, S], sigma
-    [R, S], rgb_c 3x[R, S])."""
+    direction (dir_chunk: as `_dir_term`). sigma is scaled by
+    interval_comp. Returns (z [R, S], sigma [R, S], rgb_c 3x[R, S])."""
     hit = near < far
     z = ray_ops.sample_z_vals(torch.where(hit, near, 0.0), torch.where(hit, far, 1.0),
                               samples_per_ray)
@@ -82,7 +122,7 @@ def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, pos
     if render_can:
         sigma, rgb_c = _mlp(use_kernels)(
             human_spec, human_net, *planes, compute_dtype=compute_dtype,
-            dir_part=dir_projection(human_spec, human_net, dirs, compute_dtype))
+            dir_part=_dir_term(human_spec, human_net, dirs, compute_dtype, dir_chunk))
         return z, sigma * interval_comp, rgb_c
     flat = torch.stack(planes, -1).reshape(-1, 3)
     _, f_id, closest = mesh_ops.point_mesh_closest_planar(
@@ -153,27 +193,32 @@ def cap_rays(cap, device):
 @torch.no_grad()
 def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768,
                    samples_per_ray=64, importance_samples_per_ray=128, white_bkg=True,
-                   compute_dtype=torch.bfloat16, use_kernels=True, ablate_nerft=False):
+                   compute_dtype=torch.bfloat16, use_kernels=True, ablate_nerft=False,
+                   mesh=None):
     """Background-only frame: coarse -> importance -> fine over every pixel
     of `cap` (as render_hybrid_nerf reads it, near/far from the "bkg"
     entries), chunk by chunk. spec: the nets' JoinerSpec; coarse_net,
     fine_net: NeRF modules on `device`. ablate_nerft: NeRF-T nets, which
     take the frame's time frame_id / total_frames of `cap.frame_id` as a
-    fourth input (plain PyTorch in f32, as in the JAX package).
+    fourth input (plain PyTorch in f32, as in the JAX package). mesh: a
+    DataMesh over which each chunk's rays are split (every rank calls).
     Returns rgb [H, W, 3] on `device`."""
     origins, dirs = cap_rays(cap, device)
-    total = origins.shape[0]
-    rgb = torch.empty(total, 3, device=device)
+    rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
+                     device)
+    rgb = torch.empty(rows.local, 3, device=device)
     time_val = cap.frame_id["frame_id"] / cap.frame_id["total_frames"] if ablate_nerft else None
-    for i in range(0, total, rays_per_batch):
-        o, d = origins[i:i + rays_per_batch], dirs[i:i + rays_per_batch]
+    for src, dst, whole in rows:
+        o, d = origins[src], dirs[src]
         n = o.shape[0]
         near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
         far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             spec, coarse_net, fine_net, o, d, near, far, samples_per_ray,
-            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels, time_val)
-        rgb[i:i + n] = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)[0]
+            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels, time_val,
+            _dir_chunk(rows, dirs, src, whole))
+        rgb[dst] = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)[0]
+    (rgb,) = rows.gather(rgb)
     h, w = cap.shape
     return rgb.reshape(h, w, 3)
 
@@ -184,7 +229,7 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
                        importance_samples_per_ray=128, white_bkg=True,
                        geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
                        compute_dtype=torch.bfloat16, use_kernels=True,
-                       topology=None):
+                       topology=None, mesh=None):
     """Hybrid human + scene frame, compact dispatch. The MLPs run in
     `compute_dtype` (bf16 storage and products with f32 accumulation by
     default, as the JAX renderer's default; float32 for exact f32).
@@ -193,7 +238,9 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
     .shape (H, W), .intrinsic_matrix, .cam_pose.camera_to_world and the
     .near / .far dicts (key "bkg"); posed_verts [V, 3], faces [F, 3+],
     Ts [V(+J), 4, 4] (arrays or tensors). `topology` may pass a prebuilt
-    MeshTopology of `faces` to skip rebuilding it.
+    MeshTopology of `faces` to skip rebuilding it. mesh: a DataMesh over
+    which each chunk's rays are split (every rank calls; each picks the
+    hit rays of its own rows).
     Returns (rgb [H, W, 3], depth [H, W], acc [H, W]) on `device`.
     """
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -201,21 +248,22 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
         topology = mesh_ops.MeshTopology.build(faces, len(posed_verts), device)
     verts, Ts = f32(posed_verts), f32(Ts)[: len(posed_verts)]
     origins, dirs = cap_rays(cap, device)
-    total = origins.shape[0]
-    rgb = torch.empty(total, 3, device=device)
-    depth = torch.empty(total, device=device)
-    acc = torch.zeros(total, device=device)
-    for i in range(0, total, rays_per_batch):
-        o, d = origins[i:i + rays_per_batch], dirs[i:i + rays_per_batch]
-        n = o.shape[0]
+    rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
+                     device)
+    rgb = torch.empty(rows.local, 3, device=device)
+    depth = torch.empty(rows.local, device=device)
+    acc = torch.zeros(rows.local, device=device)
+    for src, dst, whole in rows:
+        o, d = origins[src], dirs[src]
+        n, i = o.shape[0], dst.start
         bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
         bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, o, d, bkg_near,
             bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
-            use_kernels,
+            use_kernels, dir_chunk=_dir_chunk(rows, dirs, src, whole),
         )
-        rgb[i:i + n], _, _, _, depth[i:i + n] = volume.integrate_planar(
+        rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
         # the human branch runs only on the chunk's rays that pass near the body
         near, far = ray_ops.geometry_guided_near_far(o, d, verts, geo_threshold)
@@ -230,6 +278,7 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
             hit = torch.ones_like(sel, dtype=torch.bool)
             rgb[i + sel], depth[i + sel], acc[i + sel] = _merge_human(
                 hit_bkg, hit, *human, bkg_far[sel], white_bkg)
+    rgb, depth, acc = rows.gather(rgb, depth, acc)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)
 
@@ -239,14 +288,16 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
                      samples_per_ray=64, white_bkg=True, render_can=False,
                      geo_threshold=DEFAULT_GEO_THRESH, interval_comp=1.0, knn_k=4,
                      knn_stride=1, compute_dtype=torch.bfloat16, use_kernels=True,
-                     topology=None):
+                     topology=None, mesh=None):
     """Human-only frame, compact dispatch: only the rays that pass within
     geo_threshold of a vertex run the human branch; the others get the white
     or black pixel, depth 0 and acc 0. render_can: `posed_verts` are the
     canonical vertices and the samples canonical points (no warp; Ts
-    unused). Ts None: identity transforms. Arguments otherwise as
-    `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth [H, W], acc [H, W])
-    on `device`."""
+    unused). Ts None: identity transforms. mesh: each chunk of the frame's
+    rays is split over the ranks for the hit test, and each chunk of the
+    hit list for the human branch. Arguments otherwise as
+    `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth
+    [H, W], acc [H, W]) on `device`."""
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     verts = f32(posed_verts)
     if topology is None:
@@ -258,18 +309,33 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     rgb = torch.full((total, 3), 1.0 if white_bkg else 0.0, device=device)
     depth = torch.zeros(total, device=device)
     acc = torch.zeros(total, device=device)
+    mesh = _shard_mesh(mesh, rays_per_batch)
     # the hit test holds [rays, V] distances: chunk by chunk, like the branch
-    bounds = [ray_ops.geometry_guided_near_far(o, d, verts, geo_threshold)
-              for o, d in zip(origins.split(rays_per_batch), dirs.split(rays_per_batch))]
-    near, far = (torch.cat(x) for x in zip(*bounds))
-    for sel in torch.nonzero(near < far).squeeze(1).split(rays_per_batch):
+    rows = ChunkRows(total, rays_per_batch, mesh, device)
+    near = torch.empty(rows.local, device=device)
+    far = torch.empty(rows.local, device=device)
+    for src, dst, _ in rows:
+        near[dst], far[dst] = ray_ops.geometry_guided_near_far(origins[src], dirs[src], verts,
+                                                               geo_threshold)
+    near, far = rows.gather(near, far)
+    hits = torch.nonzero(near < far).squeeze(1)
+    rows = ChunkRows(hits.numel(), rays_per_batch, mesh, device)
+    h_rgb = torch.empty(rows.local, 3, device=device)
+    h_depth = torch.empty(rows.local, device=device)
+    h_acc = torch.empty(rows.local, device=device)
+    for src, dst, whole in rows:
+        sel = hits[src]
         o, d = origins[sel], dirs[sel]
+        dir_chunk = None
+        if render_can and mesh is not None:
+            dir_chunk = (dirs[hits[whole]], src - whole.start)
         z, sigma, rgb_c = _human_branch(
             spec.human, model.coarse_human_net.nerf, topology, o, d, near[sel], far[sel], verts,
             Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels, render_can,
-            interval_comp)
-        rgb[sel], _, acc[sel], _, depth[sel] = volume.integrate_planar(
+            interval_comp, dir_chunk)
+        h_rgb[dst], _, h_acc[dst], _, h_depth[dst] = volume.integrate_planar(
             sigma, rgb_c, z, torch.linalg.norm(d, dim=-1), white_bkg)
+    rgb[hits], depth[hits], acc[hits] = rows.gather(h_rgb, h_depth, h_acc)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)
 
@@ -280,7 +346,7 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
                                      rays_per_batch=32768, samples_per_ray=64,
                                      importance_samples_per_ray=128, white_bkg=True,
                                      geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
-                                     compute_dtype=torch.bfloat16, use_kernels=True):
+                                     compute_dtype=torch.bfloat16, use_kernels=True, mesh=None):
     """Several actors composited into one scene, compact dispatch: the
     background (the nets of `bkg_model`) on every ray, chunk by chunk; on the
     rays within geo_threshold of any actor, every actor's human branch (the
@@ -288,8 +354,8 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
     and transforms), and one merge by z over the background and all actors.
     An actor that a ray misses contributes samples at z = linspace(1, 2) x
     1e8 with sigma -1e9: far behind every real sample, so the last real
-    sample keeps its own interval. Returns (rgb [H, W, 3], depth [H, W]) on
-    `device`."""
+    sample keeps its own interval. mesh: as `render_hybrid_nerf`. Returns
+    (rgb [H, W, 3], depth [H, W]) on `device`."""
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     actors = []
     for spec_h, model_h, verts_h, faces_h, ts_h in zip(human_specs, human_models,
@@ -299,20 +365,21 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
                        mesh_ops.MeshTopology.build(faces_h, len(verts_h), device), verts_h,
                        f32(ts_h)[: len(verts_h)]))
     origins, dirs = cap_rays(cap, device)
-    total = origins.shape[0]
-    rgb = torch.empty(total, 3, device=device)
-    depth = torch.empty(total, device=device)
+    rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
+                     device)
+    rgb = torch.empty(rows.local, 3, device=device)
+    depth = torch.empty(rows.local, device=device)
     dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
-    for i in range(0, total, rays_per_batch):
-        o, d = origins[i:i + rays_per_batch], dirs[i:i + rays_per_batch]
-        n = o.shape[0]
+    for src, dst, whole in rows:
+        o, d = origins[src], dirs[src]
+        n, i = o.shape[0], dst.start
         bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
         bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, o, d,
             bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
-            compute_dtype, use_kernels)
-        rgb[i:i + n], _, _, _, depth[i:i + n] = volume.integrate_planar(
+            compute_dtype, use_kernels, dir_chunk=_dir_chunk(rows, dirs, src, whole))
+        rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
         bounds = [ray_ops.geometry_guided_near_far(o, d, a[3], geo_threshold) for a in actors]
         any_hit = torch.zeros(n, dtype=torch.bool, device=device)
@@ -333,5 +400,6 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
         z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
         rgb[i + sel], _, _, _, depth[i + sel] = volume.integrate_planar(
             sigma, rgb_c, z, dir_norm[sel], white_bkg)
+    rgb, depth = rows.gather(rgb, depth)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w)

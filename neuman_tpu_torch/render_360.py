@@ -10,7 +10,8 @@ frame in scene space (the warp through the `ericson_select` kernel).
 Frames go to ./demo/<mode>/<scene>/out_%04d.png, relative to the working
 directory. Every other flag is train.py's (options/config.py), with
 geo_threshold taken from the scene's bones. `main(argv, device)` runs on
-the card unless device="cpu".
+the card unless device="cpu"; under `torchrun --nproc_per_node N` each
+chunk's rays split over N GPUs and rank 0 writes (render/cli.py).
 """
 
 import argparse
@@ -32,10 +33,10 @@ from neuman_tpu_torch.utils.misc import smpl_verts_to_center_and_up
 MODES = ("canonical_360", "posed_360")
 
 
-def main_canonical_360(opt, device="cuda"):
+def main_canonical_360(opt, device="cuda", mesh=None):
     """The Da-posed human of the first frame, `opt.trajectory_resolution`
-    cameras on a circle CANONICAL_CAMERA_DIST from its spine. Returns the
-    frames' paths."""
+    cameras on a circle CANONICAL_CAMERA_DIST from its spine, each
+    frame's rays split over `mesh`. Returns the frames' paths."""
     scene = cli.read_scene(opt)
     geo_threshold, can_bone = auto_geo_threshold(scene)
     spec = hn.build_human_nerf_spec(opt)
@@ -57,15 +58,15 @@ def main_canonical_360(opt, device="cuda"):
         rgb = renderer.render_smpl_nerf(
             spec, model, can_cap, scene.static_vert[0], scene.faces, None, device,
             render_can=True, interval_comp=geo_threshold / can_bone, geo_threshold=geo_threshold,
-            topology=topology, **cli.render_kwargs(opt))[0]
+            topology=topology, **cli.render_kwargs(opt, mesh))[0]
         saved.append(cli.save_frame(rgb, f"canonical_360/{os.path.basename(opt.scene_dir)}", i))
     return saved
 
 
-def main_posed_360(opt, device="cuda"):
+def main_posed_360(opt, device="cuda", mesh=None):
     """The posed human of the first frame, `opt.trajectory_resolution`
-    cameras on a circle 36 geo_thresholds from its spine. Returns the
-    frames' paths."""
+    cameras on a circle 36 geo_thresholds from its spine, each frame's
+    rays split over `mesh`. Returns the frames' paths."""
     scene = cli.read_scene(opt, smpl_type="optimized")
     geo_threshold, _ = auto_geo_threshold(scene)
     spec = hn.build_human_nerf_spec(opt)
@@ -84,7 +85,7 @@ def main_posed_360(opt, device="cuda"):
         rgb = renderer.render_smpl_nerf(
             spec, model, cap, scene.verts[cap_id], scene.faces, scene.Ts[cap_id], device,
             white_bkg=opt.white_bkg, render_can=False, geo_threshold=geo_threshold,
-            topology=topology, **cli.render_kwargs(opt))[0]
+            topology=topology, **cli.render_kwargs(opt, mesh))[0]
         saved.append(cli.save_frame(rgb, f"posed_360/{os.path.basename(opt.scene_dir)}", i))
     return saved
 
@@ -101,10 +102,12 @@ def main(argv=None, device="cuda"):
     if opt.geo_threshold != -1:
         raise ValueError("the 360 renders take the automatic geo_threshold (-1)")
     require_device(device, "render")
-    config_module.print_opt(opt)
+    mesh = cli.render_mesh(opt, device)
+    if cli.is_main():
+        config_module.print_opt(opt)
     if known.mode == "canonical_360":
-        return main_canonical_360(opt, device)
-    return main_posed_360(opt, device)
+        return main_canonical_360(opt, device, mesh)
+    return main_posed_360(opt, device, mesh)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ are fixed, as in the JAX script, and relative to the working directory).
 The background net comes from `--weights_path`. Each frame is rendered by
 `render_hybrid_nerf_multi_persons` from a camera on an ellipse about a
 capture of the scene and written as ./demo/gathering/<motion_name>/
-out_%04d.png. `main(argv, device)` runs on the card unless device="cpu".
+out_%04d.png. `main(argv, device)` runs on the card unless device="cpu";
+under `torchrun --nproc_per_node N` each chunk's rays split over N GPUs
+and rank 0 writes (render/cli.py).
 """
 
 import argparse
@@ -91,9 +93,9 @@ def read_actor(opt, actor_name, device="cuda"):
     return spec, model, raw_verts, ts_list
 
 
-def run(opt, device="cuda"):
-    """Render the actors of `opt.actors` together. Returns the frames'
-    paths."""
+def run(opt, device="cuda", mesh=None):
+    """Render the actors of `opt.actors` together, each frame's rays split
+    over `mesh`. Returns the frames' paths."""
     scene = cli.read_scene(opt, smpl_type="optimized")
     geo_threshold, _ = auto_geo_threshold(scene)
     actors = [read_actor(opt, a, device) for a in opt.actors]
@@ -106,7 +108,7 @@ def run(opt, device="cuda"):
             bkg_spec, bkg_model, caps[i], [a[0] for a in actors], [a[1] for a in actors],
             [a[2][i] for a in actors], [scene.faces] * len(actors), [a[3][i] for a in actors],
             device, importance_samples_per_ray=opt.importance_samples_per_ray,
-            geo_threshold=geo_threshold, **cli.render_kwargs(opt))[0]
+            geo_threshold=geo_threshold, **cli.render_kwargs(opt, mesh))[0]
         saved.append(cli.save_frame(rgb, f"gathering/{opt.motion_name}", i))
     return saved
 
@@ -120,7 +122,7 @@ def main(argv=None, device="cuda"):
     opt = cli.options(rest, motion_name="dance_together")
     opt.actors = known.actors
     require_device(device, "render")
-    return run(opt, device)
+    return run(opt, device, cli.render_mesh(opt, device))
 
 
 if __name__ == "__main__":

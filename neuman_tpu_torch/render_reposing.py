@@ -12,7 +12,9 @@ betas), placed in the scene by the per-scene manual alignment; without
 jumpandroll). Each frame is rendered with the hybrid renderer from a
 camera dollied sideways from a capture of the scene and written as
 ./demo/reposing/<scene>/out_%04d.png, relative to the working directory.
-`main(argv, device)` runs on the card unless device="cpu".
+`main(argv, device)` runs on the card unless device="cpu"; under `torchrun
+--nproc_per_node N` each chunk's rays split over N GPUs and rank 0 writes
+(render/cli.py).
 """
 
 import copy
@@ -117,8 +119,9 @@ def read_human_poses(opt, scene, mocap_path=None, start=None, end=None, skip=Non
                           scene.smpls[0]["betas"], get_manual_alignment(opt))
 
 
-def run(opt, device="cuda"):
-    """Render the reposed frames. Returns their paths."""
+def run(opt, device="cuda", mesh=None):
+    """Render the reposed frames, each frame's rays split over `mesh`.
+    Returns their paths."""
     scene = cli.read_scene(opt, smpl_type="optimized")
     geo_threshold, _ = auto_geo_threshold(scene)
     raw_verts, ts_list = read_human_poses(opt, scene)
@@ -131,7 +134,7 @@ def run(opt, device="cuda"):
         rgb = renderer.render_hybrid_nerf(
             spec, model, caps[i], raw_verts[i], scene.faces, ts_list[i], device,
             importance_samples_per_ray=opt.importance_samples_per_ray,
-            geo_threshold=geo_threshold, topology=topology, **cli.render_kwargs(opt))[0]
+            geo_threshold=geo_threshold, topology=topology, **cli.render_kwargs(opt, mesh))[0]
         saved.append(cli.save_frame(rgb, f"reposing/{os.path.basename(opt.scene_dir)}", i))
     return saved
 
@@ -140,7 +143,7 @@ def main(argv=None, device="cuda"):
     """The command line: train.py's flags. Returns the frames' paths."""
     opt = cli.options(argv)
     require_device(device, "render")
-    return run(opt, device)
+    return run(opt, device, cli.render_mesh(opt, device))
 
 
 if __name__ == "__main__":

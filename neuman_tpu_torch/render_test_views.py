@@ -14,6 +14,11 @@ SSIM and LPIPS (utils/metrics.py; LPIPS with the weights of
 other flag is train.py's (options/config.py), with geo_threshold taken
 from the scene's bones. `main(argv, device)` runs on the card unless
 device="cpu", prints the scores and returns them.
+
+    torchrun --nproc_per_node N -m neuman_tpu_torch.render_test_views ...
+
+splits each chunk's rays over N GPUs (render/cli.py); rank 0 alone writes
+the PNGs and scores them, and every rank's main returns its scores.
 """
 
 import os
@@ -28,9 +33,10 @@ from neuman_tpu_torch.utils import png
 from neuman_tpu_torch.utils.metrics import eval_metrics
 
 
-def run(opt, device="cuda"):
+def run(opt, device="cuda", mesh=None):
     """Render, write, read back and score the test views of
-    `opt.scene_dir`. Returns {"ssim", "psnr", "lpips"}."""
+    `opt.scene_dir`, each frame's rays split over `mesh`; rank 0 writes
+    and scores. Returns {"ssim", "psnr", "lpips"} on every rank."""
     _, _, test_split = neuman.create_split_files(opt.scene_dir)
     test_views = neuman.read_text(test_split)
     scene = cli.read_scene(opt, smpl_type="optimized")
@@ -46,14 +52,18 @@ def run(opt, device="cuda"):
         rgb = renderer.render_hybrid_nerf(
             spec, model, cap, scene.verts[i], scene.faces, scene.Ts[i], device,
             importance_samples_per_ray=opt.importance_samples_per_ray,
-            geo_threshold=geo_threshold, topology=topology, **cli.render_kwargs(opt))[0]
+            geo_threshold=geo_threshold, topology=topology, **cli.render_kwargs(opt, mesh))[0]
         path = cli.save_frame(rgb, f"test_views/{os.path.basename(opt.scene_dir)}", i)
-        # scored as written: the uint8 frame read back from its PNG
-        preds.append(png.read_png(path))
-        gts.append(cap.image)
+        if cli.is_main():  # scored as written: the uint8 frame read back from its PNG
+            preds.append(png.read_png(path))
+            gts.append(cap.image)
 
-    results = eval_metrics(gts, preds, lpips_params=load_lpips_params(opt, device))
-    print(results)
+    results = None
+    if cli.is_main():
+        results = eval_metrics(gts, preds, lpips_params=load_lpips_params(opt, device))
+        print(results)
+    if mesh is not None:
+        results = mesh.broadcast_object(results)
     return results
 
 
@@ -63,7 +73,7 @@ def main(argv=None, device="cuda"):
     if opt.geo_threshold != -1:
         raise ValueError("the test views take the automatic geo_threshold (-1)")
     require_device(device, "render")
-    return run(opt, device)
+    return run(opt, device, cli.render_mesh(opt, device))
 
 
 if __name__ == "__main__":

@@ -284,16 +284,31 @@ class NeRFTrainer:
     def validate(self):
         """Losses on a batch of the validation views, a background render of
         the middle one (written as `val_<iteration:08d>.png` beside
-        metrics.jsonl; `last_val_images` keeps its path), and a checkpoint;
-        with a mesh on rank 0 alone, the other ranks waiting. Under the
-        NeRF-T ablation the render takes the view's time channel, which the
-        JAX validation leaves out (and so raises there)."""
+        metrics.jsonl; `last_val_images` keeps its path), and a checkpoint.
+        With a mesh every rank joins the render, each its share of each
+        chunk's rays, and rank 0 alone does the rest while the other ranks
+        wait. Under the NeRF-T ablation the render takes the view's time
+        channel, which the JAX validation leaves out (and so raises there)."""
+        rgb = self._render_validation()
         if self.is_main:
-            self._validate()
+            self._validate(rgb)
         if self.mesh is not None:
             self.mesh.barrier()
 
-    def _validate(self):
+    def _render_validation(self):
+        """rgb [H, W, 3] of the middle validation view (None without one)."""
+        if not self.val_views:
+            return None
+        opt = self.opt
+        cap = self.scene.captures[self.val_views[len(self.val_views) // 2]]
+        return renderer.render_vanilla(
+            self.spec, self.state["params"]["coarse"].nerf, cap,
+            self.state["params"]["fine"].nerf, self.device,
+            rays_per_batch=opt.rays_per_batch, samples_per_ray=opt.samples_per_ray,
+            importance_samples_per_ray=opt.importance_samples_per_ray,
+            white_bkg=opt.white_bkg, ablate_nerft=opt.ablate_nerft, mesh=self.mesh)
+
+    def _validate(self, rgb):
         opt = self.opt
         gen = torch.Generator(self.device).manual_seed(self.iteration)
         pw = opt.penalize_empty_space * max(0.0, 1.0 - self.iteration / 60000.0)
@@ -304,14 +319,7 @@ class NeRFTrainer:
         self.pusher.push_scalars(
             self.iteration, {f"val_loss/{k}": float(v) for k, v in aux.items()
                              if "sigma" not in k}, training=False)
-        if self.val_views:
-            cap = self.scene.captures[self.val_views[len(self.val_views) // 2]]
-            rgb = renderer.render_vanilla(
-                self.spec, self.state["params"]["coarse"].nerf, cap,
-                self.state["params"]["fine"].nerf, self.device,
-                rays_per_batch=opt.rays_per_batch, samples_per_ray=opt.samples_per_ray,
-                importance_samples_per_ray=opt.importance_samples_per_ray,
-                white_bkg=opt.white_bkg, ablate_nerft=opt.ablate_nerft)
+        if rgb is not None:
             self.last_val_rgb = rgb
             self.last_val_images = self.pusher.push_images(self.iteration,
                                                            {"val": rgb.cpu().numpy()})

@@ -672,13 +672,22 @@ class HumanNeRFTrainer:
         acc maps, the depth clipped to the solid region) and the current body
         shaded over the middle training view, written as PNGs beside
         metrics.jsonl (`last_val_images` keeps their paths); a checkpoint.
-        With a mesh on rank 0 alone, the other ranks waiting."""
+        With a mesh every rank joins the render, each its share of each
+        chunk's hit rays, and rank 0 alone does the rest while the other
+        ranks wait."""
+        opt = self.opt
+        frame = renderer.render_smpl_nerf(
+            self.model.spec, self.model, self.can_cap, np.asarray(self.scene.static_vert[0]),
+            self.scene.faces, None, self.device, rays_per_batch=opt.rays_per_batch,
+            samples_per_ray=opt.samples_per_ray, white_bkg=True, render_can=True,
+            geo_threshold=opt.geo_threshold, interval_comp=self.interval_comp,
+            knn_k=self.ctx["knn_k"], topology=self.ctx["topo"], mesh=self.mesh)
         if self.is_main:
-            self._validate()
+            self._validate(*(t.cpu().numpy() for t in frame))
         if self.mesh is not None:
             self.mesh.barrier()
 
-    def _validate(self):
+    def _validate(self, rgb, depth_map, acc_map):
         gen = torch.Generator(self.device).manual_seed(self.iteration + 1)
         with torch.no_grad():
             batch = self.draw_batch(self.val_ids, gen)
@@ -688,13 +697,6 @@ class HumanNeRFTrainer:
             self.iteration, {f"val_loss/{k}": v for k, v in self.last_val_losses.items()},
             training=False)
 
-        opt = self.opt
-        rgb, depth_map, acc_map = (t.cpu().numpy() for t in renderer.render_smpl_nerf(
-            self.model.spec, self.model, self.can_cap, np.asarray(self.scene.static_vert[0]),
-            self.scene.faces, None, self.device, rays_per_batch=opt.rays_per_batch,
-            samples_per_ray=opt.samples_per_ray, white_bkg=True, render_can=True,
-            geo_threshold=opt.geo_threshold, interval_comp=self.interval_comp,
-            knn_k=self.ctx["knn_k"], topology=self.ctx["topo"]))
         solid = acc_map >= 1.0 - 1e-10
         if solid.any():
             depth_map = np.clip(depth_map, depth_map[solid].min(), depth_map[solid].max())
