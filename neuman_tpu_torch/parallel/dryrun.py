@@ -20,9 +20,10 @@ A `RenderJob` is one render (a function that calls the renderers of
 render/renderer.py, or a command line's `main`) run on the ranks with the
 process group's mesh and in this process without one; `render_equality`
 records every renderer call on both sides (its outputs and seconds), the
-PNGs each process wrote, each rank's kernel launches and the rays it ran
-through the human branch, and compares the frames (`compare_renders`;
-`render_faults`: the JAX package's sharded-render bars).
+PNGs each process left in its own working directory, each rank's kernel
+launches and the rays it ran through the human branch, and compares the
+frames (`compare_renders`; `render_faults`: the JAX package's
+sharded-render bars).
 
     eq = render_equality(2, [RenderJob("hybrid", tiny_render, ("hybrid",))])
 """
@@ -119,7 +120,7 @@ def human_training_setup(cfg, device, views=4, hw=(36, 48), seed=0, body_subdivi
     from neuman_tpu_torch.models import smpl
     from neuman_tpu_torch.trainers.human import HumanNeRFTrainer
 
-    body = smpl.body_proxy_smpl_model(subdivisions=1, device=device)
+    body = smpl.body_proxy_smpl_model(subdivisions=body_subdivisions, device=device)
     scene = darrays.synthetic_human_scene(body, views, *hw, seed=seed, device=device)
     model = hn.HumanNeRF(hn.build_human_nerf_spec(cfg), device=device,
                          generator=torch.Generator().manual_seed(cfg.seed),
@@ -315,8 +316,10 @@ RENDER_BARS = {"render_vanilla": {"rgb": 1e-5, "depth": 1e-4},
 class RenderJob:
     """fn(device, mesh, *args): a module-level function that renders
     through the renderers (every rank calls it with the process group's
-    DataMesh, this process with None), from the working directory
-    `workdir` (the command lines write ./demo there; None: unchanged)."""
+    DataMesh, this process with None). Each process calls it from a fresh
+    working directory of its own, where the command lines write ./demo;
+    it links every entry of `workdir` (the inputs that the command lines
+    read from ./, such as the gathering's ./out and ./data; None: none)."""
 
     name: str
     fn: object
@@ -329,21 +332,34 @@ def _synchronize(device):
         torch.cuda.synchronize()
 
 
+def _pngs(root):
+    """{path relative to `root`: bytes} of every PNG under `root`, links
+    left out."""
+    found = {}
+    for folder, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(folder, f)
+            if f.endswith(".png") and not os.path.islink(path):
+                with open(path, "rb") as fh:
+                    found[os.path.relpath(path, root)] = fh.read()
+    return found
+
+
 def run_render(job, device):
     """`job` in this process, recorded: {"calls": [(renderer, its outputs
     on the host)], "seconds": each call's wall time (synchronised on the
     card), "human_rays": the rays this process ran through the human
     branch, "launches": each kernel's launches, "pngs": {path: bytes} of
-    the PNGs it wrote, "warnings", "returned": what fn returned}."""
+    the PNGs it left in its working directory (which is then removed),
+    "warnings", "returned": what fn returned}."""
     from neuman_tpu_torch.ops import kernels
     from neuman_tpu_torch.parallel.mesh import DataMesh
     from neuman_tpu_torch.render import renderer
-    from neuman_tpu_torch.utils import png
 
     mesh = DataMesh.of_process_group() if dist.is_initialized() else None
-    rec = {"calls": [], "seconds": [], "human_rays": 0, "pngs": {}}
+    rec = {"calls": [], "seconds": [], "human_rays": 0}
     saved = {name: getattr(renderer, name) for name in RENDERERS}
-    branch, write = renderer._human_branch, png.write_png
+    branch = renderer._human_branch
 
     def timed(name, fn):
         def call(*args, **kwargs):
@@ -361,21 +377,18 @@ def run_render(job, device):
         rec["human_rays"] += args[3].shape[0]  # origins
         return branch(*args, **kwargs)
 
-    def written(path, img):
-        write(path, img)
-        with open(path, "rb") as f:
-            rec["pngs"][os.path.normpath(path)] = f.read()
-
     counters = kernels.wrappers()
     for c in counters.values():
         c.launches = 0
     cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="neuman_render_")
+    for entry in os.listdir(job.workdir) if job.workdir is not None else ():
+        os.symlink(os.path.abspath(os.path.join(job.workdir, entry)), os.path.join(work, entry))
     for name, fn in saved.items():
         setattr(renderer, name, timed(name, fn))
-    renderer._human_branch, png.write_png = counted, written
+    renderer._human_branch = counted
     try:
-        if job.workdir is not None:
-            os.chdir(job.workdir)
+        os.chdir(work)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             rec["returned"] = job.fn(device, mesh, *job.args)
@@ -383,7 +396,9 @@ def run_render(job, device):
         os.chdir(cwd)
         for name, fn in saved.items():
             setattr(renderer, name, fn)
-        renderer._human_branch, png.write_png = branch, write
+        renderer._human_branch = branch
+        rec["pngs"] = _pngs(work)
+        shutil.rmtree(work)
     rec["warnings"] = [str(w.message) for w in caught]
     rec["launches"] = {k: c.launches for k, c in counters.items()}
     return rec

@@ -140,11 +140,11 @@ class _GatherRows(torch.autograd.Function):
         return mesh.shard(mesh.all_reduce(grad.contiguous().clone())), None
 
 
-def resolve_render_mesh(opt, what="render"):
+def resolve_render_mesh(opt):
     """The run's data mesh from the config, as the JAX package resolves it:
     data_parallel "auto" gives a mesh over the process group when there
     is more than one process, "on" even with one, "off" none. "off" with
-    more than one process raises: the ranks would each `what` apart. A
+    more than one process raises: the ranks would each run apart. A
     mesh needs the process group (`maybe_init_distributed`). A chunk that
     the world size does not divide is the renderer's warning, not an
     error here."""
@@ -154,7 +154,7 @@ def resolve_render_mesh(opt, what="render"):
     world = dist.get_world_size() if dist.is_initialized() else 1
     if dp == "off":
         if world > 1:
-            raise ValueError(f"data_parallel off with {world} processes: each rank would {what} "
+            raise ValueError(f"data_parallel off with {world} processes: each rank would run "
                              f"apart; use data_parallel auto or on, or start one process")
         return None
     if dp == "auto" and world == 1:
@@ -169,7 +169,7 @@ def resolve_mesh(opt):
     """The training mesh: `resolve_render_mesh`, and a rays_per_batch that
     the world size does not divide raises (every rank takes an equal share
     of each batch)."""
-    mesh = resolve_render_mesh(opt, "train")
+    mesh = resolve_render_mesh(opt)
     if mesh is not None:
         mesh.rows(opt.rays_per_batch)
     return mesh
@@ -180,8 +180,9 @@ class ChunkRows:
     renders (the JAX renderers' row-sharded chunks: `_chunked`,
     `_maybe_shard_stacked`). Iterating gives, chunk by chunk, (this rank's
     rows of the frame, where they go in its buffers of `local` rows, the
-    whole chunk: slice(i, i + n) of the frame). Without a mesh the rows are
-    the whole chunk, at the same place. With one, the chunk is padded by
+    whole chunk: slice(i, i + n) of the frame, the same rows as positions
+    within the chunk). Without a mesh the rows are the whole chunk, at the
+    same place. With one, the chunk is padded by
     repeating its last ray to a multiple of the mesh size, and this rank
     takes its contiguous block of it (an index tensor on `device`);
     `gather` joins the ranks' buffers into the frame in one all_gather."""
@@ -198,11 +199,11 @@ class ChunkRows:
         at = 0
         for i, n, k in self.spans:
             if self.mesh is None:
-                yield slice(i, i + n), slice(at, at + n), slice(i, i + n)
+                yield slice(i, i + n), slice(at, at + n), slice(i, i + n), slice(0, n)
             else:
-                first = i + self.mesh.rank * k
-                rows = torch.arange(first, first + k, device=self.device).clamp_(max=i + n - 1)
-                yield rows, slice(at, at + k), slice(i, i + n)
+                first = self.mesh.rank * k
+                rows = torch.arange(first, first + k, device=self.device).clamp_(max=n - 1)
+                yield rows + i, slice(at, at + k), slice(i, i + n), rows
             at += k
 
     def gather(self, *local):

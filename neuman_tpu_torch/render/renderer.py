@@ -55,34 +55,27 @@ def _shard_mesh(mesh, chunk):
     return mesh
 
 
-def _dir_term(spec, net, dirs, compute_dtype, dir_chunk=None):
-    """The per-ray direction term of `dirs`. dir_chunk: (the whole chunk's
-    directions, the rows of it that `dirs` are): the term is computed on
-    the whole chunk, as one process computes it, and the rows taken, so
-    that a rank of a mesh rounds as one process does (the GEMM kernel that
-    cuBLAS picks, and with it the rounding, changes with the row count)."""
-    if dir_chunk is None:
-        return dir_projection(spec, net, dirs, compute_dtype)
+def _dir_term(spec, net, dir_chunk, compute_dtype):
+    """The per-ray direction term of a branch's rays. dir_chunk: (the whole
+    chunk's directions, the rows of it that the branch runs): the term is
+    computed on the whole chunk, as one process computes it, and the rows
+    taken, so that a rank of a mesh rounds as one process does (the GEMM
+    kernel that cuBLAS picks, and with it the rounding, changes with the
+    row count)."""
     whole, rows = dir_chunk
     return dir_projection(spec, net, whole, compute_dtype)[rows]
 
 
-def _dir_chunk(rows, dirs, src, whole):
-    """A renderer's `dir_chunk` for the rows `src` of the chunk `whole`
-    (ChunkRows' iteration): None without a mesh."""
-    return None if rows.mesh is None else (dirs[whole], src - whole.start)
-
-
 def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far,
                 samples_per_ray, importance_samples_per_ray, white_bkg,
-                compute_dtype, use_kernels=True, time_val=None, dir_chunk=None):
+                compute_dtype, use_kernels=True, time_val=None, *, dir_chunk):
     """Background coarse -> importance -> fine. Returns (f_z, f_sigma,
     f_rgb_c, dir_norm): the fine samples' z [R, S+I], raw sigma [R, S+I],
     raw colour 3x[R, S+I], and |d| [R]. time_val: NeRF-T nets, which take
     the samples' (x, y, z, time_val) through the 4-D PE and the plain
     PyTorch net in f32, as the JAX package's `_vanilla_chunk(use_time=True)`
     (the NeRF kernels take one 64-column PE block; the 4-D PE has 84).
-    dir_chunk: as `_dir_term`."""
+    dir_chunk: the rays' chunk, as `_dir_term` takes it."""
     mlp = _mlp(use_kernels)
     dir_norm = torch.linalg.norm(dirs, dim=-1)
 
@@ -94,7 +87,7 @@ def _bkg_branch(bkg_spec, coarse_net, fine_net, origins, dirs, bkg_near, bkg_far
             out = nerf_module.apply_joiner(bkg_spec, net, pts, dirs[:, None, :].expand(r, s, 3))
             return out[..., 3], [out[..., c] for c in range(3)]
         planes = [origins[:, a, None] + dirs[:, a, None] * z for a in range(3)]
-        dirp = _dir_term(bkg_spec, net, dirs, compute_dtype, dir_chunk)
+        dirp = _dir_term(bkg_spec, net, dir_chunk, compute_dtype)
         return mlp(bkg_spec, net, *planes, dir_part=dirp, compute_dtype=compute_dtype)
 
     z = volume.sample_z(bkg_near, bkg_far, samples_per_ray)
@@ -112,8 +105,8 @@ def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, pos
     -> canonical MLP with per-sample directions. Rays with near >= far miss
     the body and get placeholder samples on [0, 1]. render_can: the samples
     are canonical points already (no warp) and the net takes the ray's
-    direction (dir_chunk: as `_dir_term`). sigma is scaled by
-    interval_comp. Returns (z [R, S], sigma [R, S], rgb_c 3x[R, S])."""
+    direction (dir_chunk: the rays' chunk, as `_dir_term` takes it). sigma
+    is scaled by interval_comp. Returns (z [R, S], sigma [R, S], rgb_c 3x[R, S])."""
     hit = near < far
     z = ray_ops.sample_z_vals(torch.where(hit, near, 0.0), torch.where(hit, far, 1.0),
                               samples_per_ray)
@@ -122,7 +115,7 @@ def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, pos
     if render_can:
         sigma, rgb_c = _mlp(use_kernels)(
             human_spec, human_net, *planes, compute_dtype=compute_dtype,
-            dir_part=_dir_term(human_spec, human_net, dirs, compute_dtype, dir_chunk))
+            dir_part=_dir_term(human_spec, human_net, dir_chunk, compute_dtype))
         return z, sigma * interval_comp, rgb_c
     flat = torch.stack(planes, -1).reshape(-1, 3)
     _, f_id, closest = mesh_ops.point_mesh_closest_planar(
@@ -169,7 +162,7 @@ def _hybrid_chunk(spec, model, topology, origins, dirs, bkg_near, bkg_far, posed
     bkg = _bkg_branch(
         spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, origins, dirs,
         bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
-        compute_dtype, use_kernels,
+        compute_dtype, use_kernels, dir_chunk=(dirs, slice(None)),
     )
     near, far = ray_ops.geometry_guided_near_far(origins, dirs, posed_verts, geo_threshold)
     human = _human_branch(
@@ -208,7 +201,7 @@ def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768
                      device)
     rgb = torch.empty(rows.local, 3, device=device)
     time_val = cap.frame_id["frame_id"] / cap.frame_id["total_frames"] if ablate_nerft else None
-    for src, dst, whole in rows:
+    for src, dst, whole, local in rows:
         o, d = origins[src], dirs[src]
         n = o.shape[0]
         near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
@@ -216,7 +209,7 @@ def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             spec, coarse_net, fine_net, o, d, near, far, samples_per_ray,
             importance_samples_per_ray, white_bkg, compute_dtype, use_kernels, time_val,
-            _dir_chunk(rows, dirs, src, whole))
+            dir_chunk=(dirs[whole], local))
         rgb[dst] = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)[0]
     (rgb,) = rows.gather(rgb)
     h, w = cap.shape
@@ -253,7 +246,7 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
     rgb = torch.empty(rows.local, 3, device=device)
     depth = torch.empty(rows.local, device=device)
     acc = torch.zeros(rows.local, device=device)
-    for src, dst, whole in rows:
+    for src, dst, whole, local in rows:
         o, d = origins[src], dirs[src]
         n, i = o.shape[0], dst.start
         bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
@@ -261,7 +254,7 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, o, d, bkg_near,
             bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
-            use_kernels, dir_chunk=_dir_chunk(rows, dirs, src, whole),
+            use_kernels, dir_chunk=(dirs[whole], local),
         )
         rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
@@ -314,7 +307,7 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     rows = ChunkRows(total, rays_per_batch, mesh, device)
     near = torch.empty(rows.local, device=device)
     far = torch.empty(rows.local, device=device)
-    for src, dst, _ in rows:
+    for src, dst, _, _ in rows:
         near[dst], far[dst] = ray_ops.geometry_guided_near_far(origins[src], dirs[src], verts,
                                                                geo_threshold)
     near, far = rows.gather(near, far)
@@ -323,16 +316,13 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     h_rgb = torch.empty(rows.local, 3, device=device)
     h_depth = torch.empty(rows.local, device=device)
     h_acc = torch.empty(rows.local, device=device)
-    for src, dst, whole in rows:
+    for src, dst, whole, local in rows:
         sel = hits[src]
         o, d = origins[sel], dirs[sel]
-        dir_chunk = None
-        if render_can and mesh is not None:
-            dir_chunk = (dirs[hits[whole]], src - whole.start)
         z, sigma, rgb_c = _human_branch(
             spec.human, model.coarse_human_net.nerf, topology, o, d, near[sel], far[sel], verts,
             Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels, render_can,
-            interval_comp, dir_chunk)
+            interval_comp, (dirs[hits[whole]], local))
         h_rgb[dst], _, h_acc[dst], _, h_depth[dst] = volume.integrate_planar(
             sigma, rgb_c, z, torch.linalg.norm(d, dim=-1), white_bkg)
     rgb[hits], depth[hits], acc[hits] = rows.gather(h_rgb, h_depth, h_acc)
@@ -370,7 +360,7 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
     rgb = torch.empty(rows.local, 3, device=device)
     depth = torch.empty(rows.local, device=device)
     dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
-    for src, dst, whole in rows:
+    for src, dst, whole, local in rows:
         o, d = origins[src], dirs[src]
         n, i = o.shape[0], dst.start
         bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
@@ -378,7 +368,7 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, o, d,
             bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
-            compute_dtype, use_kernels, dir_chunk=_dir_chunk(rows, dirs, src, whole))
+            compute_dtype, use_kernels, dir_chunk=(dirs[whole], local))
         rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
         bounds = [ray_ops.geometry_guided_near_far(o, d, a[3], geo_threshold) for a in actors]

@@ -13,7 +13,6 @@ import time
 
 import numpy as np
 
-from neuman_tpu_torch.utils import png
 from neuman_tpu_torch.utils.png import decode_png, encode_png  # noqa: F401
 
 class MetricsPusher:
@@ -43,7 +42,8 @@ class MetricsPusher:
                 img = np.repeat(((img - lo) / max(hi - lo, 1e-9))[..., None], 3, axis=-1)
             img = np.clip(img, 0.0, 1.0)
             paths.append(os.path.join(out_dir, f"{name}_{iteration:08d}.png"))
-            png.write_png(paths[-1], (img * 255).astype(np.uint8))
+            with open(paths[-1], "wb") as f:
+                f.write(encode_png((img * 255).astype(np.uint8)))
         return paths
 
 

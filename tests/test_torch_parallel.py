@@ -130,7 +130,7 @@ def test_resolve_mesh_on_two_ranks(runs):
     for rank, r in enumerate(ranks):
         assert r["modes"]["auto"] == (rank, WORLD)
         assert r["modes"]["on"] == (rank, WORLD, "rays")
-        assert "each rank would train apart" in r["modes"]["off"]
+        assert "each rank would run apart" in r["modes"]["off"]
         assert "63 rays does not split over 2 ranks" in r["modes"]["odd"]
 
 

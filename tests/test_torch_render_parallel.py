@@ -108,8 +108,8 @@ def runs(tmp_path_factory):
                  dryrun.RenderJob("test_views", dryrun.command_line,
                                   ("render_test_views", views), work),
                  dryrun.RenderJob("resolve", _resolve_modes)]
-        jobs += [dryrun.RenderJob(f"val_{k}", _validation, (k, os.path.join(root, "out")))
-                 for k in VAL_KINDS]
+        # each process validates into ./out of its own working directory
+        jobs += [dryrun.RenderJob(f"val_{k}", _validation, (k, "out")) for k in VAL_KINDS]
         eqs = dryrun.render_equality(WORLD, jobs, timeout_s=SPAWN_TIMEOUT_S)
     finally:
         if before is None:
@@ -178,7 +178,7 @@ def test_resolve_render_mesh_on_two_ranks(runs):
     (the renderer warns instead); "off" with two processes raises."""
     for modes in runs["resolve"]["returned"]:
         assert modes["auto"] == WORLD and modes["odd"] == WORLD
-        assert "each rank would render apart" in modes["off"]
+        assert "each rank would run apart" in modes["off"]
 
 
 @pytest.mark.parametrize("mode", ["auto", "on", "off"])
@@ -202,15 +202,16 @@ class _StubMesh(pmesh.DataMesh):
 def test_chunk_rows_gather_is_the_frame(size, total, chunk):
     """Each rank's rows of every chunk (the last padded by its last ray),
     gathered, give the frame's rows in order; every rank holds as many
-    rows, within its chunk; without a mesh the rows are each chunk's slice
-    of the frame."""
+    rows, within its chunk, also as positions within it; without a mesh the
+    rows are each chunk's slice of the frame."""
     frame = torch.arange(total * 2.0).reshape(total, 2)
     buffers, locals_ = [], set()
     for rank in range(size):
         rows = pmesh.ChunkRows(total, chunk, pmesh.DataMesh(rank, size))
         buf = torch.empty(rows.local, 2)
-        for src, dst, whole in rows:
+        for src, dst, whole, local in rows:
             assert whole.start <= int(src.min()) and int(src.max()) < whole.stop
+            assert torch.equal(frame[whole][local], frame[src])
             buf[dst] = frame[src]
         buffers.append(buf)
         locals_.add(rows.local)
@@ -222,7 +223,8 @@ def test_chunk_rows_gather_is_the_frame(size, total, chunk):
     plain = pmesh.ChunkRows(total, chunk)
     assert plain.local == total
     want = [slice(i, min(i + chunk, total)) for i in range(0, total, chunk)]
-    assert [(src, whole) for src, _, whole in plain] == [(w, w) for w in want]
+    assert [(src, whole, local) for src, _, whole, local in plain] == [
+        (w, w, slice(0, w.stop - w.start)) for w in want]
 
 
 def test_two_rank_hybrid_matches_jax_mesh_render(runs):
