@@ -148,7 +148,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      command line warps); (b) render_test_views.main --data_parallel on
      under the torchrun environment (NCCL at world size 1): its scores
      equal one process's. --phases render_parallel runs phase 13 first.
-     Every line carries the card's name and power limit.
+     Every line carries the card's name and power limit;
+ 19. bench: the port's benchmark (`python -m neuman_tpu_torch.bench`) in
+     this process at bench.py's shapes with --iters 3 --train_iters 3 (the
+     bench path; launch counts reset just before it): its card line and JSON
+     line printed, every key a finite number and "kernels" "compiled"; then
+     --break-stage render at --rays 1024 with the render alone (null keys,
+     "failed:render:RuntimeError", exit code 1) and `bench_step_parts query`
+     (the signed-distance query's six forms at N=196,608).
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null; `launches_by_path` also lists phase
@@ -328,6 +335,11 @@ PAR_NERFT_LOSS_REL = 1e-4
 # then render_test_views.main under NCCL at world size 1
 RENDER_PAR_FRAMES = 2
 RENDER_PAR_TIMEOUT_S = 300.0
+
+# phase 19: the bench's timed calls of each section, and the JSON line's number keys
+BENCH_ITERS = 3
+BENCH_KEYS = ("value", "vs_baseline", "human_train_step_ms", "bkg_train_step_ms",
+              "hybrid_render_ms", "hybrid_sec_per_frame", "hybrid_frame_hit_frac")
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2763,6 +2775,60 @@ def phase_envelope(model, spec, device, seed):
     return launches
 
 
+def _captured(fn):
+    """(fn()'s result, the lines it printed to stdout)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def phase_bench(device):
+    """Phase 19: the bench, its fault path and the query's step parts. The
+    bench's lines are printed behind "[bench]", so that no line but the
+    last two is a bare JSON object. Returns each kernel's launches in the
+    bench run."""
+    from neuman_tpu_torch import bench
+    from neuman_tpu_torch.tools import bench_step_parts
+
+    counters = _kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    (result, rc, by_stage), lines = _captured(lambda: bench.run(
+        ["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_ITERS)]))
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counters.items() if w.launches}
+    for line in lines:
+        print(f"[bench] {line}", flush=True)
+    finite = all(isinstance(result.get(k), (int, float)) and math.isfinite(result[k])
+                 for k in BENCH_KEYS)
+    ok = rc == 0 and result.get("kernels") == "compiled" and finite
+    log("bench", iters=BENCH_ITERS, exit_code=rc, seconds=f"{seconds:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        launches_by_stage=json.dumps(by_stage, separators=(",", ":")), ok=ok)
+    if not ok:
+        raise RuntimeError(f"bench: exit code {rc}, kernels {result.get('kernels')!r}, or a key "
+                           f"null or not finite: {result}")
+
+    (broken, rc, _), lines = _captured(lambda: bench.run(
+        ["--break-stage", "render", "--rays", "1024", "--no-train", "--no-hybrid"]))
+    ok = (rc == 1 and broken["value"] is None and broken["vs_baseline"] is None
+          and broken["kernels"] == "failed:render:RuntimeError")
+    log("bench_break_stage", stage="render", exit_code=rc, line=lines[-1], ok=ok)
+    if not ok:
+        raise RuntimeError(f"bench --break-stage render: exit code {rc}, line {broken}")
+
+    t0 = time.perf_counter()
+    _, lines = _captured(lambda: bench_step_parts.run("query", device))
+    for line in lines:
+        print(f"[bench_step_parts] {line}", flush=True)
+    log("bench_step_parts", component="query", seconds=f"{time.perf_counter() - t0:.2f}")
+    return launches
+
+
 def build_model(device, seed):
     """Full-width HumanNeRF (8 x 256, PE 10 + 4 bands) initialised from seed."""
     import torch
@@ -2787,7 +2853,7 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope", "render_parallel")
+          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope", "render_parallel", "bench")
 
 
 def main(argv=None):
@@ -2839,6 +2905,7 @@ def main(argv=None):
         "envelope": lambda: phase_envelope(model, spec, device, args.seed),
         "render_parallel": lambda: phase_render_parallel(device, args.seed, cli_root,
                                                          out["cli"][2], card),
+        "bench": lambda: phase_bench(device),
     }
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = {}
@@ -2858,6 +2925,7 @@ def main(argv=None):
                                                             "renders"))
     cli, render_cli, parallel = out["cli"][0], out["render_cli"], out["parallel"]
     envelope, render_parallel = out["envelope"], out["render_parallel"]
+    bench = out["bench"]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -2875,7 +2943,8 @@ def main(argv=None):
     # five render command lines (phase 14, main() each), phase 16's two
     # ranks' steps of each stage (counted in each rank) and its two
     # train.main stages under NCCL, and phase 18's two ranks' frame of each
-    # render command line (counted in each rank) and its NCCL test view.
+    # render command line (counted in each rank) and its NCCL test view, and
+    # phase 19's bench run.
     # Phase 17's launches are listed as
     # envelope_quick and left out of `launches`: they compare the kernels
     # with their plain versions.
@@ -2900,6 +2969,7 @@ def main(argv=None):
         paths.update({f"render_cli_{cmd}": run[0].get(name, 0) for cmd, run in render_cli.items()})
         paths.update({path: counts.get(name, 0) for path, counts in parallel.items()})
         paths.update({path: counts.get(name, 0) for path, counts in render_parallel.items()})
+        paths["bench"] = bench.get(name, 0)
         paths["envelope_quick"] = envelope.get(name, 0)
         return {k: v for k, v in paths.items() if v}
 

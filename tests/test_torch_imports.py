@@ -85,6 +85,9 @@ MODULES = (
     "neuman_tpu_torch.parallel.dryrun",
     "neuman_tpu_torch.tools.sweep_kernel_envelope",
     "neuman_tpu_torch.visualize_scene",
+    "neuman_tpu_torch.bench",
+    "neuman_tpu_torch.tools.bench_step_parts",
+    "neuman_tpu_torch.tools.bench_step_ablate",
     "chip_smoke",
 )
 
