@@ -152,7 +152,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
  19. bench: the port's benchmark (`python -m neuman_tpu_torch.bench`) in
      this process at bench.py's shapes with --iters 3 --train_iters 3 (the
      bench path; launch counts reset just before it): its card line and JSON
-     line printed, every key a finite number and "kernels" "compiled"; then
+     line printed, every key a finite number and "kernels" "compiled";
+     nerf_mlp at the render chunk's shapes (32,768 rays, the coarse call at
+     S=128 and the fine at S=256, per-ray, bf16, the bench's nets and rays)
+     against its plain version run over 4,096 rays at a time; then
      --break-stage render at --rays 1024 with the render alone (null keys,
      "failed:render:RuntimeError", exit code 1) and `bench_step_parts query`
      (the signed-distance query's six forms at N=196,608).
@@ -340,6 +343,10 @@ RENDER_PAR_TIMEOUT_S = 300.0
 BENCH_ITERS = 3
 BENCH_KEYS = ("value", "vs_baseline", "human_train_step_ms", "bkg_train_step_ms",
               "hybrid_render_ms", "hybrid_sec_per_frame", "hybrid_frame_hit_frac")
+# nerf_mlp at the bench's render chunk is held to its plain version run over
+# slices of this many rays (each ray is independent of the others; the
+# plain version of the whole 8.4 M-sample fine pass does not fit in memory)
+BENCH_PLAIN_SLICE = 4096
 
 # published peaks of one H100 SXM (dense), for the bound of each kernel
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2785,8 +2792,52 @@ def _captured(fn):
     return out, buf.getvalue().splitlines()
 
 
+def hold_bench_render(device):
+    """nerf_mlp at the shapes of the bench's render chunk: its coarse call
+    (S=128) and its fine call (S=256, the coarse samples and the importance
+    samples the kernel's coarse output gives), per-ray, bf16, on the bench's
+    nets and rays (`bench.render_inputs`). Each is held within MLP_BF16_REL
+    of the plain version's largest output, the plain version run over
+    BENCH_PLAIN_SLICE rays at a time on the same inputs. Returns
+    {pass: (max abs error, output scale, ok)}."""
+    import torch
+    from neuman_tpu_torch import bench
+    from neuman_tpu_torch.ops import volume
+    from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
+
+    dtype = torch.bfloat16
+    spec, coarse, fine, origins, dirs, near, far = bench.render_inputs(device)
+    z = volume.sample_z(near, far, 128)
+    held = {}
+    with torch.no_grad():
+        for name, net in (("coarse", coarse), ("fine", fine)):
+            planes = [origins[:, a, None] + dirs[:, a, None] * z for a in range(3)]
+            dirp = kmlp.dir_projection(spec, net, dirs, dtype)
+            sigma, rgb = kmlp.nerf_mlp(spec, net, *planes, dir_part=dirp, compute_dtype=dtype)
+            got = torch.stack([sigma, *rgb])
+            want = []
+            for rows in torch.arange(z.shape[0], device=device).split(BENCH_PLAIN_SLICE):
+                ps, prgb = kmlp.nerf_mlp_plain(spec, net, *(p[rows] for p in planes),
+                                               dir_part=dirp[rows], compute_dtype=dtype)
+                want.append(torch.stack([ps, *prgb]))
+            want = torch.cat(want, dim=1)
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            held[name] = (err, scale, bool(torch.isfinite(got).all()) and _fwd_ok(err, scale,
+                                                                                     "bf16"))
+            log("bench_render_hold", call=name, rays=z.shape[0], samples=z.shape[1],
+                max_abs_err=f"{err:.4g}", out_scale=f"{scale:.4g}",
+                tol=f"{MLP_BF16_REL * scale:.4g}", ok=held[name][2])
+            if name == "coarse":
+                weights = volume.integrate_planar(sigma, rgb, z, torch.linalg.norm(dirs, dim=-1),
+                                                  True)[3]
+                z = volume.importance_z(z, weights, 128)
+            del got, want
+    return held
+
+
 def phase_bench(device):
-    """Phase 19: the bench, its fault path and the query's step parts. The
+    """Phase 19: the bench, nerf_mlp at its render chunk's shapes
+    (`hold_bench_render`), its fault path and the query's step parts. The
     bench's lines are printed behind "[bench]", so that no line but the
     last two is a bare JSON object. Returns each kernel's launches in the
     bench run."""
@@ -2812,6 +2863,10 @@ def phase_bench(device):
     if not ok:
         raise RuntimeError(f"bench: exit code {rc}, kernels {result.get('kernels')!r}, or a key "
                            f"null or not finite: {result}")
+    held = hold_bench_render(device)
+    if not all(ok for _, _, ok in held.values()):
+        raise RuntimeError(f"nerf_mlp at the bench's render chunk disagrees with its plain "
+                           f"version: {held}")
 
     (broken, rc, _), lines = _captured(lambda: bench.run(
         ["--break-stage", "render", "--rays", "1024", "--no-train", "--no-hybrid"]))

@@ -23,7 +23,11 @@ Sections (stage names of --break-stage in brackets):
 - human_step: a human train step at the smpl_and_offset defaults (1536 rays,
   128 samples, the seven losses with LPIPS on, random-init AlexNet), the
   body proxy's vertices over 4 views; NEUMAN_PROFILE_DIR=<dir> writes a
-  torch.profiler trace of the timed steps there;
+  torch.profiler trace of the timed steps there. A step's time depends on
+  its batch draw (the backward of the warp's gathers by the closest faces'
+  corners), so the mean moves with --train_iters; the draws are seeded, so
+  a window gives the same mean run to run (tools/bench_step_windows.py
+  times step by step);
 - hybrid_render: one 4096-ray hybrid chunk, 64 + 32 background and 64 human
   samples, bf16;
 - hybrid_frame: s per 1280x720 hybrid frame through render_hybrid_nerf
@@ -50,7 +54,6 @@ import argparse
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 import types
@@ -81,6 +84,7 @@ from neuman_tpu_torch.trainers import human
 from neuman_tpu_torch.trainers.background import (DTYPES, make_bkg_train_step, make_optimizer,
                                                    named_params)
 from neuman_tpu_torch.trainers.human import make_human_train_step
+from neuman_tpu_torch.utils import card
 
 METRIC = "ray_samples_per_sec_per_chip"
 BASELINE = 1e7
@@ -170,20 +174,9 @@ def steps_ms(device, step, iters):
 def bench_render(device, rays=32768, samples=128, importance=128, iters=10, dtype="bfloat16",
                  use_kernels=True, overrides=None):
     """Render chunk (bench.py:149-265): ray-samples/s of the background
-    coarse -> importance -> fine pass on one chunk of `rays` rays from
-    (0, 0, -2) along N(0, 0.1) + (0, 0, 1), normalised; near 0.5, far 4.0;
-    white background; the reference nets (8x256, PE 10 + 4 bands)."""
-    cfg = _config(overrides=overrides)
-    spec = nerf_module.build_nerf_specs(cfg)
-    params = init_bkg_params(spec, 0, device)
-    coarse, fine = params["coarse"].nerf, params["fine"].nerf
-    gen = torch.Generator().manual_seed(2)
-    d = torch.randn(rays, 3, generator=gen) * 0.1 + torch.tensor([0.0, 0.0, 1.0])
-    dirs = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).to(device)
-    origins = torch.zeros(rays, 3, device=device)
-    origins[:, 2] = -2.0
-    near = torch.full((rays, 1), 0.5, device=device)
-    far = torch.full((rays, 1), 4.0, device=device)
+    coarse -> importance -> fine pass on one chunk of `rays` rays
+    (`render_inputs`); white background."""
+    spec, coarse, fine, origins, dirs, near, far = render_inputs(device, rays, overrides)
 
     @torch.no_grad()
     def chunk(o):
@@ -193,6 +186,23 @@ def bench_render(device, rays=32768, samples=128, importance=128, iters=10, dtyp
 
     ms = chained_ms(device, chunk, origins, iters)
     return rays * (samples + samples + importance) / (ms / 1e3)
+
+
+def render_inputs(device, rays=32768, overrides=None):
+    """The render chunk's nets and rays: (spec, coarse net, fine net,
+    origins, dirs, near, far); the reference nets (8x256, PE 10 + 4 bands)
+    from seed 0, `rays` rays from (0, 0, -2) along N(0, 0.1) + (0, 0, 1),
+    normalised; near 0.5, far 4.0."""
+    spec = nerf_module.build_nerf_specs(_config(overrides=overrides))
+    params = init_bkg_params(spec, 0, device)
+    gen = torch.Generator().manual_seed(2)
+    d = torch.randn(rays, 3, generator=gen) * 0.1 + torch.tensor([0.0, 0.0, 1.0])
+    dirs = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).to(device)
+    origins = torch.zeros(rays, 3, device=device)
+    origins[:, 2] = -2.0
+    near = torch.full((rays, 1), 0.5, device=device)
+    far = torch.full((rays, 1), 4.0, device=device)
+    return spec, params["coarse"].nerf, params["fine"].nerf, origins, dirs, near, far
 
 
 def render_chunk(spec, coarse, fine, origins, dirs, near, far, samples, importance,
@@ -288,13 +298,11 @@ def human_setup(device, use_kernels=True, overrides=None, views=4, hw=(270, 480)
                                  ids=torch.arange(views, device=device), step=step, state=state)
 
 
-def bench_human_train_step(device, iters=10, use_kernels=True, overrides=None, views=4,
-                           hw=(270, 480), body_subdivisions=5):
-    """Human train step (bench.py:404-513), ms/step, batch draw included."""
-    s = human_setup(device, use_kernels, overrides, views, hw, body_subdivisions)
+def human_step_fn(s, restarts):
+    """step() -> total loss: one human train step on the setup `s`
+    (`human_setup`), its batch draw included; appends 1.0 to `restarts`
+    when the step restarted a dead canonical net, else 0.0."""
     cfg = s.cfg
-
-    restarts = []
 
     def step():
         batch = sampler.sample_human_batch(
@@ -305,6 +313,15 @@ def bench_human_train_step(device, iters=10, use_kernels=True, overrides=None, v
         restarts.append(metrics["dead_restart"])
         return metrics["total_loss"]
 
+    return step
+
+
+def bench_human_train_step(device, iters=10, use_kernels=True, overrides=None, views=4,
+                           hw=(270, 480), body_subdivisions=5):
+    """Human train step (bench.py:404-513), ms/step, batch draw included."""
+    s = human_setup(device, use_kernels, overrides, views, hw, body_subdivisions)
+    restarts = []
+    step = human_step_fn(s, restarts)
     step()
     # a trace of the same timed steps (tracing costs time: off unless asked)
     profile_dir = os.environ.get("NEUMAN_PROFILE_DIR")
@@ -428,15 +445,7 @@ def card_line(device):
     """The card's name and power limit (nvidia-smi's line where it runs)."""
     if device.type != "cuda":
         return f"device: {device}"
-    name = torch.cuda.get_device_name(device)
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
-        limit = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    except (OSError, subprocess.TimeoutExpired, IndexError):
-        limit = "nvidia-smi failed"
-    return f"device: {name} ({limit})"
+    return f"device: {torch.cuda.get_device_name(device)} ({card.smi_line()})"
 
 
 def parse_args(argv=None):

@@ -28,9 +28,9 @@ rays x S=128 samples:
 --dtype is the MLPs' compute dtype (float32, the human step's default, or
 bfloat16, which the JAX tool fixes).
 
-Each component is called `reps` (20) times back to back between two CUDA
+Each component is called REPS (20) times back to back between two CUDA
 events, each call's output feeding the next call's input; after one warm-up
-run, `runs` (3) runs, run r on the inputs moved by (r + 1) x 1e-6, and the
+run, RUNS (3) runs, run r on the inputs moved by (r + 1) x 1e-6, and the
 median ms per call is printed. The card's name and power limit first.
 """
 
@@ -50,9 +50,12 @@ from neuman_tpu_torch.trainers import human
 from neuman_tpu_torch.trainers.background import DTYPES, make_optimizer
 
 COMPONENTS = ("smpl", "sampler", "merge", "opt", "offset", "mlpvjp", "warpbwd", "query")
+# the human step's rays and samples; chained calls a run, and runs
+RAYS, SAMPLES = 1536, 128
+REPS, RUNS = 20, 3
 
 
-def time_component(device, f, x0, reps=20, runs=3):
+def time_component(device, f, x0, reps=REPS, runs=RUNS):
     """Median over `runs` runs of the ms per call of `reps` chained calls
     x = f(x), run r from x0 + (r + 1) x 1e-6, after one warm-up run."""
     def chain(x):
@@ -168,19 +171,17 @@ def components(s, which, rays, samples, dtype, device):
     return out
 
 
-def run(which="all", device="cuda", dtype="float32", reps=20, runs=3, rays=1536, samples=128,
-        overrides=None, views=4, hw=(270, 480), body_subdivisions=5):
+def run(which="all", device="cuda", dtype="float32"):
     """Time the components (`which`: "all" or one name); print one line
     each and return {label: ms}."""
     if which != "all" and which not in COMPONENTS:
         raise ValueError(f"unknown component {which!r}; one of all, {', '.join(COMPONENTS)}")
     device = torch.device(device)
     chosen = COMPONENTS if which == "all" else (which,)
-    s = bench.human_setup(device, overrides=overrides, views=views, hw=hw,
-                          body_subdivisions=body_subdivisions)
+    s = bench.human_setup(device)
     times = {}
-    for label, f, x0 in components(s, chosen, rays, samples, dtype, device):
-        times[label] = time_component(device, f, x0, reps, runs)
+    for label, f, x0 in components(s, chosen, RAYS, SAMPLES, dtype, device):
+        times[label] = time_component(device, f, x0)
         print(f"{label}: {times[label]:.4f} ms", flush=True)
     return times
 
@@ -189,8 +190,6 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("which", nargs="?", default="all", choices=("all",) + COMPONENTS)
     parser.add_argument("--dtype", default="float32", choices=tuple(DTYPES))
-    parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--runs", type=int, default=3)
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
@@ -199,7 +198,7 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     print(bench.card_line(device), flush=True)
-    run(args.which, device, args.dtype, args.reps, args.runs)
+    run(args.which, device, args.dtype)
     return 0
 
 

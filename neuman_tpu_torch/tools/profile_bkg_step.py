@@ -19,7 +19,6 @@ wall time the device was idle.
 """
 
 import argparse
-import subprocess
 import tempfile
 import time
 
@@ -35,6 +34,7 @@ from neuman_tpu_torch.options.config import NeuManConfig, apply_mode_defaults
 from neuman_tpu_torch.train import init_bkg_params
 from neuman_tpu_torch.trainers.background import NeRFTrainer
 from neuman_tpu_torch.trainers.human import HumanNeRFTrainer
+from neuman_tpu_torch.utils import card
 
 
 def bkg_trainer(args, out_dir, device):
@@ -77,9 +77,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_bkg_step: no CUDA device")
     device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    print(card.smi_line())
     with tempfile.TemporaryDirectory() as out_dir:
         build = bkg_trainer if args.stage == "bkg" else human_trainer
         trainer = build(args, out_dir, device)

@@ -17,7 +17,6 @@ wall time the device was idle.
 """
 
 import argparse
-import subprocess
 import time
 import types
 
@@ -27,6 +26,7 @@ from neuman_tpu_torch.models import human_nerf, smpl
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.options.config import NeuManConfig
 from neuman_tpu_torch.render import renderer
+from neuman_tpu_torch.utils import card
 
 RENDER = dict(rays_per_batch=8192, samples_per_ray=64, geo_threshold=0.2, knn_k=4, knn_stride=4)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -84,9 +84,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
     device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    print(card.smi_line())
     render = build(args, device)
     render()
     torch.cuda.synchronize()

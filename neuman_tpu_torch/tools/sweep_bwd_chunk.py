@@ -14,7 +14,6 @@ after 2 warm-ups (CUDA events).
 """
 
 import argparse
-import subprocess
 
 import torch
 
@@ -22,6 +21,7 @@ from neuman_tpu_torch.models import nerf
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
 from neuman_tpu_torch.options.config import NeuManConfig
+from neuman_tpu_torch.utils import card
 
 
 def main(argv=None):
@@ -34,9 +34,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("sweep_bwd_chunk: no CUDA device")
     device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    print(card.smi_line())
     spec = nerf.build_nerf_specs(NeuManConfig())
     gen = torch.Generator().manual_seed(args.seed)
     net = nerf.NeRF(spec.nerf, device=device).reset_parameters(gen).requires_grad_(False)

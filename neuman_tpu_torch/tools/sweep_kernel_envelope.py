@@ -43,7 +43,6 @@ import argparse
 import dataclasses
 import functools
 import json
-import subprocess
 import sys
 import time
 import traceback
@@ -61,6 +60,7 @@ from neuman_tpu_torch.ops.kernels import meshquery as kmq
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
 from neuman_tpu_torch.ops.kernels import offset_mlp as koff
+from neuman_tpu_torch.utils import card
 from neuman_tpu_torch.utils.synthetic_body import synthetic_body_mesh
 
 # the body proxy's subdivisions (V = 10,242) and SMPL's vertex count
@@ -562,10 +562,7 @@ def main(argv=None):
         print("sweep_kernel_envelope: no CUDA device; this sweep runs on the GPU only",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
-          flush=True)
+    print(card.smi_line(), flush=True)
     phase_build()  # every library, in parallel, with each kernel's ptxas report
     ctx = Context(torch.device("cuda", 0), args.seed, iters=5 if args.quick else 20)
     selected = [c for c in cases() if c.quick or not args.quick]

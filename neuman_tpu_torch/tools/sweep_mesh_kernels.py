@@ -25,7 +25,6 @@ line per kernel, shape and plan.
 
 import argparse
 import json
-import subprocess
 
 import torch
 
@@ -34,6 +33,7 @@ from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops.kernels import knn as kknn
 from neuman_tpu_torch.ops.kernels import meshquery as kmq
+from neuman_tpu_torch.utils import card
 
 
 def _report(kernel, fn, name, **fields):
@@ -64,9 +64,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("sweep_mesh_kernels: no CUDA device")
     device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    print(card.smi_line())
     body = body_proxy_smpl_model(subdivisions=5, device=device)
     verts = body.v_template
     topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, device)

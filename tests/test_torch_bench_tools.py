@@ -1,8 +1,8 @@
-"""The bench's two step tools on the CPU at tiny sizes: every component of
+"""The bench's step tools on the CPU at tiny sizes: every component of
 `neuman_tpu_torch.tools.bench_step_parts` runs, and the loss families of
 `neuman_tpu_torch.tools.bench_step_ablate` reach the config that the human
 step is built from (in this process; the tool itself runs each family in a
-process of its own)."""
+process of its own); `bench_step_windows` runs on the card only."""
 
 import math
 
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from neuman_tpu_torch import bench
-from neuman_tpu_torch.tools import bench_step_ablate, bench_step_parts
+from neuman_tpu_torch.tools import bench_step_ablate, bench_step_parts, bench_step_windows
 
 torch.set_num_threads(1)
 
@@ -82,3 +82,11 @@ def test_ablation_times_full_and_one_family(built_configs, capsys):
         assert math.isfinite(ms) and ms > 0
         assert capsys.readouterr().out.strip().endswith(f"RESULT {name} {ms:.3f}")
     assert [c.penalize_lpips for c in seen] == [0.01, 0.0]
+
+
+def test_step_windows_needs_the_card(monkeypatch, capsys):
+    """The tool times CUDA streams: without a card it exits 1 before any setup."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(bench_step_windows.bench, "human_setup", None)
+    assert bench_step_windows.main() == 1
+    assert "no CUDA device" in capsys.readouterr().err

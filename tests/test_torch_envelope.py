@@ -219,8 +219,7 @@ def test_sweep_fails_a_case_whose_kernel_disagrees(monkeypatch, capsys, fault):
     monkeypatch.setattr(sweep, "cases", lambda: cases)
     monkeypatch.setattr(sweep, "phase_build", lambda: None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(sweep.subprocess, "run", lambda *a, **kw: sweep.subprocess.CompletedProcess(
-        a, 0, "NVIDIA H100 80GB HBM3, 700.00 W\n", ""))
+    monkeypatch.setattr(sweep.card, "smi_line", lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
     monkeypatch.setattr(sweep, "Context", lambda *a, **kw: ctx)
     assert sweep.main([]) == 1
 

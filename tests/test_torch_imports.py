@@ -88,6 +88,8 @@ MODULES = (
     "neuman_tpu_torch.bench",
     "neuman_tpu_torch.tools.bench_step_parts",
     "neuman_tpu_torch.tools.bench_step_ablate",
+    "neuman_tpu_torch.tools.bench_step_windows",
+    "neuman_tpu_torch.utils.card",
     "chip_smoke",
 )
 
