@@ -1,0 +1,9 @@
+"""`nerf_mlp_roofline.render`: the NeRF MLP kernels' share of their roofline in
+a frame (benchmark/readers.py `roofline`; the kernels in `readers.NERF_MLP`
+and the shared dW passes that follow a NeRF chain pass)."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "frame")
