@@ -813,13 +813,13 @@ def phase_slice(model, spec, body, device, seed):
         spec, model, cap, verts, body.faces, ts, device, topology=topo, use_kernels=use, **RENDER)
     render(True)
     torch.cuda.synchronize()
-    kmlp.nerf_mlp.launches = 0
-    kmq.ericson_select.launches = 0
+    counted_from = _launches()
     t0 = time.perf_counter()
     rgb, depth, acc = render(True)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = {"nerf_mlp": kmlp.nerf_mlp.launches, "ericson_select": kmq.ericson_select.launches}
+    counts = _launches(counted_from)
+    launches = {k: counts[k] for k in ("nerf_mlp", "ericson_select")}
 
     t0 = time.perf_counter()
     p_rgb, _, _ = render(False)
@@ -1034,10 +1034,10 @@ def phase_train(device, seed):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            kmlp.nerf_mlp.launches = 0
-            kvjp.nerf_mlp_bwd.launches = 0
+            counted_from = _launches()
             trainer = ttrain.train_background(cfg, scene, train_views, val_views, device=device)
-            before = (kmlp.nerf_mlp.launches, kvjp.nerf_mlp_bwd.launches)
+            counts = _launches(counted_from)
+            before = (counts["nerf_mlp"], counts["nerf_mlp_bwd"])
             # the two configurations' parameters after the same 2 steps
             after_2 = [p.detach().clone() for net in trainer.state["params"].values()
                        for p in net.parameters()]
@@ -1053,7 +1053,8 @@ def phase_train(device, seed):
                 end.record()
                 events.append((start, end))
             torch.cuda.synchronize()
-            after = (kmlp.nerf_mlp.launches, kvjp.nerf_mlp_bwd.launches)
+            counts = _launches(counted_from)
+            after = (counts["nerf_mlp"], counts["nerf_mlp_bwd"])
             launches = {k: {"train_background": b, f"train_{SLICE_STEPS}_steps": a - b}
                         for k, b, a in zip(("nerf_mlp", "nerf_mlp_bwd"), before, after)}
             per_step = [(a - b) / SLICE_STEPS for b, a in zip(before, after)]
@@ -1317,10 +1318,12 @@ def _human_config(out_dir, seed, **fields):
     return cfg.finalize()
 
 
-def _kernel_counters():
+def _launches(since=None):
+    """{kernel: its launches in this process}, less `since` (an earlier
+    reading) where given: the wrappers' counters in utils/tracing.py."""
     from neuman_tpu_torch.ops import kernels
 
-    return kernels.wrappers()
+    return kernels.launches(since)
 
 
 def _cudnn_flags():
@@ -1395,7 +1398,6 @@ def phase_human_step(body, device, seed):
     from neuman_tpu_torch.trainers import logging as tlog
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
-    counters = _kernel_counters()
     try:
         scene = darrays.synthetic_human_scene(body, SLICE_VIEWS, *SLICE_HW, seed=seed, device=device)
         train_views, val_views = [0, 1, 2], [3]
@@ -1492,13 +1494,12 @@ def phase_human_step(body, device, seed):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
-                fn.launches = 0
+            counted_from = _launches()
             # no flag is set here: the train step is deterministic itself
             flags = _cudnn_flags()
             trainer = ttrain.train_human(cfg, scene, train_views, val_views, body, device=device)
             flags_kept = _cudnn_flags() == flags
-            before = {k: fn.launches for k, fn in counters.items()}
+            before = _launches(counted_from)
             val_ok = all(math.isfinite(v) for v in trainer.last_val_losses.values())
             # the validation's images, read back and decoded
             pngs = {os.path.basename(path).rsplit("_", 1)[0]: tlog.decode_png(open(path, "rb").read())
@@ -1520,10 +1521,10 @@ def phase_human_step(body, device, seed):
                 end.record()
                 events.append((start, end))
             torch.cuda.synchronize()
-            after = {k: fn.launches for k, fn in counters.items()}
+            after = _launches(counted_from)
             launches = {k: {"train_human": before[k], f"human_{HUMAN_STEPS}_steps": after[k] - before[k]}
-                        for k in counters}
-            per_step = {k: (after[k] - before[k]) / HUMAN_STEPS for k in counters}
+                        for k in after}
+            per_step = {k: (after[k] - before[k]) / HUMAN_STEPS for k in after}
             ms = sorted(s.elapsed_time(e) for s, e in events)
             median = (ms[(HUMAN_STEPS - 1) // 2] + ms[HUMAN_STEPS // 2]) / 2
             losses = torch.stack(losses)
@@ -1583,11 +1584,10 @@ def phase_human_step(body, device, seed):
                 aux = fn(batch, torch.Generator(device).manual_seed(seed + 1), anneals)[1]
                 both.append(torch.stack([aux["losses"][k] for k in human.LOSS_NAMES]))
         loss_err = (both[0] - both[1]).abs().max().item()
-        for fn in counters.values():
-            fn.launches = 0
+        counted_from = _launches()
         fused_losses = torch.stack([trainer.train_step()["total_loss"] for _ in range(2)])
         torch.cuda.synchronize()
-        fused_launches = {k: fn.launches for k, fn in counters.items()}
+        fused_launches = _launches(counted_from)
         ok = (loss_err <= FUSED_LOSS_ATOL and bool(both[0][LOSS_NAMES_SHAPE] != 0)
               and bool(torch.isfinite(fused_losses).all())
               and all(fused_launches[k] == v for k, v in FUSED_LAUNCHES.items()))
@@ -1928,7 +1928,6 @@ def phase_renders(model, spec, body, device, seed):
     from neuman_tpu_torch.ops import mesh as mesh_ops
     from neuman_tpu_torch.render import renderer
 
-    counters = _kernel_counters()
     gen = torch.Generator().manual_seed(seed + 2)
     pose = torch.zeros(1, 72)
     pose[0, 3:] = torch.randn(69, generator=gen) * 0.1
@@ -1955,13 +1954,12 @@ def phase_renders(model, spec, body, device, seed):
     for name, render in frames.items():
         render(True)
         torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
+        counted_from = _launches()
         t0 = time.perf_counter()
         out = render(True)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches[name] = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        launches[name] = {k: v for k, v in _launches(counted_from).items() if v}
         ref = render(False)
         torch.cuda.synchronize()
         psnr = -10.0 * math.log10(max(torch.mean((out[0] - ref[0]) ** 2).item(), 1e-20))
@@ -2087,7 +2085,6 @@ def phase_cli(device, seed, root):
             raise RuntimeError("the scene read back differs from what was written")
         del scene
 
-        counters = _kernel_counters()
         out_dir = os.path.join(root, "out")
         common = ["--scene_dir", scene_dir, "--out_dir", out_dir, "--max_iter", str(CLI_MAX_ITER),
                   *CLI_FLAGS]
@@ -2099,13 +2096,12 @@ def phase_cli(device, seed, root):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            for c in counters.values():
-                c.launches = 0
+            counted_from = _launches()
             t0 = time.perf_counter()
             trainer = ttrain.main(argv + common, device=device)
             torch.cuda.synchronize()
             main_s = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters.items()}
+            launches = _launches(counted_from)
             gib = torch.cuda.max_memory_allocated() / 2**30
             ok, shapes = _cli_outputs_ok(os.path.join(out_dir, argv[3]), val_names)
             ms, losses = _timed_steps(trainer, CLI_TIMED_STEPS)
@@ -2239,7 +2235,6 @@ def phase_render_cli(device, seed, root, scene_dir):
     work = os.path.join(root, "render_cwd")
     common, runs = _render_cli_runs(root, scene_dir, seed, work, RENDER_CLI_TRAJECTORY,
                                     RENDER_CLI_MOCAP_FRAMES, RENDER_CLI_GATHER_MOCAP_FRAMES)
-    counters = _kernel_counters()
     results = {}
     cwd = os.getcwd()
     with _data_root(root):
@@ -2247,15 +2242,14 @@ def phase_render_cli(device, seed, root, scene_dir):
             os.chdir(work)
             for what, module, argv, kernels, frames, demo in runs:
                 torch.cuda.synchronize()
-                for c in counters.values():
-                    c.launches = 0
+                counted_from = _launches()
                 t0 = time.perf_counter()
                 with _frame_probe() as (seconds, hits):
                     ret = importlib.import_module(f"neuman_tpu_torch.{module}").main(
                         argv + common, device=device)
                 torch.cuda.synchronize()
                 main_s = time.perf_counter() - t0
-                launches = {k: c.launches for k, c in counters.items() if c.launches}
+                launches = {k: v for k, v in _launches(counted_from).items() if v}
                 demo = os.path.join("demo", demo)
                 written = sorted(os.listdir(demo))
                 shapes = {png.read_png(os.path.join(demo, f)).shape == (*CLI_HW, 3)
@@ -2561,7 +2555,6 @@ def phase_parallel(device, seed, root, scene_dir, card):
             launches[f"parallel_{job.kind}_rank{rank}"] = counts
 
     # (b) train.main under the torchrun environment: NCCL at world size 1
-    counters = _kernel_counters()
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
            "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
     out_dir = os.path.join(root, "out_parallel")
@@ -2574,11 +2567,10 @@ def phase_parallel(device, seed, root, scene_dir, card):
         with _environ(env), _data_root(root):
             for stage, argv in stages:
                 torch.cuda.synchronize()
-                for c in counters.values():
-                    c.launches = 0
+                counted_from = _launches()
                 trainer = ttrain.main(argv + common, device=device)
                 torch.cuda.synchronize()
-                counts = {k: c.launches for k, c in counters.items()}
+                counts = _launches(counted_from)
                 mesh = trainer.mesh
                 if stage == "bkg":
                     plain = bkg.make_bkg_train_step(trainer.spec, trainer.opt, trainer.optimizer,
@@ -2633,14 +2625,13 @@ def phase_parallel(device, seed, root, scene_dir, card):
             "--max_iter", str(CLI_MAX_ITER), *CLI_FLAGS]
     bkg.NeRFTrainer.draw_batch, bkg.NeRFTrainer.train_step = first_batch, first_step
     try:
-        for c in counters.values():
-            c.launches = 0
+        counted_from = _launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with _data_root(root):
             trainer = ttrain.main(argv, device=device)
         torch.cuda.synchronize()
-        counts = {k: c.launches for k, c in counters.items()}
+        counts = _launches(counted_from)
         gib = torch.cuda.max_memory_allocated() / 2**30
     finally:
         bkg.NeRFTrainer.draw_batch, bkg.NeRFTrainer.train_step = draw, step
@@ -2724,7 +2715,6 @@ def phase_render_parallel(device, seed, root, scene_dir, card):
             launches[f"render_parallel_{what}_rank{rank}"] = counts
 
     # render_test_views.main under the torchrun environment: NCCL at world size 1
-    counters = _kernel_counters()
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
            "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
     what, _, argv, kernels, _, _ = runs[-1]
@@ -2734,11 +2724,10 @@ def phase_render_parallel(device, seed, root, scene_dir, card):
     try:
         with _environ(env), _data_root(root):
             os.chdir(nccl_dir)
-            for c in counters.values():
-                c.launches = 0
+            counted_from = _launches()
             got = render_test_views.main(argv + common + ["--data_parallel", "on"], device=device)
             torch.cuda.synchronize()
-            counts = {k: c.launches for k, c in counters.items()}
+            counts = _launches(counted_from)
             backend, world = dist.get_backend(), dist.get_world_size()
     finally:
         os.chdir(cwd)
@@ -2767,14 +2756,12 @@ def phase_envelope(model, spec, device, seed):
     phase: comparisons with the plain versions, not a main path."""
     from neuman_tpu_torch.tools import sweep_kernel_envelope as sweep
 
-    counters = _kernel_counters()
-    for wrapper in counters.values():
-        wrapper.launches = 0
+    counted_from = _launches()
     t0 = time.perf_counter()
     ctx = sweep.Context(device, seed, model=(spec, model), timed=False)
     quick = [case for case in sweep.cases() if case.quick]
     failed = sweep.run_cases(quick, ctx)
-    launches = {name: w.launches for name, w in counters.items() if w.launches}
+    launches = {k: v for k, v in _launches(counted_from).items() if v}
     log("envelope", cases=len(quick), failed=len(failed),
         seconds=f"{time.perf_counter() - t0:.2f}", launches=launches)
     if failed:
@@ -2844,14 +2831,12 @@ def phase_bench(device):
     from neuman_tpu_torch import bench
     from neuman_tpu_torch.tools import bench_step_parts
 
-    counters = _kernel_counters()
-    for wrapper in counters.values():
-        wrapper.launches = 0
+    counted_from = _launches()
     t0 = time.perf_counter()
     (result, rc, by_stage), lines = _captured(lambda: bench.run(
         ["--iters", str(BENCH_ITERS), "--train_iters", str(BENCH_ITERS)]))
     seconds = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in counters.items() if w.launches}
+    launches = {k: v for k, v in _launches(counted_from).items() if v}
     for line in lines:
         print(f"[bench] {line}", flush=True)
     finite = all(isinstance(result.get(k), (int, float)) and math.isfinite(result[k])

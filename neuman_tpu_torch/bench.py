@@ -22,8 +22,7 @@ Sections (stage names of --break-stage in brackets):
   128 samples, f32) on a 4-view 270x480 synthetic scene, batch draw included;
 - human_step: a human train step at the smpl_and_offset defaults (1536 rays,
   128 samples, the seven losses with LPIPS on, random-init AlexNet), the
-  body proxy's vertices over 4 views; NEUMAN_PROFILE_DIR=<dir> writes a
-  torch.profiler trace of the timed steps there. A step's time depends on
+  body proxy's vertices over 4 views. A step's time depends on
   its batch draw (the backward of the warp's gathers by the closest faces'
   corners), so the mean moves with --train_iters; the draws are seeded, so
   a window gives the same mean run to run (tools/bench_step_windows.py
@@ -51,7 +50,6 @@ does a run without a CUDA device unless --device cpu is given.
 """
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -323,17 +321,7 @@ def bench_human_train_step(device, iters=10, use_kernels=True, overrides=None, v
     restarts = []
     step = human_step_fn(s, restarts)
     step()
-    # a trace of the same timed steps (tracing costs time: off unless asked)
-    profile_dir = os.environ.get("NEUMAN_PROFILE_DIR")
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with (torch.profiler.profile(activities=activities) if profile_dir
-          else contextlib.nullcontext()) as prof:
-        ms = steps_ms(device, step, iters)
-    if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "human_train_step.json"))
+    ms = steps_ms(device, step, iters)
     print(f"human_step: {sum(restarts[1:]):g} of {iters} timed steps restarted a dead canonical "
           f"net", file=sys.stderr)
     return ms
@@ -513,16 +501,14 @@ def _run(args, sizes):
                                                               **size("hybrid_render"))
         stages["hybrid_frame"] = lambda: bench_hybrid_frame(device, **size("hybrid_frame"))
 
-    counters = kernels.wrappers()
     failures, values, launches = [], {}, {}
     for name, fn in stages.items():
-        before = {k: w.launches for k, w in counters.items()}
+        before = kernels.launches()
         try:
             if args.break_stage == name:
                 raise RuntimeError(f"fault injection: --break-stage {name}")
             out = fn()
-            launches[name] = {k: w.launches - before[k] for k, w in counters.items()
-                              if w.launches > before[k]}
+            launches[name] = {k: v for k, v in kernels.launches(before).items() if v}
             missing = [k for k in STAGE_KERNELS[name] if on_card and k not in launches[name]]
             if missing:
                 raise RuntimeError(f"{name} launched no {', '.join(missing)} kernel")

@@ -1,13 +1,15 @@
 """The hand-written CUDA kernels and their wrappers."""
 
+from neuman_tpu_torch.utils import tracing
 
-def wrappers():
-    """{kernel name: its wrapper}; a wrapper's `launches` counts the
-    launches of its kernel (not the calls that run its plain version)."""
-    from neuman_tpu_torch.ops.kernels import knn, meshquery, nerf_mlp, nerf_mlp_vjp, offset_mlp
+# each wrapper counts its kernel's launches (not the calls that run its
+# plain version) as the counter `launches.<kernel>` of utils/tracing.py
+KERNELS = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
+           "ericson_signed_select", "bucketed_knn")
 
-    return {"nerf_mlp": nerf_mlp.nerf_mlp, "nerf_mlp_bwd": nerf_mlp_vjp.nerf_mlp_bwd,
-            "offset_mlp": offset_mlp.offset_mlp, "offset_mlp_bwd": offset_mlp.offset_mlp_bwd,
-            "ericson_select": meshquery.ericson_select,
-            "ericson_signed_select": meshquery.ericson_signed_select,
-            "bucketed_knn": knn.bucketed_knn}
+
+def launches(since=None):
+    """{kernel name: its launches in this process}, less `since` (an
+    earlier reading) where given."""
+    now = {k: tracing.total("launches." + k) for k in KERNELS}
+    return now if since is None else {k: v - since[k] for k, v in now.items()}

@@ -28,6 +28,7 @@ import functools
 import torch
 
 from neuman_tpu_torch.ops.kernels import _build
+from neuman_tpu_torch.utils import tracing
 
 NUM_BUCKETS = 64
 # queries per chunk of the plain version's [chunk, V_pad] f64 score matrix
@@ -182,7 +183,7 @@ def _launch(points, verts, k, num_buckets, plan=None):
     if err == -1:
         raise ValueError(f"bucketed_knn kernel: unsupported k={k} or plan {plan}")
     _build.check(err, "bucketed_knn")
-    bucketed_knn.launches += 1
+    tracing.count("launches.bucketed_knn")
     return idx, score
 
 
@@ -196,6 +197,3 @@ def bucketed_knn(points, verts, k, num_buckets=NUM_BUCKETS):
     if points.device.type != "cpu":
         raise ValueError(f"bucketed_knn: no kernel for device {points.device}")
     return bucketed_knn_plain(points, verts, k, num_buckets)
-
-
-bucketed_knn.launches = 0

@@ -34,7 +34,8 @@ Both kernels are in one source and share the region test, so d2, closest
 and f_id agree bit for bit on the same candidates. `ericson_signed_select`
 is the same function on the TPU kernel's planar operands (rows9 and vn9
 [9C, N/stride], cand), in plain PyTorch only: the counterpart held to the
-JAX package. Its `launches` counts the table kernel's launches.
+JAX package. The table kernel's launches count as
+`launches.ericson_signed_select` (utils/tracing.py).
 """
 
 import ctypes
@@ -43,6 +44,7 @@ import functools
 import torch
 
 from neuman_tpu_torch.ops.kernels import _build
+from neuman_tpu_torch.utils import tracing
 
 
 def closest_point_on_triangles_planar(p, a, b, c):
@@ -292,7 +294,7 @@ def _launch(p3, rows9, cand, stride, plan=None):
     if err == -1:
         raise ValueError(f"{what}: bad plan {plan} for N={n}, C={num_cands}, stride={stride}")
     _build.check(err, what)
-    ericson_select.launches += 1
+    tracing.count("launches.ericson_select")
     return dist, f_id, cp
 
 
@@ -321,7 +323,7 @@ def _launch_signed(p3, knn_idx, incidence, vtab9, vntab9, stride, plan=None):
     if err == -1:
         raise ValueError(f"{what}: bad plan {plan} for N={n}, C={k * deg}, stride={stride}")
     _build.check(err, what)
-    ericson_signed_select.launches += 1
+    tracing.count("launches.ericson_signed_select")
     return sd, f_id, cp
 
 
@@ -348,9 +350,6 @@ def ericson_select(p3, rows9, cand, stride=1):
     """Kernel for CUDA tensors, `ericson_select_plain` for CPU tensors."""
     d2, f_id, cp = _EricsonSelect.apply(p3, rows9, cand, stride)
     return d2, f_id, (cp[0], cp[1], cp[2])
-
-
-ericson_select.launches = 0
 
 
 class _EricsonSignedSelect(torch.autograd.Function):
@@ -384,10 +383,6 @@ def ericson_signed_select(p3, rows9, vn9, cand, stride=1, plain=False):
     planar = lambda p, r, v, c, st: _select_plain(p, r, c, st, v)
     sd, f_id, cp = _EricsonSignedSelect.apply(p3, planar, rows9, vn9, cand, stride)
     return sd, f_id, (cp[0], cp[1], cp[2])
-
-
-# launches of the table kernel, the fused signed-distance query
-ericson_signed_select.launches = 0
 
 
 def ericson_signed_select_tables(p3, knn_idx, incidence, vtab9, vntab9, stride=1, plain=False):

@@ -36,6 +36,7 @@ import torch
 from neuman_tpu_torch.models.embedder import embed
 from neuman_tpu_torch.ops.kernels import _build
 from neuman_tpu_torch.ops.precision import matmul_f32
+from neuman_tpu_torch.utils import tracing
 
 
 def _rounder(compute_dtype):
@@ -335,7 +336,7 @@ def _launch(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tap
         int(compute_dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "nerf_mlp")
-    nerf_mlp.launches += 1
+    tracing.count("launches.nerf_mlp")
     res = out[0].reshape(r, s), [out[1 + c].reshape(r, s) for c in range(3)]
     return (res, tape) if emit_tape else res
 
@@ -356,6 +357,3 @@ def nerf_mlp(spec, net, px, py, pz, dir_part=None, dir_planes=None,
     if px.device.type != "cpu":
         raise ValueError(f"nerf_mlp: no kernel for device {px.device}")
     return nerf_mlp_plain(spec, net, px, py, pz, dir_part, dir_planes, compute_dtype, emit_tape)
-
-
-nerf_mlp.launches = 0

@@ -36,6 +36,7 @@ from neuman_tpu_torch.models.embedder import embed, rotate_projection
 from neuman_tpu_torch.ops.kernels import _build
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.precision import matmul_f32
+from neuman_tpu_torch.utils import tracing
 
 # samples of whole rays per chunk of the kernel's tape (~10 KB a sample in
 # bf16, ~20 KB in f32 at 8x256). Chunks whose tape stays in the 50 MB L2
@@ -242,7 +243,7 @@ def _launch(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes, compute
     if err == -2:
         raise RuntimeError("nerf_mlp_bwd: could not make the dW pass's tensor maps")
     _build.check(err, "nerf_mlp_bwd")
-    nerf_mlp_bwd.launches += 1
+    tracing.count("launches.nerf_mlp_bwd")
     grads, at = [], 0
     for ws, bs in shapes:
         grads.append((grad[at:at + ws.numel()].view(ws), grad[at + ws.numel():at + ws.numel() + bs.numel()]))
@@ -266,9 +267,6 @@ def nerf_mlp_bwd(spec, net, px, py, pz, g_sigma, g_rgb, dir_part=None, dir_plane
         raise ValueError(f"nerf_mlp_bwd: no kernel for device {px.device}")
     return nerf_mlp_bwd_plain(spec, net, px, py, pz, g_sigma, g_rgb, dir_part, dir_planes,
                               compute_dtype, tape)
-
-
-nerf_mlp_bwd.launches = 0
 
 
 class _NerfMlpFunction(torch.autograd.Function):

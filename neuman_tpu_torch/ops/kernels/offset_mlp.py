@@ -39,6 +39,7 @@ from neuman_tpu_torch.ops.kernels import _build
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels.nerf_mlp_vjp import _check_tape, check_tape_mode, pe_bwd
 from neuman_tpu_torch.ops.precision import matmul_f32
+from neuman_tpu_torch.utils import tracing
 
 # samples per chunk of the backward kernel's tape (~17 KB a sample in f32,
 # ~8.5 KB in bf16 at 8 x 256: ~550 MB in f32)
@@ -219,7 +220,7 @@ def _launch_fwd(spec, net, axes, compute_dtype, emit_tape):
     if err == -1:
         raise ValueError("offset_mlp: the kernel does not take this net")
     _build.check(err, "offset_mlp")
-    offset_mlp.launches += 1
+    tracing.count("launches.offset_mlp")
     planes = [out[c].reshape(r, s) for c in range(nspec.output_ch)]
     return (planes, tape) if emit_tape else planes
 
@@ -233,9 +234,6 @@ def offset_mlp(spec, net, axes, compute_dtype=torch.float32, emit_tape=False):
     if axes[0].device.type != "cpu":
         raise ValueError(f"offset_mlp: no kernel for device {axes[0].device}")
     return offset_mlp_plain(spec, net, axes, compute_dtype, emit_tape)
-
-
-offset_mlp.launches = 0
 
 
 def _launch_bwd(spec, net, axes, g_rows, compute_dtype, fwd_tape):
@@ -278,7 +276,7 @@ def _launch_bwd(spec, net, axes, g_rows, compute_dtype, fwd_tape):
     if err == -2:
         raise RuntimeError("offset_mlp_bwd: could not make the dW pass's tensor maps")
     _build.check(err, "offset_mlp_bwd")
-    offset_mlp_bwd.launches += 1
+    tracing.count("launches.offset_mlp_bwd")
     grads, at = [], 0
     for ws, bs in shapes:
         grads.append((grad[at:at + ws.numel()].view(ws),
@@ -296,9 +294,6 @@ def offset_mlp_bwd(spec, net, axes, g_rows, compute_dtype=torch.float32, tape=No
     if axes[0].device.type != "cpu":
         raise ValueError(f"offset_mlp_bwd: no kernel for device {axes[0].device}")
     return offset_mlp_bwd_plain(spec, net, axes, g_rows, compute_dtype, tape)
-
-
-offset_mlp_bwd.launches = 0
 
 
 class _OffsetMlpFunction(torch.autograd.Function):

@@ -9,9 +9,11 @@ field as a flag; `finalize` derives the output paths and the target sizes,
 as the JAX config's does, and imports nothing.
 
 Fields the port parses and saves but does not act on: those that steer XLA
-or the TPU (`use_cuda`, `pe_recurrence`, `tb_dir`), the JAX profiler's
-(`profile_dir`, `profile_steps`), and those of options not ported (`chunk`,
-`penalize_outside`, `random_view`). `data_parallel` and `data_axis` pick
+or the TPU (`use_cuda`, `pe_recurrence`, `tb_dir`), and those of options not
+ported (`chunk`, `penalize_outside`, `random_view`). `profile_dir` and
+`profile_steps`: both trainers run `profile_steps` steps from iteration 1
+under torch.profiler and write one chrome trace into `profile_dir`
+(utils/tracing.StepProfile). `data_parallel` and `data_axis` pick
 the trainers' data mesh (parallel/mesh.resolve_mesh). The render fields (`render_h`,
 `render_w`, `weights_path`, `trajectory_resolution`, `motion_name`,
 `mocap_*`) are read by the render command lines. `use_pallas` False

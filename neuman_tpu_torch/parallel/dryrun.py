@@ -161,9 +161,7 @@ def run_steps(trainer, steps):
         return update(named, grads, *args, **kwargs)
 
     trainer.optimizer.step = recording
-    counters = kernels.wrappers()
-    for c in counters.values():
-        c.launches = 0
+    before = kernels.launches()
     metrics = []
     for _ in range(steps):
         m = trainer.train_step()
@@ -171,7 +169,7 @@ def run_steps(trainer, steps):
     return {"losses": [m["total_loss"] for m in metrics], "metrics": metrics,
             "grads": recorded[0],
             "params": {k: p.detach().cpu().clone() for k, p in trained_parameters(trainer).items()},
-            "launches": {k: c.launches for k, c in counters.items()}}
+            "launches": kernels.launches(before)}
 
 
 def run_jobs(jobs, device, data_parallel="on"):
@@ -377,9 +375,7 @@ def run_render(job, device):
         rec["human_rays"] += args[3].shape[0]  # origins
         return branch(*args, **kwargs)
 
-    counters = kernels.wrappers()
-    for c in counters.values():
-        c.launches = 0
+    before = kernels.launches()
     cwd = os.getcwd()
     work = tempfile.mkdtemp(prefix="neuman_render_")
     for entry in os.listdir(job.workdir) if job.workdir is not None else ():
@@ -400,7 +396,7 @@ def run_render(job, device):
         rec["pngs"] = _pngs(work)
         shutil.rmtree(work)
     rec["warnings"] = [str(w.message) for w in caught]
-    rec["launches"] = {k: c.launches for k, c in counters.items()}
+    rec["launches"] = kernels.launches(before)
     return rec
 
 

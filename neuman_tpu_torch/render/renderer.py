@@ -19,6 +19,11 @@ closest-point query through the `ericson_select` kernel; `use_kernels=False`
 runs their plain PyTorch versions instead (the reference the card checks
 the kernels against).
 
+The spans of utils/tracing.py mark a frame's hit tests (`render.hit_test`),
+the host's wait for each hit list (`render.hit_sync`: `torch.nonzero`
+syncs) and the human branches (`render.human_branch`); the counter
+`render.hit_rays` adds the hit rays, which the host holds by then.
+
 With a data `mesh` (parallel/mesh.py, the JAX renderers' `mesh=`) each
 chunk's rays are split over the ranks (`ChunkRows`): every rank runs its
 contiguous block of each chunk, and one all_gather at the end of the frame
@@ -37,6 +42,7 @@ from neuman_tpu_torch.ops import rays as ray_ops
 from neuman_tpu_torch.ops import volume
 from neuman_tpu_torch.ops.kernels.nerf_mlp import dir_projection, nerf_mlp, nerf_mlp_plain
 from neuman_tpu_torch.parallel.mesh import ChunkRows
+from neuman_tpu_torch.utils import tracing
 
 
 def _mlp(use_kernels):
@@ -259,14 +265,19 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
         rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
         # the human branch runs only on the chunk's rays that pass near the body
-        near, far = ray_ops.geometry_guided_near_far(o, d, verts, geo_threshold)
-        sel = torch.nonzero(near < far).squeeze(1)
-        if sel.numel():
-            human = _human_branch(
-                spec.human, model.coarse_human_net.nerf, topology, o[sel], d[sel], near[sel],
-                far[sel], verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride,
-                use_kernels,
-            )
+        with tracing.span("render.hit_test"):
+            near, far = ray_ops.geometry_guided_near_far(o, d, verts, geo_threshold)
+        with tracing.span("render.hit_sync"):  # the host waits for the hit test
+            sel = torch.nonzero(near < far).squeeze(1)
+            hit_rays = sel.numel()
+        tracing.count("render.hit_rays", hit_rays)
+        if hit_rays:
+            with tracing.span("render.human_branch"):
+                human = _human_branch(
+                    spec.human, model.coarse_human_net.nerf, topology, o[sel], d[sel], near[sel],
+                    far[sel], verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride,
+                    use_kernels,
+                )
             hit_bkg = (f_z[sel], f_sigma[sel], [c[sel] for c in f_rgb_c], dir_norm[sel])
             hit = torch.ones_like(sel, dtype=torch.bool)
             rgb[i + sel], depth[i + sel], acc[i + sel] = _merge_human(
@@ -307,22 +318,27 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     rows = ChunkRows(total, rays_per_batch, mesh, device)
     near = torch.empty(rows.local, device=device)
     far = torch.empty(rows.local, device=device)
-    for src, dst, _, _ in rows:
-        near[dst], far[dst] = ray_ops.geometry_guided_near_far(origins[src], dirs[src], verts,
-                                                               geo_threshold)
+    with tracing.span("render.hit_test"):  # one span over the loop: nothing else runs in it
+        for src, dst, _, _ in rows:
+            near[dst], far[dst] = ray_ops.geometry_guided_near_far(origins[src], dirs[src], verts,
+                                                                   geo_threshold)
     near, far = rows.gather(near, far)
-    hits = torch.nonzero(near < far).squeeze(1)
-    rows = ChunkRows(hits.numel(), rays_per_batch, mesh, device)
+    with tracing.span("render.hit_sync"):  # the host waits for the hit test
+        hits = torch.nonzero(near < far).squeeze(1)
+        hit_rays = hits.numel()
+    tracing.count("render.hit_rays", hit_rays)
+    rows = ChunkRows(hit_rays, rays_per_batch, mesh, device)
     h_rgb = torch.empty(rows.local, 3, device=device)
     h_depth = torch.empty(rows.local, device=device)
     h_acc = torch.empty(rows.local, device=device)
     for src, dst, whole, local in rows:
         sel = hits[src]
         o, d = origins[sel], dirs[sel]
-        z, sigma, rgb_c = _human_branch(
-            spec.human, model.coarse_human_net.nerf, topology, o, d, near[sel], far[sel], verts,
-            Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels, render_can,
-            interval_comp, (dirs[hits[whole]], local))
+        with tracing.span("render.human_branch"):
+            z, sigma, rgb_c = _human_branch(
+                spec.human, model.coarse_human_net.nerf, topology, o, d, near[sel], far[sel],
+                verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels,
+                render_can, interval_comp, (dirs[hits[whole]], local))
         h_rgb[dst], _, h_acc[dst], _, h_depth[dst] = volume.integrate_planar(
             sigma, rgb_c, z, torch.linalg.norm(d, dim=-1), white_bkg)
     rgb[hits], depth[hits], acc[hits] = rows.gather(h_rgb, h_depth, h_acc)
@@ -371,18 +387,24 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
             compute_dtype, use_kernels, dir_chunk=(dirs[whole], local))
         rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
-        bounds = [ray_ops.geometry_guided_near_far(o, d, a[3], geo_threshold) for a in actors]
+        with tracing.span("render.hit_test"):
+            bounds = [ray_ops.geometry_guided_near_far(o, d, a[3], geo_threshold)
+                      for a in actors]
         any_hit = torch.zeros(n, dtype=torch.bool, device=device)
         for near, far in bounds:
             any_hit |= near < far
-        sel = torch.nonzero(any_hit).squeeze(1)
-        if not sel.numel():
+        with tracing.span("render.hit_sync"):  # the host waits for the hit test
+            sel = torch.nonzero(any_hit).squeeze(1)
+            hit_rays = sel.numel()
+        tracing.count("render.hit_rays", hit_rays)
+        if not hit_rays:
             continue
         zs, sigmas, rgbs = [f_z[sel]], [f_sigma[sel]], [[c[sel] for c in f_rgb_c]]
         for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far) in zip(actors, bounds):
-            h_z, h_sigma, h_rgb_c = _human_branch(
-                spec_h, net_h, topo_h, o[sel], d[sel], near[sel], far[sel], verts_h, ts_h,
-                samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
+            with tracing.span("render.human_branch"):
+                h_z, h_sigma, h_rgb_c = _human_branch(
+                    spec_h, net_h, topo_h, o[sel], d[sel], near[sel], far[sel], verts_h, ts_h,
+                    samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
             hit = (near < far)[sel, None]
             zs.append(torch.where(hit, h_z, dummy_z))
             sigmas.append(torch.where(hit, h_sigma, -1e9))

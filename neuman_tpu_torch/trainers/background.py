@@ -13,7 +13,10 @@ the device. Both MLP applications of a step run the `nerf_mlp` kernel
 forward and the `nerf_mlp_bwd` kernel backward (`nerf_mlp_fn`) on the card,
 or, given `mlp=nerf_mlp_plain`, autograd of the plain forward.
 The step reads one scalar back (whether a net died); the skip itself is
-decided on the device.
+decided on the device. Its backward, Adam update and read-back are the
+spans `step.backward`, `step.optimizer` and `step.readback` of
+utils/tracing.py; `--profile_dir` traces `--profile_steps` steps from
+iteration 1 (`tracing.StepProfile`).
 """
 
 import os
@@ -32,6 +35,7 @@ from neuman_tpu_torch.parallel import mesh as pmesh
 from neuman_tpu_torch.render import renderer
 from neuman_tpu_torch.trainers import checkpoint as ckpt
 from neuman_tpu_torch.trainers import logging as tlog
+from neuman_tpu_torch.utils import tracing
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -178,7 +182,8 @@ def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn, mesh=None):
         total = c_rgb + f_rgb + (c_emp + f_emp if it >= opt.delay_iters else 0.0)
         aux["total_loss"] = total.detach()
         flat = [(k, n, p) for k, ps in named.items() for n, p in ps.items()]
-        g = torch.autograd.grad(total, [p for _, _, p in flat])
+        with tracing.span("step.backward"):
+            g = torch.autograd.grad(total, [p for _, _, p in flat])
         if mesh is not None:
             sums = [k for k in aux if "sigma" not in k]
             reduced = pmesh.all_reduce_flat(mesh, list(g) + [aux[k].detach() for k in sums])
@@ -192,8 +197,10 @@ def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn, mesh=None):
             grads[k][n] = gk
         dead = (aux["max_sigma_coarse"] <= 0.0) | (aux["max_sigma_fine"] <= 0.0)
         bad = dead | torch.isnan(aux["total_loss"])
-        optimizer.step(named, grads, state["opt_state"], lr, bad)
-        dead_now = bool(dead.item())  # the step's one read back
+        with tracing.span("step.optimizer"):
+            optimizer.step(named, grads, state["opt_state"], lr, bad)
+        with tracing.span("step.readback"):  # the step's one read back
+            dead_now = bool(dead.item())
         if dead_now:  # dead-network restart; the optimizer state is kept
             for net in state["params"].values():
                 net.nerf.reset_parameters(state["init_generator"])
@@ -269,16 +276,20 @@ class NeRFTrainer:
     def train(self):
         opt = self.opt
         push_every = max(1, min(100, opt.max_iter // 5))
-        while self.iteration < opt.max_iter:
-            if self.iteration % opt.valid_iter == 0:
-                self.validate()
-            metrics = self.train_step()
-            if self.is_main and self.iteration % push_every == 0:
-                scalars = {f"train_loss/{k}": float(v) for k, v in metrics.items() if "loss" in k}
-                scalars["params/lr"] = metrics["lr"]
-                scalars["params/penalize_empty_space"] = metrics["penalize_empty_space"]
-                scalars.update({f"perf/{k}": v for k, v in self.meter.rates().items()})
-                self.pusher.push_scalars(self.iteration, scalars)
+        with tracing.StepProfile(opt.profile_dir, opt.profile_steps, self.device, "bkg",
+                                 write=self.is_main) as profile:
+            while self.iteration < opt.max_iter:
+                if self.iteration % opt.valid_iter == 0:
+                    self.validate()
+                profile.before(self.iteration)
+                metrics = self.train_step()
+                profile.after(self.iteration)
+                if self.is_main and self.iteration % push_every == 0:
+                    scalars = {f"train_loss/{k}": float(v) for k, v in metrics.items() if "loss" in k}
+                    scalars["params/lr"] = metrics["lr"]
+                    scalars["params/penalize_empty_space"] = metrics["penalize_empty_space"]
+                    scalars.update({f"perf/{k}": v for k, v in self.meter.rates().items()})
+                    self.pusher.push_scalars(self.iteration, scalars)
         self.validate()
 
     def validate(self):

@@ -24,6 +24,12 @@ Trainable: `poses`, the canonical net and (unless train_mode is
 are frozen. Every MLP application and mesh query runs a hand-written
 kernel on the card (`KERNELS`); `PLAIN_FUNCTIONS` and `PLAIN` run the
 kernels' plain versions, to hold the kernels to.
+
+Spans of utils/tracing.py: the background trainer's `step.backward`,
+`step.optimizer` and `step.readback`, and `human.warp` (`vertex_forward`
+and the warp) and `human.lpips`; while a profiler records, the warp adds
+the most samples that share one closest face to `warp.face_pileup`.
+`--profile_dir` traces `--profile_steps` steps from iteration 1.
 """
 
 import dataclasses
@@ -57,6 +63,7 @@ from neuman_tpu_torch.utils.constants import (
     PATCH_SIZE,
     PATCH_SIZE_SQUARED,
 )
+from neuman_tpu_torch.utils import tracing
 
 LOSS_NAMES = [
     "fine_rgb_loss",
@@ -239,9 +246,15 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
                                       device=z.device))
         off = model.offset_nets[which](planes + [t_plane], offset_scale, cd, mlp=ops.offset)
         scene_id = ctx["scene_ids"][batch["cap_id"]]
-        verts, ts = hn.vertex_forward(model, body_model, da_smpl, ctx["scale"], scene_id)
-        flat = torch.stack([p.reshape(-1) for p in planes], dim=-1)  # [N, 3]
-        can_flat, _ = mesh_ops.warp_points_to_canonical_diff(flat, verts[0], ts[0], topo, **mesh_kw)
+        with tracing.span("human.warp"):
+            verts, ts = hn.vertex_forward(model, body_model, da_smpl, ctx["scale"], scene_id)
+            flat = torch.stack([p.reshape(-1) for p in planes], dim=-1)  # [N, 3]
+            can_flat, f_id = mesh_ops.warp_points_to_canonical_diff(flat, verts[0], ts[0], topo,
+                                                                    **mesh_kw)
+            if tracing.enabled():  # the most samples that share one closest face
+                tracing.count("warp.face_pileup", torch.zeros(
+                    topo.faces.shape[0], dtype=torch.int32, device=f_id.device).index_add_(
+                        0, f_id, torch.ones_like(f_id, dtype=torch.int32)).max())
         can_planes = [can_flat[:, a].reshape(r, s) + off[a] for a in range(3)]
         diffs = [p[:, 1:] - p[:, :-1] for p in can_planes]
         diffs = [torch.cat([p, p[:, -1:]], dim=1) for p in diffs]
@@ -401,7 +414,9 @@ def make_human_loss_fn(model, opt, ctx, parity_inject=None, ops=KERNELS, mesh=No
             if mesh is None or mesh.rank == 0:
                 as_img = lambda t: t[:PATCH_SIZE_SQUARED].reshape(
                     PATCH_SIZE, PATCH_SIZE, 3).permute(2, 0, 1)[None] * 2 - 1
-                d = lpips_module.lpips(ctx["lpips_params"], as_img(rgb_all), as_img(color_all))[0]
+                with tracing.span("human.lpips"):
+                    d = lpips_module.lpips(ctx["lpips_params"], as_img(rgb_all),
+                                           as_img(color_all))[0]
                 losses["lpips_loss"] = d * opt.penalize_lpips * batch["patch_counter"].float()
             else:
                 # rank 0 scores the patch; this rank's share is 0, but its loss
@@ -526,7 +541,8 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
         total, aux = loss_fn(batch, state["generator"], anneals)
         named = trained_params(model)
         flat = [(k, n, p) for k, ps in named.items() for n, p in ps.items()]
-        g = torch.autograd.grad(total, [p for _, _, p in flat], allow_unused=True)
+        with tracing.span("step.backward"):
+            g = torch.autograd.grad(total, [p for _, _, p in flat], allow_unused=True)
         grads = {k: {} for k in named}
         g = [torch.zeros_like(p) if gk is None else gk for (_, _, p), gk in zip(flat, g)]
         if mesh is not None:
@@ -545,8 +561,10 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
         mask, lrs = trainable_mask(model, opt.train_mode), lr_tree(model, anneals)
         heads = {k: _full_name(k, next(iter(ps))) for k, ps in named.items()}
         lr = {k: mask[n] * lrs[n] for k, n in heads.items()}
-        optimizer.step(named, grads, state["opt_state"], lr, bad)
-        dead_now = bool(dead.item())  # the step's one read back
+        with tracing.span("step.optimizer"):
+            optimizer.step(named, grads, state["opt_state"], lr, bad)
+        with tracing.span("step.readback"):  # the step's one read back
+            dead_now = bool(dead.item())
         if dead_now:  # fresh canonical and offset nets; the optimiser state is kept
             for net in (model.coarse_human_net, *model.offset_nets):
                 net.nerf.reset_parameters(state["init_generator"])
@@ -653,17 +671,21 @@ class HumanNeRFTrainer:
     def train(self):
         opt = self.opt
         push_every = max(1, min(100, opt.max_iter // 5))
-        while self.iteration < opt.max_iter:
-            if self.iteration % opt.valid_iter == 0:
-                self.validate()
-            metrics = self.train_step()
-            if self.is_main and self.iteration % push_every == 0:
-                scalars = {f"train_loss/{k}": float(v) for k, v in metrics.items()
-                           if "loss" in k or "reg" in k}
-                for k in ("lr", "offset_scale", "penalize_mask"):
-                    scalars[f"hyper_params/{k}"] = metrics[k]
-                scalars.update({f"perf/{k}": v for k, v in self.meter.rates().items()})
-                self.pusher.push_scalars(self.iteration, scalars)
+        with tracing.StepProfile(opt.profile_dir, opt.profile_steps, self.device, "human",
+                                 write=self.is_main) as profile:
+            while self.iteration < opt.max_iter:
+                if self.iteration % opt.valid_iter == 0:
+                    self.validate()
+                profile.before(self.iteration)
+                metrics = self.train_step()
+                profile.after(self.iteration)
+                if self.is_main and self.iteration % push_every == 0:
+                    scalars = {f"train_loss/{k}": float(v) for k, v in metrics.items()
+                               if "loss" in k or "reg" in k}
+                    for k in ("lr", "offset_scale", "penalize_mask"):
+                        scalars[f"hyper_params/{k}"] = metrics[k]
+                    scalars.update({f"perf/{k}": v for k, v in self.meter.rates().items()})
+                    self.pusher.push_scalars(self.iteration, scalars)
         self.validate()
 
     def validate(self):

@@ -132,6 +132,21 @@ def test_port_cli_outputs(port_runs, stage):
     assert trainer.iteration == 2
 
 
+@pytest.mark.parametrize("stage", ["bkg", "human"])
+def test_profile_dir_writes_a_trace_of_the_program_s_spans(port_runs, workdir, tmp_path, stage):
+    """--profile_dir: --profile_steps steps from iteration 1 run under
+    torch.profiler, and one chrome trace holds the program's spans."""
+    extra = ["--profile_dir", str(tmp_path / "prof"), "--profile_steps", "1"]
+    if stage == "human":
+        extra += ["--load_background", "port_bkg"]
+    ttrain.main(_argv(workdir, stage, f"port_prof_{stage}", *extra), device="cpu")
+    assert os.listdir(tmp_path / "prof") == [f"{stage}_steps_1-1.json"]
+    events = json.loads((tmp_path / "prof" / f"{stage}_steps_1-1.json").read_text())["traceEvents"]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    want = {"step.backward", "step.optimizer", "step.readback"}
+    assert want | ({"human.warp"} if stage == "human" else set()) <= spans
+
+
 def test_port_human_stage_keeps_the_loaded_background(port_runs):
     """Stage 2 froze the background it loaded: its checkpoint's background
     nets are stage 1's."""

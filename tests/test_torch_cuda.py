@@ -14,6 +14,7 @@ import torch
 
 from neuman_tpu_torch.models import embedder, nerf
 from neuman_tpu_torch.models.smpl import body_proxy_smpl_model
+from neuman_tpu_torch.ops import kernels as kernel_registry
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops.kernels import knn as kknn
 from neuman_tpu_torch.ops.kernels import meshquery as kmq
@@ -60,9 +61,9 @@ def test_nerf_mlp_kernel_matches_plain(cuda, mode, width):
     per_sample = mode.startswith("per_sample")
     spec, net = _net(mode.split("-")[1], width, cuda)
     planes, kw = _mlp_inputs(spec, net, per_sample, 37, 24, cuda)  # N not a tile multiple
-    before = kmlp.nerf_mlp.launches
+    before = kernel_registry.launches()
     sigma, rgb = kmlp.nerf_mlp(spec, net, *planes, **kw)
-    assert kmlp.nerf_mlp.launches == before + 1
+    assert kernel_registry.launches(before)["nerf_mlp"] == 1
     ref_s, ref_rgb = kmlp.nerf_mlp_plain(spec, net, *planes, **kw)
     # f32 products summed in another order than cuBLAS
     torch.testing.assert_close(sigma, ref_s, atol=1e-4, rtol=0)
@@ -120,9 +121,9 @@ def test_nerf_mlp_bwd_kernel_matches_plain(cuda, mode, dtype, monkeypatch):
     per_sample = mode.startswith("per_sample")
     spec, net = _net(mode.split("-")[1], 256, cuda)
     run = _bwd_case(spec, net, per_sample, 37, 24, cuda, dtype)
-    before = kvjp.nerf_mlp_bwd.launches
+    before = kernel_registry.launches()
     got = _flat(run(kvjp.nerf_mlp_bwd))
-    assert kvjp.nerf_mlp_bwd.launches == before + 1
+    assert kernel_registry.launches(before)["nerf_mlp_bwd"] == 1
     again = _flat(run(kvjp.nerf_mlp_bwd))
     ref = _flat(run(kvjp.nerf_mlp_bwd_plain))
     # f32: sums over the samples in another order. bf16: the same rounding
@@ -212,9 +213,9 @@ def test_ericson_kernel_matches_plain(cuda, stride):
     pts = (body.v_template[torch.randint(0, body.num_verts, (4096,), generator=g).to(cuda)]
            + 0.05 * torch.randn(4096, 3, generator=g).to(cuda))
     ops = mesh_ops.candidate_operands(pts, body.v_template, topo, k=4, knn_stride=stride)
-    before = kmq.ericson_select.launches
+    before = kernel_registry.launches()
     d2, f_id, cp = kmq.ericson_select(*ops)
-    assert kmq.ericson_select.launches == before + 1
+    assert kernel_registry.launches(before)["ericson_select"] == 1
     rd2, rf, rcp = kmq.ericson_select_plain(*ops)
     # --fmad=false: the same IEEE operations as the plain version
     torch.testing.assert_close(d2, rd2, atol=1e-6, rtol=0)
@@ -272,13 +273,14 @@ def test_offset_mlp_kernels_match_plain(cuda, net, dtype, shape, monkeypatch):
     monkeypatch.setattr(koff, "CHUNK_SAMPLES", chunk)
     spec, net = _offset_case_net(net, cuda)
     axes, cot = _offset_inputs(r, s, cuda)
-    before = (koff.offset_mlp.launches, koff.offset_mlp_bwd.launches)
+    before = kernel_registry.launches()
     out = torch.stack(koff.offset_mlp(spec, net, axes, dtype))
     ref = torch.stack(koff.offset_mlp_plain(spec, net, axes, dtype))
     flat = lambda o: [t for wb in o[0] for t in wb] + list(o[1])
     got = flat(koff.offset_mlp_bwd(spec, net, axes, cot, dtype))
     again = flat(koff.offset_mlp_bwd(spec, net, axes, cot, dtype))
-    assert (koff.offset_mlp.launches, koff.offset_mlp_bwd.launches) == (before[0] + 1, before[1] + 2)
+    counts = kernel_registry.launches(before)
+    assert (counts["offset_mlp"], counts["offset_mlp_bwd"]) == (1, 2)
     want = flat(koff.offset_mlp_bwd_plain(spec, net, axes, cot, dtype))
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
@@ -324,9 +326,9 @@ def test_bucketed_knn_kernel_matches_plain(cuda, case):
     g = torch.Generator().manual_seed(5)
     pts = (verts[torch.randint(0, v, (1000,), generator=g).to(cuda)]
            + 0.05 * torch.randn(1000, 3, generator=g).to(cuda))
-    before = kknn.bucketed_knn.launches
+    before = kernel_registry.launches()
     idx, score = kknn.bucketed_knn(pts, verts, k)
-    assert kknn.bucketed_knn.launches == before + 1
+    assert kernel_registry.launches(before)["bucketed_knn"] == 1
     ref_idx, ref_score = kknn.bucketed_knn_plain(pts, verts, k)
     assert idx.dtype == torch.int32 and idx.shape == (1000, k)
     assert ((idx >= 0) & (idx < v)).all()
@@ -374,9 +376,9 @@ def test_bucketed_knn_kernel_over_the_shared_budget(cuda, k):
     g = torch.Generator().manual_seed(11)
     pts = (verts[torch.randint(0, verts.shape[0], (1001,), generator=g).to(cuda)]
            + 0.05 * torch.randn(1001, 3, generator=g).to(cuda))
-    before = kknn.bucketed_knn.launches
+    before = kernel_registry.launches()
     idx, score = kknn.bucketed_knn(pts, verts, k)
-    assert kknn.bucketed_knn.launches == before + 1
+    assert kernel_registry.launches(before)["bucketed_knn"] == 1
     ref_idx, ref_score = kknn.bucketed_knn_plain(pts, verts, k)
     assert torch.equal(idx, ref_idx) and torch.equal(score, ref_score)
 
@@ -437,9 +439,9 @@ def test_ericson_kernel_slices_equal_plain(cuda, num_cands, stride):
         assert torch.equal(d2, rd2) and torch.equal(f_id, rf), slices
         assert torch.equal(cp, torch.stack(rcp)), slices
     assert torch.isinf(d2[stride:2 * stride]).all() and (f_id[stride:2 * stride] == 0).all()
-    before = kmq.ericson_select.launches
+    before = kernel_registry.launches()
     d2, f_id, cp = kmq.ericson_select(p3, rows9, cand, stride)
-    assert kmq.ericson_select.launches == before + 1
+    assert kernel_registry.launches(before)["ericson_select"] == 1
     assert torch.equal(d2, rd2) and torch.equal(f_id, rf)
 
 
@@ -530,10 +532,10 @@ def test_signed_select_kernel_matches_plain_and_unsigned(cuda, stride, tables):
     tabs = mesh_ops.build_query_tables(body.v_template, topo)
     knn_idx, st = mesh_ops._query_knn(pts, body.v_template, 4, stride)
     args = (knn_idx, tabs.incidence, tabs.vtab9, tabs.vntab9, st)
-    before = kmq.ericson_signed_select.launches
+    before = kernel_registry.launches()
     p3 = pts.T.contiguous().requires_grad_(True)
     sd, f_id, cp = kmq.ericson_signed_select_tables(p3, *args)
-    assert kmq.ericson_signed_select.launches == before + 1
+    assert kernel_registry.launches(before)["ericson_signed_select"] == 1
     sd.sum().backward()
     grad, p3.grad = p3.grad, None
     rsd, rf, rcp = kmq.ericson_signed_select_tables(p3, *args, plain=True)
@@ -653,9 +655,9 @@ def test_render_frames_kernels_match_plain(cuda, frame):
             [body.faces, body.faces], [ts, ts2], cuda, importance_samples_per_ray=16,
             use_kernels=use, **kw),
     }[frame]
-    before = kmlp.nerf_mlp.launches
+    before = kernel_registry.launches()
     out, ref = render(True), render(False)
-    assert kmlp.nerf_mlp.launches > before
+    assert kernel_registry.launches(before)["nerf_mlp"] > 0
     assert out[0].shape == (h, w, 3) and all(torch.isfinite(x).all() for x in out)
     psnr = -10.0 * math.log10(max(torch.mean((out[0] - ref[0]) ** 2).item(), 1e-20))
     assert psnr >= 40.0, psnr
@@ -698,9 +700,8 @@ def test_cli_trains_both_stages_through_the_kernels(cuda, tmp_path, monkeypatch)
     from neuman_tpu_torch import train as ttrain
     from neuman_tpu_torch.tools.synthetic_scene import build_synthetic_scene
 
-    counters = {"nerf_mlp": kmlp.nerf_mlp, "nerf_mlp_bwd": kvjp.nerf_mlp_bwd,
-                "offset_mlp": koff.offset_mlp, "offset_mlp_bwd": koff.offset_mlp_bwd,
-                "ericson_select": kmq.ericson_select, "bucketed_knn": kknn.bucketed_knn}
+    human = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
+             "bucketed_knn")
     scene_dir = build_synthetic_scene(tmp_path / "data_root")
     monkeypatch.setenv("NEUMAN_DATA_ROOT", str(tmp_path / "data_root" / "data"))
     net = ["--nerf_depth", "6", "--nerf_width", "64", "--samples_per_ray", "16",
@@ -709,13 +710,12 @@ def test_cli_trains_both_stages_through_the_kernels(cuda, tmp_path, monkeypatch)
     stages = ((["--train_mode", "bkg", "--name", "bkg", "--rays_per_batch", "256"],
                ("nerf_mlp", "nerf_mlp_bwd")),
               (["--train_mode", "smpl_and_offset", "--name", "human", "--load_background", "bkg",
-                "--rays_per_batch", "1056"], tuple(counters)))
+                "--rays_per_batch", "1056"], human))
     for argv, kernels in stages:
-        for c in counters.values():
-            c.launches = 0
+        before = kernel_registry.launches()
         trainer = ttrain.main(argv + net, device="cuda")
-        assert all(counters[k].launches > 0 for k in kernels), {
-            k: c.launches for k, c in counters.items()}
+        counts = kernel_registry.launches(before)
+        assert all(counts[k] > 0 for k in kernels), counts
         assert os.path.isfile(os.path.join(trainer.opt.out, "checkpoint.npz"))
 
 
@@ -766,13 +766,11 @@ def test_render_command_lines_launch_the_kernels(cuda, tmp_path, monkeypatch):
             (render_reposing.main, ["--mocap_path", mocap], warp, "reposing/scene", 2),
             (render_gathering.main, ["--actors", "seattle", "citron"], warp,
              "gathering/dance_together", 2))
-    counters = {"nerf_mlp": kmlp.nerf_mlp, "ericson_select": kmq.ericson_select}
     for main, argv, kernels, what, frames in runs:
-        for c in counters.values():
-            c.launches = 0
+        before = kernel_registry.launches()
         main(argv + common)
-        assert all(counters[k].launches > 0 for k in kernels), (what, {
-            k: c.launches for k, c in counters.items()})
+        counts = kernel_registry.launches(before)
+        assert all(counts[k] > 0 for k in kernels), (what, counts)
         names = sorted(os.listdir(tmp_path / "demo" / what))
         assert len(names) == frames and all(n.startswith("out_") for n in names)
         assert all(png.read_png(str(tmp_path / "demo" / what / n)).shape == (48, 64, 3)

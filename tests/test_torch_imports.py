@@ -90,6 +90,7 @@ MODULES = (
     "neuman_tpu_torch.tools.bench_step_ablate",
     "neuman_tpu_torch.tools.bench_step_windows",
     "neuman_tpu_torch.utils.card",
+    "neuman_tpu_torch.utils.tracing",
     "chip_smoke",
 )
 
