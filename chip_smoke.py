@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc builds the six kernel libraries (seven kernels) from
+  2. build: nvcc builds the seven kernel libraries (eight kernels) from
      neuman_tpu_torch/csrc/ (sm_90a), all started together; then each
      kernel of the nerf_mlp and offset_mlp pairs (all on mlp_hopper.cuh),
      of bucketed_knn and of ericson_select with its registers, spill bytes,
@@ -158,7 +158,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      against its plain version run over 4,096 rays at a time; then
      --break-stage render at --rays 1024 with the render alone (null keys,
      "failed:render:RuntimeError", exit code 1) and `bench_step_parts query`
-     (the signed-distance query's six forms at N=196,608).
+     (the signed-distance query's six forms at N=196,608);
+ 20. hit: the hit_test kernel (geometry_guided_near_far on the card) vs its
+     plain version on SMPL's vertex count (V=6,890, the proxy's vertices
+     taken evenly), geo_threshold 0.06, a 1280x720 frame 3 away (focal
+     1000): one 2,048-ray chunk and the whole frame at once (the plain
+     version in 2,048-ray chunks), the hits and the largest near/far gap
+     where both hit; the kernel's ms (CUDA events, and the profiler's
+     device time) against the plain version's and the bound.
 Then one JSON line of per-kernel results (`ms` by CUDA events around the
 wrapper's calls; for the three mesh kernels also `device_ms`, the kernel's
 own time by torch.profiler, else null; `launches_by_path` also lists phase
@@ -274,7 +281,7 @@ CLI_TIMED_STEPS = 5
 CLI_FLAGS = ()
 CLI_BKG_KERNELS = ("nerf_mlp", "nerf_mlp_bwd")
 CLI_HUMAN_KERNELS = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
-                     "bucketed_knn")
+                     "bucketed_knn", "hit_test")
 
 # phase 14: the render command lines on phase 13's scene and stage-2
 # checkpoint: 360 orbits of 4 cameras, a 4-frame motion for the reposing,
@@ -354,6 +361,21 @@ HBM_BYTES_PER_S = 3.35e12
 # closest point on a triangle (Ericson, RTCD 5.1.5): ~60 f32 operations
 # for one point and one candidate
 ERICSON_OPS_PER_TEST = 60
+# the hit test: the fewest FP32 instructions a ray-vertex pair needs (the
+# expanded form with |v|^2, |o|^2 and d.o taken once: 3 FFMA for z0, 1 FADD
+# and 3 FFMA for |v - o|^2, 1 FFMA for h^2, the test; csrc/hit_test.cu
+# spends 16 for its accuracy), each one lane of the f32 peak's FMA (2
+# operations), at SMPL's V and a 720p frame; every pair tested
+HIT_INSTR_PER_PAIR = 9
+HIT_VERTS = 6890
+HIT_HW = (720, 1280)
+HIT_CHUNK = 2048
+HIT_GEO = 0.06
+# kernel and plain may disagree (a hit on one side only, or near or far
+# more than HIT_GAP apart) only where the plain version's f32 cannot
+# settle the test (a ray grazing a sphere): at most this share of the rays
+HIT_GAP = 1e-3
+HIT_FLIP_SHARE = 1e-4
 
 
 def log(phase, **fields):
@@ -491,12 +513,12 @@ def phase_card():
 
 def phase_build():
     """One nvcc per source, all started together."""
-    from neuman_tpu_torch.ops.kernels import (_build, knn, meshquery, nerf_mlp, nerf_mlp_vjp,
-                                              offset_mlp)
+    from neuman_tpu_torch.ops.kernels import (_build, hit_test, knn, meshquery, nerf_mlp,
+                                              nerf_mlp_vjp, offset_mlp)
 
     t0 = time.perf_counter()
     libs = (nerf_mlp_vjp._lib, offset_mlp._lib_bwd, nerf_mlp._lib, offset_mlp._lib_fwd,
-            meshquery._lib, knn._lib)
+            meshquery._lib, knn._lib, hit_test._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -819,7 +841,7 @@ def phase_slice(model, spec, body, device, seed):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = _launches(counted_from)
-    launches = {k: counts[k] for k in ("nerf_mlp", "ericson_select")}
+    launches = {k: counts[k] for k in ("nerf_mlp", "ericson_select", "hit_test")}
 
     t0 = time.perf_counter()
     p_rgb, _, _ = render(False)
@@ -1915,6 +1937,56 @@ def phase_signed(verts, topo, seed):
     return results
 
 
+def phase_hit(body, device):
+    """The hit_test kernel against its plain version at a 2,048-ray chunk and
+    a whole 1280x720 frame, V=6,890; {rays: (largest near/far gap where both
+    hit, kernel ms, plain ms, bound ms, "operations", kernel device ms)}."""
+    import torch
+    from neuman_tpu_torch.ops import rays as ray_ops
+    from neuman_tpu_torch.ops.kernels import hit_test
+    from neuman_tpu_torch.render import renderer
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    v = body.v_template
+    verts = v[torch.linspace(0, v.shape[0] - 1, HIT_VERTS, device=v.device).round().long()]
+    c2w = [[1.0, 0, 0, 0], [0, -1.0, 0, 0], [0, 0, -1.0, 3.0], [0, 0, 0, 1.0]]
+    h, w = HIT_HW
+    origins, dirs = renderer.cap_rays(Capture(h, w, 1000.0, c2w, near=0.5, far=6.0), device)
+    # the chunk: the frame's rows through the body's middle
+    mid = (h // 2) * w + (w - HIT_CHUNK) // 2
+    results = {}
+    for o, d in ((origins[mid:mid + HIT_CHUNK], dirs[mid:mid + HIT_CHUNK]), (origins, dirs)):
+        r = o.shape[0]
+        run_k = lambda: ray_ops.geometry_guided_near_far(o, d, verts, HIT_GEO)
+        run_p = lambda: [ray_ops.geometry_guided_near_far_plain(oc, dc, verts, HIT_GEO)
+                         for oc, dc in zip(o.split(HIT_CHUNK), d.split(HIT_CHUNK))]
+        (kn, kf), plain = run_k(), run_p()
+        pn, pf = (torch.cat(t) for t in zip(*plain))
+        torch.cuda.synchronize()
+        hk, hp = kn < kf, pn < pf
+        both = hk & hp
+        gap = torch.maximum((kn - pn).abs(), (kf - pf).abs())[both]
+        err = float(gap.max())
+        flips = int((hk != hp).sum())
+        apart = int((gap > HIT_GAP).sum())
+        k_ms = cuda_ms_min(run_k) if r == HIT_CHUNK else cuda_ms(run_k, iters=10, warmup=3)
+        k_dev = device_ms(run_k, ("hit_test_kernel", "hit_combine_kernel"))
+        p_ms = cuda_ms(run_p, iters=3, warmup=1)
+        b_ms, b_by = bound_ms(2 * HIT_INSTR_PER_PAIR * r * HIT_VERTS, 32 * r + 12 * HIT_VERTS,
+                              "f32")
+        ok = int(hk.sum()) > 0 and flips + apart <= HIT_FLIP_SHARE * r
+        log("hit", R=r, V=HIT_VERTS, hits=int(hk.sum()), plain_hits=int(hp.sum()), flips=flips,
+            apart=apart, max_abs_err=f"{err:.3e}", kernel_ms=f"{k_ms:.4f}",
+            kernel_device_ms=f"{k_dev:.4f}", plain_ms=f"{p_ms:.3f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by,
+            plan=json.dumps(hit_test.hit_plan(r, HIT_VERTS, sms), separators=(",", ":")),
+            ok=ok)
+        if not ok:
+            raise RuntimeError(f"hit_test R={r}: no hits, or the kernel disagrees with plain")
+        results[r] = (err, k_ms, p_ms, b_ms, b_by, k_dev)
+    return results
+
+
 def phase_renders(model, spec, body, device, seed):
     """The human-only and multi-person frames at 270x480 in bf16 through the
     kernels, each against the same renderer on the plain path (>= 40 dB, the
@@ -1973,7 +2045,8 @@ def phase_renders(model, spec, body, device, seed):
             shown = ((out[0] - bkg_only).abs().amax(-1) > 1e-2).float().mean().item()
         else:
             shown = (out[2] > 0.5).float().mean().item()
-        expect = ("nerf_mlp",) if name == "smpl_canonical" else ("nerf_mlp", "ericson_select")
+        expect = (("nerf_mlp", "hit_test") if name == "smpl_canonical"
+                  else ("nerf_mlp", "ericson_select", "hit_test"))
         ok = (tuple(out[0].shape) == (h, w, 3) and all(bool(torch.isfinite(t).all()) for t in out)
               and psnr >= FRAME_MIN_PSNR and shown > 0.01
               and all(launches[name].get(k, 0) > 0 for k in expect))
@@ -2204,12 +2277,12 @@ def _render_cli_runs(root, scene_dir, seed, work, trajectory, mocap_frames, gath
                                     gather_mocap_frames, seed + 1)
     common = ["--scene_dir", scene_dir, "--weights_path", weights, *RENDER_CLI_FLAGS]
     orbit = ["--trajectory_resolution", str(trajectory)]
-    warp = ("nerf_mlp", "ericson_select")
+    warp = ("nerf_mlp", "ericson_select", "hit_test")
     return common, (
         ("test_views", "render_test_views", ["--lpips_weights", lpips_path], warp, 1,
          f"test_views/{name}"),
-        ("canonical_360", "render_360", ["--mode", "canonical_360", *orbit], ("nerf_mlp",),
-         trajectory, f"canonical_360/{name}"),
+        ("canonical_360", "render_360", ["--mode", "canonical_360", *orbit],
+         ("nerf_mlp", "hit_test"), trajectory, f"canonical_360/{name}"),
         ("posed_360", "render_360", ["--mode", "posed_360", *orbit], warp, trajectory,
          f"posed_360/{name}"),
         ("reposing", "render_reposing", ["--mocap_path", mocap], warp, mocap_frames,
@@ -2686,8 +2759,10 @@ def phase_render_parallel(device, seed, root, scene_dir, card):
     launches, scores = {}, None
     for (what, _, _, kernels, frames, _), eq in zip(runs, results):
         faults = dryrun.render_faults(eq)
-        # nerf_mlp on every rank; ericson_select on every rank whose share had hits
-        launched = all(r.get("nerf_mlp", 0) > 0 for r in eq["launches"]) and all(
+        # nerf_mlp and hit_test on every rank; ericson_select on every rank
+        # whose share had hits
+        launched = all(r.get("nerf_mlp", 0) > 0 and r.get("hit_test", 0) > 0
+                       for r in eq["launches"]) and all(
             r.get("ericson_select", 0) > 0 for r, rays in zip(eq["launches"], eq["human_rays"])
             if "ericson_select" in kernels and rays > 0)
         unsharded = any("UNSHARDED" in w for caught in eq["warnings"] for w in caught)
@@ -2893,7 +2968,8 @@ def phase_human(model, spec, body, device, seed):
 
 
 PHASES = ("mlp", "mesh", "slice", "bwd", "train", "offset", "knn", "human", "tape", "signed",
-          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope", "render_parallel", "bench")
+          "renders", "cli", "render_cli", "preprocess", "parallel", "envelope", "render_parallel", "bench",
+          "hit")
 
 
 def main(argv=None):
@@ -2946,6 +3022,7 @@ def main(argv=None):
         "render_parallel": lambda: phase_render_parallel(device, args.seed, cli_root,
                                                          out["cli"][2], card),
         "bench": lambda: phase_bench(device),
+        "hit": lambda: phase_hit(body, device),
     }
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = {}
@@ -2965,7 +3042,7 @@ def main(argv=None):
                                                             "renders"))
     cli, render_cli, parallel = out["cli"][0], out["render_cli"], out["parallel"]
     envelope, render_parallel = out["envelope"], out["render_parallel"]
-    bench = out["bench"]
+    bench, hit = out["bench"], out["hit"]
 
     # timings (CUDA events; the three mesh kernels also by the profiler's
     # device time, device_ms): nerf_mlp the render path's bf16 per-ray case (phase 3),
@@ -3031,6 +3108,8 @@ def main(argv=None):
               by_path("bucketed_knn"), max(r[0] for r in knn.values()), knn[KNN_QUERIES[0]][1:]),
         entry("ericson_signed_select", "ericson_select", "neuman_tpu/ops/pallas/meshquery.py:191",
               by_path("ericson_signed_select"), max(r[0] for r in signed.values()), signed[4][1:]),
+        entry("hit_test", "hit_test", "none (plain jnp: neuman_tpu/ops/rays.py:181)",
+              by_path("hit_test"), max(r[0] for r in hit.values()), hit[HIT_CHUNK][1:]),
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError("a kernel was launched on no main path: "

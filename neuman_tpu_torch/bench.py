@@ -100,10 +100,10 @@ STAGE_KEYS = {
 STAGE_KERNELS = {
     "render": ("nerf_mlp",),
     "human_step": ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
-                   "bucketed_knn"),
+                   "bucketed_knn", "hit_test"),
     "bkg_step": ("nerf_mlp", "nerf_mlp_bwd"),
-    "hybrid_render": ("nerf_mlp", "ericson_select"),
-    "hybrid_frame": ("nerf_mlp", "ericson_select"),
+    "hybrid_render": ("nerf_mlp", "ericson_select", "hit_test"),
+    "hybrid_frame": ("nerf_mlp", "ericson_select", "hit_test"),
 }
 
 

@@ -2,6 +2,7 @@
 
 import torch
 
+from neuman_tpu_torch.ops.kernels.hit_test import hit_test
 from neuman_tpu_torch.ops.precision import matmul_f32
 from neuman_tpu_torch.utils.constants import PERTURB_EPSILON
 
@@ -68,7 +69,20 @@ def geometry_guided_near_far(origin, direction, verts, geo_threshold):
 
     origin/direction [R, 3], verts [V, 3]. Rays that miss every sphere of
     radius geo_threshold get near=+inf, far=-inf (near >= far <=> miss).
+    CUDA tensors go to the `hit_test` kernel (ops/kernels/hit_test.py),
+    CPU tensors to `geometry_guided_near_far_plain`.
     """
+    if origin.is_cuda:
+        return hit_test(origin, direction, verts, geo_threshold)
+    if origin.device.type != "cpu":
+        raise ValueError(f"geometry_guided_near_far: no kernel for device {origin.device}")
+    return geometry_guided_near_far_plain(origin, direction, verts, geo_threshold)
+
+
+def geometry_guided_near_far_plain(origin, direction, verts, geo_threshold):
+    """`geometry_guided_near_far` in plain PyTorch, as the JAX function
+    computes it (two [R, 3] x [3, V] products and [R, V] passes): the CPU
+    path, and the kernel's plain twin on the card (`use_kernels=False`)."""
     z0 = matmul_f32(direction, verts.T) - (direction * origin).sum(-1, keepdim=True)
     v2 = (verts * verts).sum(-1)[None, :]
     o2 = (origin * origin).sum(-1, keepdim=True)

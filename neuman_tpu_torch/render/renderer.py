@@ -14,10 +14,10 @@ samples with their background samples by z, and are scattered back.
 the same way: misses get the constant or background pixel, and the human
 branches run on the hit rays only (for several actors, the union of theirs).
 
-Per chunk the MLPs run through the `nerf_mlp` kernel and the warp's
-closest-point query through the `ericson_select` kernel; `use_kernels=False`
-runs their plain PyTorch versions instead (the reference the card checks
-the kernels against).
+Per chunk the MLPs run through the `nerf_mlp` kernel, the warp's
+closest-point query through the `ericson_select` kernel and the hit test
+through the `hit_test` kernel; `use_kernels=False` runs their plain PyTorch
+versions instead (the reference the card checks the kernels against).
 
 The spans of utils/tracing.py mark a frame's hit tests (`render.hit_test`),
 the host's wait for each hit list (`render.hit_sync`: `torch.nonzero`
@@ -47,6 +47,11 @@ from neuman_tpu_torch.utils import tracing
 
 def _mlp(use_kernels):
     return nerf_mlp if use_kernels else nerf_mlp_plain
+
+
+def _near_far(use_kernels):
+    return (ray_ops.geometry_guided_near_far if use_kernels
+            else ray_ops.geometry_guided_near_far_plain)
 
 
 def _shard_mesh(mesh, chunk):
@@ -170,7 +175,7 @@ def _hybrid_chunk(spec, model, topology, origins, dirs, bkg_near, bkg_far, posed
         bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
         compute_dtype, use_kernels, dir_chunk=(dirs, slice(None)),
     )
-    near, far = ray_ops.geometry_guided_near_far(origins, dirs, posed_verts, geo_threshold)
+    near, far = _near_far(use_kernels)(origins, dirs, posed_verts, geo_threshold)
     human = _human_branch(
         spec.human, model.coarse_human_net.nerf, topology, origins, dirs, near, far,
         posed_verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels,
@@ -266,7 +271,7 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
         # the human branch runs only on the chunk's rays that pass near the body
         with tracing.span("render.hit_test"):
-            near, far = ray_ops.geometry_guided_near_far(o, d, verts, geo_threshold)
+            near, far = _near_far(use_kernels)(o, d, verts, geo_threshold)
         with tracing.span("render.hit_sync"):  # the host waits for the hit test
             sel = torch.nonzero(near < far).squeeze(1)
             hit_rays = sel.numel()
@@ -314,14 +319,21 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     depth = torch.zeros(total, device=device)
     acc = torch.zeros(total, device=device)
     mesh = _shard_mesh(mesh, rays_per_batch)
-    # the hit test holds [rays, V] distances: chunk by chunk, like the branch
     rows = ChunkRows(total, rays_per_batch, mesh, device)
-    near = torch.empty(rows.local, device=device)
-    far = torch.empty(rows.local, device=device)
     with tracing.span("render.hit_test"):  # one span over the loop: nothing else runs in it
-        for src, dst, _, _ in rows:
-            near[dst], far[dst] = ray_ops.geometry_guided_near_far(origins[src], dirs[src], verts,
-                                                                   geo_threshold)
+        if use_kernels and origins.is_cuda:
+            # the kernel holds no [rays, V] distances: this rank's rows at once
+            mine = (slice(None) if mesh is None
+                    else torch.cat([src for src, _, _, _ in rows]))
+            near, far = ray_ops.geometry_guided_near_far(origins[mine], dirs[mine], verts,
+                                                         geo_threshold)
+        else:
+            # the plain version holds [rays, V] distances: chunk by chunk
+            near = torch.empty(rows.local, device=device)
+            far = torch.empty(rows.local, device=device)
+            for src, dst, _, _ in rows:
+                near[dst], far[dst] = _near_far(use_kernels)(origins[src], dirs[src], verts,
+                                                             geo_threshold)
     near, far = rows.gather(near, far)
     with tracing.span("render.hit_sync"):  # the host waits for the hit test
         hits = torch.nonzero(near < far).squeeze(1)
@@ -388,8 +400,7 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
         rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
         with tracing.span("render.hit_test"):
-            bounds = [ray_ops.geometry_guided_near_far(o, d, a[3], geo_threshold)
-                      for a in actors]
+            bounds = [_near_far(use_kernels)(o, d, a[3], geo_threshold) for a in actors]
         any_hit = torch.zeros(n, dtype=torch.bool, device=device)
         for near, far in bounds:
             any_hit |= near < far

@@ -21,6 +21,9 @@ from neuman_tpu_torch.ops.kernels import meshquery as kmq
 from neuman_tpu_torch.ops.kernels import nerf_mlp as kmlp
 from neuman_tpu_torch.ops.kernels import nerf_mlp_vjp as kvjp
 from neuman_tpu_torch.ops.kernels import offset_mlp as koff
+from neuman_tpu_torch.ops.kernels import hit_test as khit
+
+import test_torch_hit_test as hit_case  # tests/ is on sys.path (pytest's rootdir-less import)
 
 torch.set_num_threads(1)
 
@@ -613,6 +616,56 @@ def test_signed_select_tables_kernel_equal_plain(cuda, big_tables, k, stride):
     assert (sd < 0).any() and (sd > 0).any()
 
 
+@pytest.mark.parametrize("name", hit_case.CASES)
+def test_hit_test_kernel_against_plain_and_f64(cuda, name, monkeypatch):
+    """The hit test kernel on each case of tests/test_torch_hit_test.py at
+    full size (a 2,048-ray chunk and a 1280x720 frame on V=6,890, V=10,242,
+    a ragged R, an all-miss chunk, a camera inside a sphere, the human
+    batch's 1,536 rays, a camera 20 away): its hits equal an f64 computation's outside the
+    rays f32 cannot settle, it flips no more hits than the plain version
+    and its near and far lie no further from f64; it equals the kernel's
+    arithmetic restated (`kernel_model`) bit for bit, on up to 4,096 rays,
+    and every plan of slices gives the same near and far."""
+    from neuman_tpu_torch.ops import rays as ray_ops
+
+    case = hit_case.hit_cases(device=cuda)[name]
+    o, d, v, g = case
+    before = kernel_registry.launches()
+    got = ray_ops.geometry_guided_near_far(o, d, v, g)
+    assert kernel_registry.launches(before)["hit_test"] == 1
+    plain = [torch.cat(t) for t in zip(*(
+        ray_ops.geometry_guided_near_far_plain(oc, dc, v, g)
+        for oc, dc in zip(o.split(2048), d.split(2048))))]
+    hit_case.check_case(name, got, plain, case)
+    pick = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(1))[:4096]
+    pick = pick.to(cuda)
+    model = hit_case.kernel_model(o[pick], d[pick], v, g)
+    assert torch.equal(got[0][pick], model[0]) and torch.equal(got[1][pick], model[1])
+    if o.shape[0] <= 4096:
+        r, nv = o.shape[0], v.shape[0]
+        for slices in (1, 2, 7, -(-nv // 64)):
+            plan = {"slices": -(-nv // -(-nv // slices)), "slice_verts": -(-nv // slices)}
+            monkeypatch.setattr(khit, "hit_plan", lambda *_, plan=plan: plan)
+            again = khit.hit_test(o, d, v, g)
+            assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), (slices, r)
+
+
+def test_hit_test_kernel_refuses_what_it_cannot_take(cuda, monkeypatch):
+    o = torch.zeros(8, 3, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        khit.hit_test(o.double(), o, o, 0.1)
+    with pytest.raises(ValueError, match="origins"):
+        khit.hit_test(o, o[:4], o, 0.1)
+    with monkeypatch.context() as m:
+        m.setattr(khit, "hit_plan", lambda *_: {"slices": 9, "slice_verts": 1})
+        with pytest.raises(ValueError, match="bad plan"):
+            khit.hit_test(o, o, o, 0.1)
+    near, far = khit.hit_test(o[:0], o[:0], o, 0.1)
+    assert near.shape == (0,) and far.shape == (0,)
+    near, far = khit.hit_test(o + torch.tensor([0.0, 0.0, 1.0], device=cuda), o + 1.0, o[:0], 0.1)
+    assert torch.isinf(near).all() and (near > 0).all() and (far < 0).all()
+
+
 @pytest.mark.parametrize("frame", ["smpl_posed", "smpl_canonical", "multi_persons"])
 def test_render_frames_kernels_match_plain(cuda, frame):
     """The human-only and multi-person frames through the kernels against
@@ -656,8 +709,11 @@ def test_render_frames_kernels_match_plain(cuda, frame):
             use_kernels=use, **kw),
     }[frame]
     before = kernel_registry.launches()
-    out, ref = render(True), render(False)
-    assert kernel_registry.launches(before)["nerf_mlp"] > 0
+    out = render(True)
+    counts = kernel_registry.launches(before)
+    ref = render(False)
+    assert counts["nerf_mlp"] > 0 and counts["hit_test"] > 0
+    assert kernel_registry.launches(before) == counts  # use_kernels=False launches none
     assert out[0].shape == (h, w, 3) and all(torch.isfinite(x).all() for x in out)
     psnr = -10.0 * math.log10(max(torch.mean((out[0] - ref[0]) ** 2).item(), 1e-20))
     assert psnr >= 40.0, psnr
@@ -701,7 +757,7 @@ def test_cli_trains_both_stages_through_the_kernels(cuda, tmp_path, monkeypatch)
     from neuman_tpu_torch.tools.synthetic_scene import build_synthetic_scene
 
     human = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
-             "bucketed_knn")
+             "bucketed_knn", "hit_test")
     scene_dir = build_synthetic_scene(tmp_path / "data_root")
     monkeypatch.setenv("NEUMAN_DATA_ROOT", str(tmp_path / "data_root" / "data"))
     net = ["--nerf_depth", "6", "--nerf_width", "64", "--samples_per_ray", "16",
@@ -757,10 +813,10 @@ def test_render_command_lines_launch_the_kernels(cuda, tmp_path, monkeypatch):
     common = ["--scene_dir", scene_dir, "--weights_path", weights, "--nerf_depth", "6",
               "--nerf_width", "64", "--samples_per_ray", "16", "--importance_samples_per_ray",
               "16", "--rays_per_batch", "1024"]
-    warp = ("nerf_mlp", "ericson_select")
+    warp = ("nerf_mlp", "ericson_select", "hit_test")
     runs = ((render_test_views.main, [], warp, "test_views/scene", 1),
             (render_360.main, ["--mode", "canonical_360", "--trajectory_resolution", "2"],
-             ("nerf_mlp",), "canonical_360/scene", 2),
+             ("nerf_mlp", "hit_test"), "canonical_360/scene", 2),
             (render_360.main, ["--mode", "posed_360", "--trajectory_resolution", "2"], warp,
              "posed_360/scene", 2),
             (render_reposing.main, ["--mocap_path", mocap], warp, "reposing/scene", 2),

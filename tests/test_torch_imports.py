@@ -44,6 +44,7 @@ MODULES = (
     "neuman_tpu_torch.tools.profile_bkg_step",
     "neuman_tpu_torch.ops.kernels.offset_mlp",
     "neuman_tpu_torch.ops.kernels.knn",
+    "neuman_tpu_torch.ops.kernels.hit_test",
     "neuman_tpu_torch.ops.mesh",
     "neuman_tpu_torch.models.lpips",
     "neuman_tpu_torch.models.nerf",

@@ -116,6 +116,9 @@ def test_geometry_guided_near_far_matches_jax(scene):
     np.testing.assert_array_equal((tn < tf).numpy(), hit)
     np.testing.assert_allclose(tn.numpy()[hit], np.asarray(jn)[hit], atol=1e-5)
     np.testing.assert_allclose(tf.numpy()[hit], np.asarray(jf)[hit], atol=1e-5)
+    # CPU tensors take the plain version (the kernel's twin on the card)
+    pn, pf = trays.geometry_guided_near_far_plain(t(o), t(d), t(verts), 0.2)
+    assert torch.equal(tn, pn) and torch.equal(tf, pf)
 
 
 def test_hybrid_chunk_matches_jax(scene):
