@@ -1,16 +1,45 @@
-"""The runners of the four kinds of traffic, by the `kind` of a traffic
-file: "train_bkg", "train_human", "render_hybrid", "render_canonical".
+"""The runners of the four built-in kinds of traffic, by the `kind` of a
+traffic file: "train_bkg", "train_human", "render_hybrid",
+"render_canonical" (`KINDS`). A kind that is not one of them is the class
+`Runner` of benchmark/kinds/<kind>.py, a file of its own that may subclass
+one of these (`run.runner_class`); a file may add a kind, never replace one
+of the four.
 
-A runner is built from (configuration, traffic, seed, device): it makes
-the inputs (benchmark/inputs.py), builds the program's objects on them,
-warms up every shape the traffic uses (the train runners by their first
-steps, which the reference then follows) and is ready for the window.
-`unit()` runs one step (a batch draw and a train step) or one frame (its
-RGB copied to the host); `work()` gives a unit's NeRF-MLP and model work;
-`check()`, after the window, frees the program's state and returns the
-numbers compared with the reference, {name: value}.
+The runner protocol, all that run.py, trace.py and control.py use:
+- `Runner(cfg, traffic, seed, device)`: the configuration file's dict, the
+  traffic file's dict, the seed and a torch.device. The constructor is the
+  set-up: it makes the inputs from the seed (benchmark/inputs.py), builds
+  the program's objects on them and warms up every shape the traffic uses
+  (the train runners by their first steps, which the reference then
+  follows, the render runners by one frame); then it is ready for the
+  window.
+- `unit_name`: "step" or "frame"; it names the harness's span around each
+  unit, and which per-layer readers read.
+- `unit(draw_events=None)`: one step (a batch draw and a train step) or one
+  frame (its RGB copied to the host). In a traced step run `draw_events` is
+  a list to which a step appends the (start, end) CUDA events of its draw.
+- `finish_window()`: the window has closed (the step runners count their
+  `failed` here); the units run after it are the traced ones.
+- `check(control=None)`: after the window, frees the program's state and
+  returns the numbers compared with the reference, {name: value}, with a
+  name for every key of the traffic's `limits`; with a `control` Precision
+  (benchmark/reference), (program's numbers, the control's numbers).
+- `work(hits=None)`: a unit's work, {"nerf_mlp": (FLOPs, bytes),
+  "model_flops": FLOPs, "dtype": a key of `flops.PEAK_FLOPS`}; `hits` is a
+  frame's hit rays, passed only to a runner with `trace_hits()`.
+- `failed`: the window's units whose loss or RGB was not finite;
+  `restarts`: dead-net restarts in the set-up and the window.
+- Optional: `trace_hits()`, (mean hit rays a frame of the window, of the
+  traced frames); `unsettled`, the checked rays left out, set by `check()`.
+- For control.py: `traffic` (its `check_frames` is raised to check every
+  camera), `cams` (a frame runner's cameras, one unit each), `frame_gaps`
+  (each checked frame's readings, set by `check()`) and, for a planted
+  fault, `_record_first_steps()` (the set-up's first steps, through `_draw()`
+  and `_step(batch)`).
 
-This is the one module of the benchmark that imports the program.
+This module and benchmark/kinds/*.py are the modules of the benchmark that
+build the program's objects and import it (beside program_spans.py, which
+reads its tracing recorder); benchmark/reference/ imports nothing of it.
 """
 
 import random

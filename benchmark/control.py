@@ -23,7 +23,7 @@ import time
 
 import torch
 
-from benchmark import cells, run as brun
+from benchmark import run as brun
 from benchmark.reference import Precision
 
 CONTROL = {"step": "tf32", "frame": "fp8"}
@@ -60,11 +60,12 @@ def alter_batch(runner):
 FAULTS = {"half_batch": half_batch, "alter_batch": alter_batch}
 
 
-def readings(cell, cfg, traffic, seed, seconds, fault, device="cuda", all_frames=False):
+def readings(cell, cfg, traffic, seed, seconds, fault, device="cuda", all_frames=False, bench=brun.BENCH):
     """(program's numbers, control's numbers); with `all_frames`, also each
     frame's {number: [program's], "control": {number: [control's]},
-    "unsettled": rays left out}."""
-    kind = cells.KINDS[traffic["kind"]]
+    "unsettled": rays left out}. The runner is `brun.runner_class`'s, with
+    `bench` the folder whose kinds/ holds the runners that files add."""
+    kind = brun.runner_class(traffic["kind"], bench)
     if fault != "none":
         # the fault has to be in place before the set-up's first steps
         class Faulty(kind):

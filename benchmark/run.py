@@ -4,7 +4,9 @@
 
 Reads BENCHMARK.json at the root of the checkout, and the cell's
 configuration (benchmark/configs/<config>.json) and traffic mix
-(benchmark/traffic/<traffic>.json) by the names the manifest gives. Then:
+(benchmark/traffic/<traffic>.json) by the names the manifest gives, and
+takes the runner of the traffic's `kind`: one of benchmark/cells.py's four,
+or the class `Runner` of benchmark/kinds/<kind>.py (`runner_class`). Then:
 make the inputs from the seed on the device and warm up the cell's shapes
 (set-up), measure whole steps or frames until `--seconds` have passed,
 check the timed path's outputs against the plain reference, and print one
@@ -34,11 +36,13 @@ import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neuman_tpu")
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def caches():
@@ -84,6 +88,30 @@ def metric_reader(name, bench=BENCH):
     return mod.read
 
 
+def runner_class(kind, bench=BENCH):
+    """The runner of traffic kind `kind` (the protocol: benchmark/cells.py):
+    `cells.KINDS[kind]` for the four built-in kinds, else the class `Runner`
+    of <bench>/kinds/<kind>.py, loaded by path as `metric_reader` loads a
+    metric. A kind with no such file, or a file named after a built-in kind
+    (which would replace a runner of the yardstick), stops the run."""
+    from benchmark import cells
+
+    path = os.path.join(bench, "kinds", f"{kind}.py")
+    if kind in cells.KINDS:
+        if os.path.exists(path):
+            raise SystemExit(f"{path} is named after the built-in traffic kind {kind!r}: "
+                             "a file may add a kind, not replace one")
+        return cells.KINDS[kind]
+    if not NAME.match(kind) or not os.path.isfile(path):
+        raise SystemExit(f"no runner for traffic kind {kind!r}: {path} is not there")
+    spec = importlib.util.spec_from_file_location("benchmark_kind_" + re.sub(r"\W", "_", kind), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if not isinstance(getattr(mod, "Runner", None), type):
+        raise SystemExit(f"{path} defines no class Runner for traffic kind {kind!r}")
+    return mod.Runner
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -96,11 +124,13 @@ def parse_args(argv=None):
 
 def run(args, manifest, cell, cfg, traffic, bench=BENCH):
     """One run: returns (the result line's dict, the numbers compared);
-    `bench` is the folder whose metrics/ holds the readers."""
+    `bench` is the folder whose kinds/ and metrics/ hold the runners and
+    readers that files add."""
     import torch
 
-    from benchmark import cells, trace
+    from benchmark import trace
 
+    kind = runner_class(traffic["kind"], bench)
     device = torch.device(args.device)
     cuda = device.type == "cuda"
     if cuda and (not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]):
@@ -109,7 +139,7 @@ def run(args, manifest, cell, cfg, traffic, bench=BENCH):
     # one host thread: the steps and frames are launch-bound, and idle
     # worker threads that spin take the cores the launching thread needs
     torch.set_num_threads(1)
-    runner = cells.KINDS[traffic["kind"]](cfg, traffic, args.seed, device)
+    runner = kind(cfg, traffic, args.seed, device)
     sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
     sync()
     # the set-up's objects leave the collector's generations: a collection

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract: keys, names, units,
-bounds, every file it names, and the import rule."""
+bounds, every file it names, every kind of traffic its cells use, and the
+import rules."""
 
 import ast
 import json
@@ -8,7 +9,7 @@ import re
 
 import pytest
 
-from benchmark import run as brun
+from benchmark import cells, run as brun
 
 ROOT = brun.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -67,6 +68,36 @@ def test_configuration_files(manifest):
         assert cfg["config"]["nerf_width"] == 256 and cfg["config"]["nerf_depth"] == 8
 
 
+def _defines(path, name):
+    """Whether the module at `path` binds `name` at its top level (read with
+    ast, not imported)."""
+    bound = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.ClassDef):
+            bound.add(node.name)
+        elif isinstance(node, ast.Assign):
+            bound |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.ImportFrom):
+            bound |= {a.asname or a.name for a in node.names}
+    return name in bound
+
+
+def test_every_kind_is_built_in_or_has_its_runner_file(manifest):
+    """Each cell's traffic `kind` is one of `cells.KINDS`, or has a
+    benchmark/kinds/<kind>.py that defines `Runner`; no file there is named
+    after a built-in kind."""
+    kinds = os.path.join(brun.BENCH, "kinds")
+    for w in manifest["workloads"]:
+        with open(os.path.join(brun.BENCH, "traffic", w["traffic"] + ".json")) as f:
+            kind = json.load(f)["kind"]
+        if kind not in cells.KINDS:
+            path = os.path.join(kinds, kind + ".py")
+            assert NAME.match(kind) and os.path.isfile(path), f"{w['name']}: no runner for kind {kind!r}"
+            assert _defines(path, "Runner"), path
+    files = set(os.listdir(kinds)) if os.path.isdir(kinds) else set()
+    assert not files & {k + ".py" for k in cells.KINDS}
+
+
 def _imports(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
@@ -95,6 +126,16 @@ def test_reference_imports_nothing_of_the_program():
         if f.endswith(".py"):
             tops = {m.split(".")[0] for m in _imports(os.path.join(ref, f))}
             assert tops <= {"benchmark", "torch", "numpy", "contextlib", "math"}, f
+
+
+def test_only_the_runners_import_the_program():
+    """cells.py and kinds/*.py build the program's objects; program_spans.py
+    reads its tracing recorder; no other module of the harness imports it."""
+    for path in _sources():
+        rel = os.path.relpath(path, brun.BENCH)
+        if rel.split(os.sep)[0] in ("kinds", "tests") or rel in ("cells.py", "program_spans.py"):
+            continue
+        assert "neuman_tpu_torch" not in {m.split(".")[0] for m in _imports(path)}, rel
 
 
 def test_forbidden_modules_compares_whole_top_level_names():
