@@ -22,7 +22,9 @@ versions instead (the reference the card checks the kernels against).
 The spans of utils/tracing.py mark a frame's hit tests (`render.hit_test`),
 the host's wait for each hit list (`render.hit_sync`: `torch.nonzero`
 syncs) and the human branches (`render.human_branch`); the counter
-`render.hit_rays` adds the hit rays, which the host holds by then.
+`render.hit_rays` adds the hit rays, which the host holds by then. The
+multi-person renderer adds the span `render.merge` and the counters
+`render.branch_rays` and `render.actor_rays` (its docstring).
 
 With a data `mesh` (parallel/mesh.py, the JAX renderers' `mesh=`) each
 chunk's rays are split over the ranks (`ChunkRows`): every rank runs its
@@ -364,23 +366,45 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
                                      rays_per_batch=32768, samples_per_ray=64,
                                      importance_samples_per_ray=128, white_bkg=True,
                                      geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
-                                     compute_dtype=torch.bfloat16, use_kernels=True, mesh=None):
+                                     compute_dtype=torch.bfloat16, use_kernels=True,
+                                     topologies=None, mesh=None):
     """Several actors composited into one scene, compact dispatch: the
     background (the nets of `bkg_model`) on every ray, chunk by chunk; on the
-    rays within geo_threshold of any actor, every actor's human branch (the
-    canonical net of its HumanNeRF in `human_models`, its vertices, faces
-    and transforms), and one merge by z over the background and all actors.
-    An actor that a ray misses contributes samples at z = linspace(1, 2) x
-    1e8 with sigma -1e9: far behind every real sample, so the last real
-    sample keeps its own interval. mesh: as `render_hybrid_nerf`. Returns
-    (rgb [H, W, 3], depth [H, W]) on `device`."""
+    rays within geo_threshold of any actor (the union of the actors' hits),
+    every actor's human branch (the canonical net of its HumanNeRF in
+    `human_models`, its vertices, faces and transforms), and one merge by z
+    over the background and all actors.
+
+    Each actor's branch runs on every row of the union. On the rows that
+    miss that actor, its samples are then replaced by placeholders at z =
+    linspace(1, 2) x 1e8 with sigma -1e9: relu(sigma) = 0 gives them alpha 0
+    and weight 0, and behind every real sample they leave the real samples'
+    transmittance as it is. They do shorten the last real sample's interval
+    from 1e10 to ~1e8 (the distance to the first placeholder); its alpha,
+    1 - exp(-relu(sigma) |d| interval), rounds to 1 in f32 at both lengths
+    once relu(sigma) |d| x 1e8 passes ~17, and is 0 at both for a zero
+    density, so the RGB is that of the real samples alone unless the last
+    real sample's density lies between 0 and ~2e-7.
+
+    topologies: one prebuilt MeshTopology per actor, of its faces (as
+    `render_hybrid_nerf`'s `topology=`); None builds them from `faces_list`.
+    mesh: as `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth [H, W]) on
+    `device`.
+
+    Besides the spans and the counter of `render_hybrid_nerf`, a chunk's
+    merge and integration are the span `render.merge`; the counter
+    `render.branch_rays` adds the rows handed to each actor's branch, and
+    `render.actor_rays` (while a profiler records: a device sum) the rows of
+    them that the actor's own hit test hits."""
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    if topologies is None:
+        topologies = [mesh_ops.MeshTopology.build(faces_h, len(verts_h), device)
+                      for verts_h, faces_h in zip(posed_verts_list, faces_list)]
     actors = []
-    for spec_h, model_h, verts_h, faces_h, ts_h in zip(human_specs, human_models,
-                                                       posed_verts_list, faces_list, Ts_list):
+    for spec_h, model_h, verts_h, topo_h, ts_h in zip(human_specs, human_models,
+                                                      posed_verts_list, topologies, Ts_list):
         verts_h = f32(verts_h)
-        actors.append((spec_h.human, model_h.coarse_human_net.nerf,
-                       mesh_ops.MeshTopology.build(faces_h, len(verts_h), device), verts_h,
+        actors.append((spec_h.human, model_h.coarse_human_net.nerf, topo_h, verts_h,
                        f32(ts_h)[: len(verts_h)]))
     origins, dirs = cap_rays(cap, device)
     rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
@@ -417,12 +441,16 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
                     spec_h, net_h, topo_h, o[sel], d[sel], near[sel], far[sel], verts_h, ts_h,
                     samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
             hit = (near < far)[sel, None]
+            tracing.count("render.branch_rays", hit_rays)
+            if tracing.enabled():  # the sum is a launch: only while a profiler records
+                tracing.count("render.actor_rays", hit.sum())
             zs.append(torch.where(hit, h_z, dummy_z))
             sigmas.append(torch.where(hit, h_sigma, -1e9))
             rgbs.append(h_rgb_c)
-        z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
-        rgb[i + sel], _, _, _, depth[i + sel] = volume.integrate_planar(
-            sigma, rgb_c, z, dir_norm[sel], white_bkg)
+        with tracing.span("render.merge"):
+            z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
+            rgb[i + sel], _, _, _, depth[i + sel] = volume.integrate_planar(
+                sigma, rgb_c, z, dir_norm[sel], white_bkg)
     rgb, depth = rows.gather(rgb, depth)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w)

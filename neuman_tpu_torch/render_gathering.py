@@ -12,7 +12,8 @@ preset (default dance_together); all actors follow the preset's motion
 are fixed, as in the JAX script, and relative to the working directory).
 The background net comes from `--weights_path`. Each frame is rendered by
 `render_hybrid_nerf_multi_persons` from a camera on an ellipse about a
-capture of the scene and written as ./demo/gathering/<motion_name>/
+capture of the scene (the body's topology built once for every actor and
+frame) and written as ./demo/gathering/<motion_name>/
 out_%04d.png. `main(argv, device)` runs on the card unless device="cpu";
 under `torchrun --nproc_per_node N` each chunk's rays split over N GPUs
 and rank 0 writes (render/cli.py).
@@ -27,6 +28,7 @@ import numpy as np
 
 from neuman_tpu_torch.data_io import neuman, smpl_pickle
 from neuman_tpu_torch.models import human_nerf as hn
+from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.render import cli, renderer
 from neuman_tpu_torch.render_reposing import mocap_to_scene, read_mocap
 from neuman_tpu_torch.train import auto_geo_threshold, require_device
@@ -102,13 +104,16 @@ def run(opt, device="cuda", mesh=None):
     caps = read_novel_caps(opt, len(actors[0][2]), scene)
     bkg_spec = hn.build_human_nerf_spec(opt)
     bkg_model = cli.load_net(opt, bkg_spec, device)
+    # every actor is the scene's body: one topology serves them all, every frame
+    topology = mesh_ops.MeshTopology.build(scene.faces, len(actors[0][2][0]), device)
     saved = []
     for i in range(len(caps)):
         rgb = renderer.render_hybrid_nerf_multi_persons(
             bkg_spec, bkg_model, caps[i], [a[0] for a in actors], [a[1] for a in actors],
             [a[2][i] for a in actors], [scene.faces] * len(actors), [a[3][i] for a in actors],
             device, importance_samples_per_ray=opt.importance_samples_per_ray,
-            geo_threshold=geo_threshold, **cli.render_kwargs(opt, mesh))[0]
+            geo_threshold=geo_threshold, topologies=[topology] * len(actors),
+            **cli.render_kwargs(opt, mesh))[0]
         saved.append(cli.save_frame(rgb, f"gathering/{opt.motion_name}", i))
     return saved
 
