@@ -4,35 +4,45 @@
 and `render_vanilla`, the background-only render the background trainer
 validates with).
 
-`render_hybrid_nerf` renders a frame by the compact dispatch: every ray
-goes through the background path, chunk by chunk; the rays of a chunk that
-pass within geo_threshold of a body vertex (the hit mask) are selected by
-boolean indexing, run the human branch (warp + canonical net), merge its
-samples with their background samples by z, and are scattered back.
-`render_smpl_nerf` (the human alone, posed or in canonical space) and
-`render_hybrid_nerf_multi_persons` (several actors in one scene) dispatch
-the same way: misses get the constant or background pixel, and the human
-branches run on the hit rays only (for several actors, the union of theirs).
+`render_hybrid_nerf` renders a frame by the compact dispatch: one hit test
+over the frame's rays (those that pass within geo_threshold of a body
+vertex) and one host wait for the frame's hit list; every ray through the
+background path, chunk by chunk, each chunk keeping the samples of its hit
+rays (a contiguous slice of the ascending list); then the human branch
+(warp + canonical net) over the hit list in chunks of `rays_per_batch`
+rows, each chunk's human samples merged with the kept background samples
+by z. `render_smpl_nerf` (the human alone, posed or in canonical space)
+and `render_hybrid_nerf_multi_persons` (several actors in one scene)
+dispatch the same way: misses get the constant or background pixel, and
+the human branches run on the hit rays only (for several actors, the
+union of theirs).
 
-Per chunk the MLPs run through the `nerf_mlp` kernel, the warp's
-closest-point query through the `ericson_select` kernel and the hit test
-through the `hit_test` kernel; `use_kernels=False` runs their plain PyTorch
-versions instead (the reference the card checks the kernels against).
+The MLPs run through the `nerf_mlp` kernel, the warp's closest-point
+query through the `ericson_select` kernel and the hit test through the
+`hit_test` kernel, one call an actor over the frame's rows; `use_kernels=
+False` runs their plain PyTorch versions instead (the reference the card
+checks the kernels against; the plain hit test holds [rays, V] distances,
+so it runs chunk by chunk).
 
-The spans of utils/tracing.py mark a frame's hit tests (`render.hit_test`),
-the host's wait for each hit list (`render.hit_sync`: `torch.nonzero`
-syncs) and the human branches (`render.human_branch`); the counter
-`render.hit_rays` adds the hit rays, which the host holds by then. The
-multi-person renderer adds the span `render.merge` and the counters
-`render.branch_rays` and `render.actor_rays` (its docstring).
+The spans of utils/tracing.py mark a frame's hit test (`render.hit_test`,
+once a frame), the host's wait for the hit list (`render.hit_sync`, once a
+frame: `torch.nonzero` and the chunks' bounds in the list) and the human
+branches (`render.human_branch`, one a branch call); the counter
+`render.hit_rays` adds the hit rays and `render.branch_rays` the rows
+handed to the branches, both of which the host holds by then. The
+multi-person renderer adds the span `render.merge` and the counter
+`render.actor_rays` (its docstring).
 
 With a data `mesh` (parallel/mesh.py, the JAX renderers' `mesh=`) each
 chunk's rays are split over the ranks (`ChunkRows`): every rank runs its
-contiguous block of each chunk, and one all_gather at the end of the frame
-gives every rank the whole frame. A chunk size that the mesh size does not
-divide warns "UNSHARDED", and every rank renders the whole frame.
+contiguous block of each chunk (and in the hybrid renderers tests its own
+rows and branches over their hit list), and one all_gather at the end of
+the frame gives every rank the whole frame. A chunk size that the mesh
+size does not divide warns "UNSHARDED", and every rank renders the whole
+frame.
 """
 
+import itertools
 import warnings
 
 import torch
@@ -185,6 +195,93 @@ def _hybrid_chunk(spec, model, topology, origins, dirs, bkg_near, bkg_far, posed
     return _merge_human(bkg, near < far, *human, bkg_far, white_bkg)
 
 
+def _frame_hit_test(origins, dirs, verts_list, rows, geo_threshold, use_kernels):
+    """(this rank's rows of the frame: a slice or an index tensor, and for
+    each actor of `verts_list` the geometry-guided (near, far) [rows.local]
+    of those rows, in the order of the renderer's buffers), under one
+    `render.hit_test` span. The kernel holds no [rays, V] distances: one
+    call an actor over the rows at once; the plain version holds them:
+    chunk by chunk."""
+    mine = (slice(None) if rows.mesh is None
+            else torch.cat([src for src, _, _, _ in rows]))
+    with tracing.span("render.hit_test"):
+        if use_kernels and origins.is_cuda:
+            o, d = origins[mine], dirs[mine]
+            bounds = [ray_ops.geometry_guided_near_far(o, d, v, geo_threshold)
+                      for v in verts_list]
+        else:
+            bounds = [(torch.empty(rows.local, device=origins.device),
+                       torch.empty(rows.local, device=origins.device)) for _ in verts_list]
+            for src, dst, _, _ in rows:
+                for v, (near, far) in zip(verts_list, bounds):
+                    near[dst], far[dst] = _near_far(use_kernels)(origins[src], dirs[src], v,
+                                                                 geo_threshold)
+    return mine, bounds
+
+
+def _hit_list(hit, rows):
+    """The frame's hit list, for the host's one wait a frame: (the rows of
+    this rank's buffers where `hit` [rows.local], ascending, and for each
+    chunk of `rows` the bounds (b0, b1) of its rows in that list, a
+    contiguous slice since the chunks' rows follow each other)."""
+    with tracing.span("render.hit_sync"):  # the host waits for the hit test
+        stops = torch.tensor(list(itertools.accumulate(k for _, _, k in rows.spans)),
+                             device=hit.device)
+        hits = torch.nonzero(hit).squeeze(1)
+        ends = [0] + torch.searchsorted(hits, stops).tolist()
+    tracing.count("render.hit_rays", hits.numel())
+    return hits, list(zip(ends[:-1], ends[1:]))
+
+
+def _hit_chunks(hits, rays_per_batch):
+    """The hit list in chunks of `rays_per_batch` rows, the human branches'
+    calls: (the chunk's place in the list, a slice; its rows)."""
+    return [(slice(h, h + rays_per_batch), hits[h:h + rays_per_batch])
+            for h in range(0, hits.numel(), rays_per_batch)]
+
+
+def _joined(parts):
+    """Per-row outputs of consecutive slices of the hit list (tuples of
+    tensors and lists of tensors) joined into one over the list."""
+    return tuple([torch.cat(c) for c in zip(*col)] if isinstance(col[0], list)
+                 else torch.cat(col) for col in zip(*parts))
+
+
+def _rows(out, at):
+    """Rows `at` (a slice) of each tensor of a per-row output."""
+    return tuple([c[at] for c in x] if isinstance(x, list) else x[at] for x in out)
+
+
+def _bkg_frame(bkg_spec, coarse_net, fine_net, cap, origins, dirs, rows, hits, bounds,
+               samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
+               use_kernels):
+    """The background on every ray of this rank's rows, chunk by chunk
+    (near and far from `cap`'s "bkg" entries): (rgb [rows.local, 3], depth
+    [rows.local] of the background alone, and the hit rays' background
+    samples (f_z, f_sigma, f_rgb_c, dir_norm, as `_bkg_branch` gives them)
+    in the order of the hit list; None without hits). hits, bounds: as
+    `_hit_list` gives them."""
+    device = origins.device
+    rgb = torch.empty(rows.local, 3, device=device)
+    depth = torch.empty(rows.local, device=device)
+    kept = []
+    for (src, dst, whole, local), (b0, b1) in zip(rows, bounds):
+        o, d = origins[src], dirs[src]
+        n = o.shape[0]
+        bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
+        bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
+        f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
+            bkg_spec, coarse_net, fine_net, o, d, bkg_near, bkg_far, samples_per_ray,
+            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels,
+            dir_chunk=(dirs[whole], local))
+        rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
+            f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
+        if b1 > b0:
+            sel = hits[b0:b1] - dst.start
+            kept.append((f_z[sel], f_sigma[sel], [c[sel] for c in f_rgb_c], dir_norm[sel]))
+    return rgb, depth, (_joined(kept) if kept else None)
+
+
 def cap_rays(cap, device):
     """(origins, dirs) [H*W, 3] of every pixel of a capture (duck-typed:
     .shape, .intrinsic_matrix, .cam_pose.camera_to_world)."""
@@ -236,7 +333,11 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
                        geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
                        compute_dtype=torch.bfloat16, use_kernels=True,
                        topology=None, mesh=None):
-    """Hybrid human + scene frame, compact dispatch. The MLPs run in
+    """Hybrid human + scene frame, compact dispatch: one hit test over the
+    frame and one host wait for its hit list; the background chunk by
+    chunk, the samples of each chunk's hit rays kept; then the human branch
+    over the hit list in chunks of `rays_per_batch` rows, each merged by z
+    with its rays' kept background samples. The MLPs run in
     `compute_dtype` (bf16 storage and products with f32 accumulation by
     default, as the JAX renderer's default; float32 for exact f32).
 
@@ -245,8 +346,8 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
     .near / .far dicts (key "bkg"); posed_verts [V, 3], faces [F, 3+],
     Ts [V(+J), 4, 4] (arrays or tensors). `topology` may pass a prebuilt
     MeshTopology of `faces` to skip rebuilding it. mesh: a DataMesh over
-    which each chunk's rays are split (every rank calls; each picks the
-    hit rays of its own rows).
+    which each chunk's rays are split (every rank calls; each tests its
+    own rows and branches over their hit list).
     Returns (rgb [H, W, 3], depth [H, W], acc [H, W]) on `device`.
     """
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -256,39 +357,25 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
     origins, dirs = cap_rays(cap, device)
     rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
                      device)
-    rgb = torch.empty(rows.local, 3, device=device)
-    depth = torch.empty(rows.local, device=device)
+    mine, ((near, far),) = _frame_hit_test(origins, dirs, [verts], rows, geo_threshold,
+                                           use_kernels)
+    hits, bounds = _hit_list(near < far, rows)
+    rgb, depth, kept = _bkg_frame(
+        spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, cap, origins, dirs, rows,
+        hits, bounds, samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
+        use_kernels)
     acc = torch.zeros(rows.local, device=device)
-    for src, dst, whole, local in rows:
-        o, d = origins[src], dirs[src]
-        n, i = o.shape[0], dst.start
-        bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
-        bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
-        f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
-            spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, o, d, bkg_near,
-            bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
-            use_kernels, dir_chunk=(dirs[whole], local),
-        )
-        rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
-            f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
-        # the human branch runs only on the chunk's rays that pass near the body
-        with tracing.span("render.hit_test"):
-            near, far = _near_far(use_kernels)(o, d, verts, geo_threshold)
-        with tracing.span("render.hit_sync"):  # the host waits for the hit test
-            sel = torch.nonzero(near < far).squeeze(1)
-            hit_rays = sel.numel()
-        tracing.count("render.hit_rays", hit_rays)
-        if hit_rays:
-            with tracing.span("render.human_branch"):
-                human = _human_branch(
-                    spec.human, model.coarse_human_net.nerf, topology, o[sel], d[sel], near[sel],
-                    far[sel], verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride,
-                    use_kernels,
-                )
-            hit_bkg = (f_z[sel], f_sigma[sel], [c[sel] for c in f_rgb_c], dir_norm[sel])
-            hit = torch.ones_like(sel, dtype=torch.bool)
-            rgb[i + sel], depth[i + sel], acc[i + sel] = _merge_human(
-                hit_bkg, hit, *human, bkg_far[sel], white_bkg)
+    o_mine, d_mine = origins[mine], dirs[mine]
+    for at, sel in _hit_chunks(hits, rays_per_batch):
+        with tracing.span("render.human_branch"):
+            human = _human_branch(
+                spec.human, model.coarse_human_net.nerf, topology, o_mine[sel], d_mine[sel],
+                near[sel], far[sel], verts, Ts, samples_per_ray, knn_k, compute_dtype,
+                knn_stride, use_kernels)
+        tracing.count("render.branch_rays", sel.numel())
+        bkg_far = torch.full((sel.numel(), 1), float(cap.far["bkg"]), device=device)
+        rgb[sel], depth[sel], acc[sel] = _merge_human(
+            _rows(kept, at), torch.ones_like(sel, dtype=torch.bool), *human, bkg_far, white_bkg)
     rgb, depth, acc = rows.gather(rgb, depth, acc)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)
@@ -368,11 +455,14 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
                                      geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
                                      compute_dtype=torch.bfloat16, use_kernels=True,
                                      topologies=None, mesh=None):
-    """Several actors composited into one scene, compact dispatch: the
-    background (the nets of `bkg_model`) on every ray, chunk by chunk; on the
-    rays within geo_threshold of any actor (the union of the actors' hits),
+    """Several actors composited into one scene, compact dispatch as
+    `render_hybrid_nerf`'s: one hit test an actor over the frame, and one
+    host wait for the hit list of the rays within geo_threshold of any
+    actor (the union of the actors' hits); the background (the nets of
+    `bkg_model`) on every ray, chunk by chunk, the samples of the hit rays
+    kept; then, for each chunk of `rays_per_batch` rows of the hit list,
     every actor's human branch (the canonical net of its HumanNeRF in
-    `human_models`, its vertices, faces and transforms), and one merge by z
+    `human_models`, its vertices, faces and transforms) and one merge by z
     over the background and all actors.
 
     Each actor's branch runs on every row of the union. On the rows that
@@ -391,8 +481,8 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
     mesh: as `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth [H, W]) on
     `device`.
 
-    Besides the spans and the counter of `render_hybrid_nerf`, a chunk's
-    merge and integration are the span `render.merge`; the counter
+    Besides the spans and the counters of `render_hybrid_nerf`, a hit
+    chunk's merge and integration are the span `render.merge`; the counter
     `render.branch_rays` adds the rows handed to each actor's branch, and
     `render.actor_rays` (while a profiler records: a device sum) the rows of
     them that the actor's own hit test hits."""
@@ -409,39 +499,28 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
     origins, dirs = cap_rays(cap, device)
     rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
                      device)
-    rgb = torch.empty(rows.local, 3, device=device)
-    depth = torch.empty(rows.local, device=device)
+    mine, bounds_h = _frame_hit_test(origins, dirs, [a[3] for a in actors], rows,
+                                     geo_threshold, use_kernels)
+    any_hit = torch.zeros(rows.local, dtype=torch.bool, device=device)
+    for near, far in bounds_h:
+        any_hit |= near < far
+    hits, bounds = _hit_list(any_hit, rows)
+    rgb, depth, kept = _bkg_frame(
+        bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, cap, origins,
+        dirs, rows, hits, bounds, samples_per_ray, importance_samples_per_ray, white_bkg,
+        compute_dtype, use_kernels)
+    o_mine, d_mine = origins[mine], dirs[mine]
     dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
-    for src, dst, whole, local in rows:
-        o, d = origins[src], dirs[src]
-        n, i = o.shape[0], dst.start
-        bkg_near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
-        bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
-        f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
-            bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, o, d,
-            bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
-            compute_dtype, use_kernels, dir_chunk=(dirs[whole], local))
-        rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
-            f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
-        with tracing.span("render.hit_test"):
-            bounds = [_near_far(use_kernels)(o, d, a[3], geo_threshold) for a in actors]
-        any_hit = torch.zeros(n, dtype=torch.bool, device=device)
-        for near, far in bounds:
-            any_hit |= near < far
-        with tracing.span("render.hit_sync"):  # the host waits for the hit test
-            sel = torch.nonzero(any_hit).squeeze(1)
-            hit_rays = sel.numel()
-        tracing.count("render.hit_rays", hit_rays)
-        if not hit_rays:
-            continue
-        zs, sigmas, rgbs = [f_z[sel]], [f_sigma[sel]], [[c[sel] for c in f_rgb_c]]
-        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far) in zip(actors, bounds):
+    for at, sel in _hit_chunks(hits, rays_per_batch):
+        f_z, f_sigma, f_rgb_c, dir_norm = _rows(kept, at)
+        zs, sigmas, rgbs = [f_z], [f_sigma], [f_rgb_c]
+        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far) in zip(actors, bounds_h):
             with tracing.span("render.human_branch"):
                 h_z, h_sigma, h_rgb_c = _human_branch(
-                    spec_h, net_h, topo_h, o[sel], d[sel], near[sel], far[sel], verts_h, ts_h,
-                    samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
+                    spec_h, net_h, topo_h, o_mine[sel], d_mine[sel], near[sel], far[sel],
+                    verts_h, ts_h, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
             hit = (near < far)[sel, None]
-            tracing.count("render.branch_rays", hit_rays)
+            tracing.count("render.branch_rays", sel.numel())
             if tracing.enabled():  # the sum is a launch: only while a profiler records
                 tracing.count("render.actor_rays", hit.sum())
             zs.append(torch.where(hit, h_z, dummy_z))
@@ -449,8 +528,8 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
             rgbs.append(h_rgb_c)
         with tracing.span("render.merge"):
             z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
-            rgb[i + sel], _, _, _, depth[i + sel] = volume.integrate_planar(
-                sigma, rgb_c, z, dir_norm[sel], white_bkg)
+            rgb[sel], _, _, _, depth[sel] = volume.integrate_planar(
+                sigma, rgb_c, z, dir_norm, white_bkg)
     rgb, depth = rows.gather(rgb, depth)
     h, w = cap.shape
     return rgb.reshape(h, w, 3), depth.reshape(h, w)

@@ -137,6 +137,9 @@ def test_prebuilt_topologies_give_the_same_frame(scene, frame):
 
 
 def test_counters_and_the_merge_span(scene):
+    """The frame-level dispatch, counted exactly: one hit test and one host
+    wait a frame; each actor's branch over the union's hit list in calls of
+    CHUNK rows, and one merge a call."""
     tracing.reset()
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -145,16 +148,21 @@ def test_counters_and_the_merge_span(scene):
     finally:
         tracing.reset()
     n = len(scene.actors)
-    counters = snap["counters"]
-    assert counters["render.branch_rays"] == n * counters["render.hit_rays"] > 0
+    counters, spans = snap["counters"], snap["spans"]
     own = 0
+    union = torch.zeros(scene.o.shape[0], dtype=torch.bool)
     for a in scene.actors:
         near, far = ray_ops.geometry_guided_near_far_plain(scene.o, scene.d, a["verts"], GEO)
         own += int((near < far).sum())
+        union |= near < far
+    hit_rays = int(union.sum())
+    assert counters["render.hit_rays"] == hit_rays > CHUNK
+    assert counters["render.branch_rays"] == n * hit_rays
     assert counters["render.actor_rays"] == own < counters["render.branch_rays"]
-    chunks_hit = math.ceil(scene.o.shape[0] / CHUNK)
-    assert 1 <= snap["spans"]["render.merge"]["calls"] <= chunks_hit
-    assert snap["spans"]["render.human_branch"]["calls"] == n * snap["spans"]["render.merge"]["calls"]
+    assert spans["render.hit_test"]["calls"] == spans["render.hit_sync"]["calls"] == 1
+    calls = math.ceil(hit_rays / CHUNK)
+    assert spans["render.human_branch"]["calls"] == n * calls
+    assert spans["render.merge"]["calls"] == calls
 
 
 def test_render_gathering_builds_one_topology(scene, frame_bf16, monkeypatch):

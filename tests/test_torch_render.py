@@ -1,5 +1,7 @@
 """The port's ray ops, volume ops, hybrid chunk and frame vs neuman_tpu."""
 
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -18,6 +20,7 @@ from neuman_tpu_torch.ops import mesh as tmesh
 from neuman_tpu_torch.ops import rays as trays
 from neuman_tpu_torch.ops import volume as tvolume
 from neuman_tpu_torch.render import renderer as trenderer
+from neuman_tpu_torch.utils import tracing
 from tests.torch_parity import hybrid_pair, t
 
 torch.set_num_threads(1)
@@ -252,3 +255,80 @@ def test_render_multi_persons_matches_jax(scene, dtype):
     hybrid = trenderer.render_hybrid_nerf(tspec, model, cap, verts, faces, ts, device="cpu",
                                           compute_dtype=cd, **kw)[0]
     assert _psnr(one, hybrid) >= 40.0
+
+
+# rays_per_batch, and how far every actor stands to the side of its place
+HIT_LIST_FRAMES = {
+    "several_calls": (24, 0.0),  # the hit list spans several branch calls
+    "chunk_gap": (4, 0.0),  # chunks with no hit between chunks with hits
+    "no_hit": (128, 10.0),  # the actors out of the frame
+}
+
+
+def _traced(render):
+    tracing.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = render()
+        return out, tracing.snapshot()
+    finally:
+        tracing.reset()
+
+
+@pytest.mark.parametrize("actors", [1, 2], ids=["hybrid", "two_actors"])
+@pytest.mark.parametrize("frame", list(HIT_LIST_FRAMES))
+def test_frame_hit_list_dispatch(scene, frame, actors):
+    """The hybrid renderers' frame-level hit list (`render_hybrid_nerf` for
+    one actor, `render_hybrid_nerf_multi_persons` for two, the second 0.6
+    to the side) at the JAX frame's bars in f32, on a frame whose hit list
+    spans several branch calls, one with chunks without hits between
+    chunks with hits, and one with no hit; traced: one hit test and one
+    host wait a frame, each actor's branch over the union of the hits in
+    calls of rays_per_batch rows."""
+    jspec, params, tspec, model, faces, verts, ts = scene
+    rays_per_batch, away = HIT_LIST_FRAMES[frame]
+    cap = _capture()
+    vs, tss = [], []
+    for k in range(actors):
+        shift = np.array([0.6 * k + away, 0.0, 0.0], np.float32)
+        ts_k = ts.copy()
+        ts_k[:, :3, 3] += shift
+        vs.append(verts + shift)
+        tss.append(ts_k)
+    o, d = trenderer.cap_rays(cap, "cpu")
+    union = torch.zeros(o.shape[0], dtype=torch.bool)
+    for v in vs:
+        near, far = trays.geometry_guided_near_far(o, d, t(v), 0.2)
+        union |= near < far
+    hits = int(union.sum())
+    chunk_hit = [bool(c.any()) for c in union.split(rays_per_batch)]
+    gaps = [i for i in range(1, len(chunk_hit) - 1)
+            if not chunk_hit[i] and any(chunk_hit[:i]) and any(chunk_hit[i + 1:])]
+    assert {"several_calls": hits > 2 * rays_per_batch, "chunk_gap": len(gaps) > 0,
+            "no_hit": hits == 0}[frame]
+    kw = dict(samples_per_ray=S, importance_samples_per_ray=I, geo_threshold=0.2, knn_k=4,
+              knn_stride=4)
+    if actors == 1:
+        ref_rgb, ref_depth, ref_acc = jrenderer.render_hybrid_nerf(
+            jspec, params, cap, vs[0], faces, tss[0], return_acc=True, dispatch="compact",
+            compute_dtype_name="float32", use_pallas=False, rays_per_batch=128, **kw)
+        (rgb, depth, acc), snap = _traced(lambda: trenderer.render_hybrid_nerf(
+            tspec, model, cap, vs[0], faces, tss[0], device="cpu", compute_dtype=torch.float32,
+            rays_per_batch=rays_per_batch, **kw))
+        np.testing.assert_array_equal(acc.numpy() > 0, ref_acc > 0)
+    else:
+        ref_rgb, ref_depth = jrenderer.render_hybrid_nerf_multi_persons(
+            jspec, params, cap, [jspec] * actors, [params] * actors, vs, [faces] * actors, tss,
+            return_depth=True, compute_dtype_name="float32", dispatch="compact",
+            rays_per_batch=128, **kw)
+        (rgb, depth), snap = _traced(lambda: trenderer.render_hybrid_nerf_multi_persons(
+            tspec, model, cap, [tspec] * actors, [model] * actors, vs, [faces] * actors, tss,
+            device="cpu", compute_dtype=torch.float32, rays_per_batch=rays_per_batch, **kw))
+    assert _psnr(rgb, ref_rgb) >= 40.0
+    np.testing.assert_allclose(depth.numpy(), ref_depth, rtol=1e-3, atol=1e-3)
+    calls = lambda name: snap["spans"].get(name, {}).get("calls", 0)
+    counters = snap["counters"]
+    assert counters["render.hit_rays"] == hits
+    assert calls("render.hit_test") == calls("render.hit_sync") == 1
+    assert calls("render.human_branch") == actors * math.ceil(hits / rays_per_batch)
+    assert counters.get("render.branch_rays", 0) == actors * hits

@@ -127,7 +127,7 @@ def traced_runs():
      {"backward_ms.train", "adam_ms.train", "warp_ms.train", "lpips_ms.train"}),
     ("canonical-360-720p", {"hit_rays.render", "hit_sync_ms.render"},
      {"hit_test_ms.render", "human_branch_ms.render"}),
-    ("test-view-720p", {"hit_rays.render", "hit_sync_ms.render"},
+    ("test-view-720p", {"hit_rays.render", "hit_sync_ms.render", "rows_per_branch.render"},
      {"hit_test_ms.render", "human_branch_ms.render"}),
 ])
 def test_traced_tiny_run_reads_the_program_s_spans(traced_runs, cell, present, absent):
