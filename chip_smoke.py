@@ -805,28 +805,32 @@ def phase_slice(model, spec, body, device, seed):
     # camera 3 units in front of the body, image y down = world -y
     c2w = [[1.0, 0, 0, 0], [0, -1.0, 0, 0], [0, 0, -1.0, 3.0], [0, 0, 0, 1.0]]
     h, w = FRAME_HW
-    cap = Capture(h, w, 380.0 * w / 480, c2w, near=0.5, far=6.0)
+    focal = 380.0 * w / 480
+    cap = Capture(h, w, focal, c2w, near=0.5, far=6.0)
     s, i, g = RENDER["samples_per_ray"], RENDER["importance_samples_per_ray"], RENDER["geo_threshold"]
 
-    # one hybrid chunk of CHUNK_RAYS rays of the frame, hit rays first
+    # one hybrid chunk: a frame of CHUNK_RAYS pixels with the frame's vertical field of view
+    side = math.isqrt(CHUNK_RAYS)
+    chunk_cap = Capture(side, side, focal * side / h, c2w, near=0.5, far=6.0)
+
+    @torch.no_grad()
+    def hit(c):
+        near, far = ray_ops.geometry_guided_near_far(*renderer.cap_rays(c, device), verts, g)
+        return near < far
+
     with torch.no_grad():
-        origins, dirs = renderer.cap_rays(cap, device)
-        near, far = ray_ops.geometry_guided_near_far(origins, dirs, verts, g)
-        hit = near < far
-        order = torch.argsort(hit.to(torch.int8), descending=True, stable=True)[:CHUNK_RAYS]
-        n = order.numel()
-        args = (spec, model, topo, origins[order], dirs[order],
-                torch.full((n, 1), cap.near["bkg"], device=device),
-                torch.full((n, 1), cap.far["bkg"], device=device),
-                verts, ts, g, s, i, True, RENDER["knn_k"], torch.float32, RENDER["knn_stride"])
-        k_out = renderer._hybrid_chunk(*args, use_kernels=True)
-        p_out = renderer._hybrid_chunk(*args, use_kernels=False)
+        chunk = lambda use: renderer.render_hybrid_nerf(
+            spec, model, chunk_cap, verts, body.faces, ts, device, rays_per_batch=side * side,
+            samples_per_ray=s, importance_samples_per_ray=i, geo_threshold=g,
+            knn_k=RENDER["knn_k"], knn_stride=RENDER["knn_stride"], compute_dtype=torch.float32,
+            use_kernels=use, topology=topo)
+        k_out, p_out = chunk(True), chunk(False)
         torch.cuda.synchronize()
     errs = {k: (a - b).abs().max().item() for k, a, b in zip(("rgb", "depth", "acc"), k_out, p_out)}
-    chunk_hits = int(hit[order].sum())
+    chunk_hits = int(hit(chunk_cap).sum())
     ok = all(errs[k] <= CHUNK_ATOL[k] for k in errs) and all(torch.isfinite(x).all() for x in k_out)
-    log("chunk", rays=n, hit_rays=chunk_hits, **{f"{k}_err": f"{v:.3e}" for k, v in errs.items()},
-        ok=ok)
+    log("chunk", rays=side * side, hit_rays=chunk_hits,
+        **{f"{k}_err": f"{v:.3e}" for k, v in errs.items()}, ok=ok)
     if not ok or chunk_hits == 0:
         raise RuntimeError("hybrid chunk: kernel path disagrees with the plain path")
 
@@ -849,7 +853,7 @@ def phase_slice(model, spec, body, device, seed):
     plain_sec = time.perf_counter() - t0
     mse = torch.mean((rgb - p_rgb) ** 2).item()
     psnr = -10.0 * math.log10(max(mse, 1e-20))
-    hit_frac = hit.float().mean().item()
+    hit_frac = hit(cap).float().mean().item()
     human_frac = (acc > 0.5).float().mean().item()
     ok = (tuple(rgb.shape) == (h, w, 3) and bool(torch.isfinite(rgb).all())
           and bool(torch.isfinite(depth).all()) and psnr >= FRAME_MIN_PSNR

@@ -36,13 +36,15 @@ Layer map, entry points first:
                          launches it) and its dry run against one process
                          (dryrun.py)
     datasets/            scene arrays in device memory, ray batch samplers
-    render/renderer.py   render_hybrid_nerf, render_smpl_nerf (posed and
+    render/renderer.py   one frame path (hit test, background chunks,
+                         branches over the hit list) behind four renderers:
+                         render_hybrid_nerf, render_smpl_nerf (posed and
                          canonical), render_hybrid_nerf_multi_persons,
                          render_vanilla; render/rasterize.py the SMPL overlay
     ops/rays.py          ray generation, z sampling, inverse CDF, near/far
     ops/volume.py        importance z, merge, volume integration
     ops/mesh.py          vertex KNN, closest point, signed distance, warp
-    ops/kernels/         the seven hand-written CUDA kernels (sm_90a, sources
+    ops/kernels/         the eight hand-written CUDA kernels (sm_90a, sources
                          in csrc/) with their plain PyTorch twins: nerf_mlp and
                          nerf_mlp_bwd, offset_mlp and offset_mlp_bwd (both
                          pairs on mlp_hopper.cuh: wgmma + TMA in bf16, register
@@ -51,7 +53,9 @@ Layer map, entry points first:
                          ericson_signed_select (the same on the query
                          tables by KNN index, the sign for the winner
                          only), bucketed_knn (the bucket table built in the
-                         kernel, resident in shared memory)
+                         kernel, resident in shared memory), hit_test (each
+                         ray's near and far over the vertex spheres in
+                         registers)
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict

@@ -27,8 +27,8 @@ Sections (stage names of --break-stage in brackets):
   corners), so the mean moves with --train_iters; the draws are seeded, so
   a window gives the same mean run to run (tools/bench_step_windows.py
   times step by step);
-- hybrid_render: one 4096-ray hybrid chunk, 64 + 32 background and 64 human
-  samples, bf16;
+- hybrid_render: a 64x64 hybrid frame in one 4096-ray chunk through
+  render_hybrid_nerf, 64 + 32 background and 64 human samples, bf16;
 - hybrid_frame: s per 1280x720 hybrid frame through render_hybrid_nerf
   (8192-ray chunks), and the share of its rays within geo_threshold of the
   body.
@@ -37,8 +37,9 @@ Both train steps take NEUMAN_MLP_TAPE (recompute or hbm) as `mlp_tape`.
 Timing: one warm-up call (it builds the kernels), then `iters` calls back to
 back between two CUDA events, each call's input varied (origins or vertices
 + i x 1e-5) and its output summed into a scalar that the next call's input
-takes; host launch time is in. The frame is timed by the wall clock from
-the first frame to the last, the card synchronised before each read.
+takes; host launch time is in. The frames (hybrid_render's and
+hybrid_frame's) are timed by the wall clock from the first frame to the
+last, the card synchronised before each read.
 
 No fallback: a stage that raises gets null keys and "failed:<stage>:<Error>"
 in "kernels"; the other stages run, the line is printed and the exit code is
@@ -51,6 +52,7 @@ does a run without a CUDA device unless --device cpu is given.
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -335,32 +337,23 @@ def _hybrid_model(device, overrides):
 
 
 def bench_hybrid_render(device, iters=10, rays=4096, samples=64, importance=32, use_kernels=True,
-                        knn_k=4, knn_stride=4, overrides=None, body_subdivisions=5):
-    """Hybrid chunk (bench.py:597-656), ms: `rays` rays from (0, 0, -2.5)
-    along (0, 0, 1) + N(0, 0.25) in x and y, normalised; background near
-    0.5, far 5.0; the human branch on every ray against the body proxy with
-    identity transforms, geo_threshold 0.25; bf16, white background."""
-    spec, model = _hybrid_model(device, overrides)
-    body = body_proxy_smpl_model(subdivisions=body_subdivisions, device=device)
-    topo = mesh_ops.MeshTopology.build(body.faces, body.num_verts, device)
-    verts = body.v_template
-    ts = torch.eye(4, device=device).repeat(body.num_verts, 1, 1)
-    jitter = np.random.default_rng(3).normal(size=(rays, 3)) * np.array([0.25, 0.25, 0.0])
-    d = torch.as_tensor(jitter + np.array([0.0, 0.0, 1.0]), dtype=torch.float32)
-    dirs = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).to(device)
-    origins = torch.zeros(rays, 3, device=device)
-    origins[:, 2] = -2.5
-    bkg_near = torch.full((rays, 1), 0.5, device=device)
-    bkg_far = torch.full((rays, 1), 5.0, device=device)
-
-    @torch.no_grad()
-    def chunk(o):
-        rgb, depth, _ = renderer._hybrid_chunk(
-            spec, model, topo, o, dirs, bkg_near, bkg_far, verts, ts, 0.25, samples, importance,
-            True, knn_k, torch.bfloat16, knn_stride, use_kernels)
-        return rgb.sum() + depth.sum()
-
-    return chained_ms(device, chunk, origins, iters)
+                        knn_stride=4, overrides=None, body_subdivisions=5):
+    """Hybrid chunk (bench.py:597-656), ms: one chunk's frame through the
+    renderer's own path, `bench_hybrid_frame` on a sqrt(rays) x sqrt(rays)
+    `frame_capture` (64x64 at 4,096 rays; the 1280x720 frame's horizontal
+    field of view) in one chunk of `rays` rays, `iters` frames timed as it
+    times them. The human branch runs on the hit rays only, where
+    bench.py's chunk runs it on every ray; the 27.74-27.80 ms that this key
+    read on the H100 timed a per-chunk path that ran it on every ray, since
+    removed."""
+    side = math.isqrt(rays)
+    if side * side != rays:
+        raise ValueError(f"hybrid_render: rays={rays} is not a square number of pixels")
+    sec, _ = bench_hybrid_frame(
+        device, h=side, w=side, rays_per_batch=rays, samples=samples, importance=importance,
+        use_kernels=use_kernels, knn_stride=knn_stride, frames=iters, focal=800.0 * side / 1280,
+        overrides=overrides, body_subdivisions=body_subdivisions)
+    return sec * 1e3
 
 
 def frame_capture(h=720, w=1280, focal=800.0):

@@ -1,21 +1,27 @@
 """Renderers (counterpart of the planar paths of neuman_tpu/render/renderer.py:
-`_bkg_branch_planar`, `_human_branch_planar`, `_hybrid_chunk_planar`,
-`render_hybrid_nerf`, `render_smpl_nerf`, `render_hybrid_nerf_multi_persons`,
-and `render_vanilla`, the background-only render the background trainer
+`_bkg_branch_planar`, `_human_branch_planar`, `render_hybrid_nerf`,
+`render_smpl_nerf`, `render_hybrid_nerf_multi_persons`, and
+`render_vanilla`, the background-only render the background trainer
 validates with).
 
-`render_hybrid_nerf` renders a frame by the compact dispatch: one hit test
-over the frame's rays (those that pass within geo_threshold of a body
-vertex) and one host wait for the frame's hit list; every ray through the
-background path, chunk by chunk, each chunk keeping the samples of its hit
-rays (a contiguous slice of the ascending list); then the human branch
-(warp + canonical net) over the hit list in chunks of `rays_per_batch`
-rows, each chunk's human samples merged with the kept background samples
-by z. `render_smpl_nerf` (the human alone, posed or in canonical space)
-and `render_hybrid_nerf_multi_persons` (several actors in one scene)
-dispatch the same way: misses get the constant or background pixel, and
-the human branches run on the hit rays only (for several actors, the
-union of theirs).
+One frame path behind the four renderers, by the compact dispatch:
+- the hit test (`_frame_hit_test`): each actor's geometry-guided near and
+  far over the frame's rays (a ray hits when it passes within
+  geo_threshold of a body vertex), then one host wait for the frame's hit
+  list (`_hit_list`);
+- the background loop (`_bkg_frame`): every ray through the background
+  path, chunk by chunk, each chunk keeping the samples of its hit rays (a
+  contiguous slice of the ascending list);
+- the branches (`_hybrid_frame`): every actor's human branch (warp +
+  canonical net) over the hit list in chunks of `rays_per_batch` rows,
+  each chunk's human samples merged by z with its kept background samples.
+`render_vanilla` is the background loop without a hit list (and passes
+NeRF-T's frame time); `render_hybrid_nerf` is the frame of one actor and
+adds its acc; `render_hybrid_nerf_multi_persons` is the frame of several,
+whose hit list is the union of theirs; `render_smpl_nerf` (the human
+alone, posed or in canonical space) takes the hit test and runs its own
+branch loop over the gathered hit list, the misses getting the constant
+pixel.
 
 The MLPs run through the `nerf_mlp` kernel, the warp's closest-point
 query through the `ericson_select` kernel and the hit test through the
@@ -26,12 +32,13 @@ so it runs chunk by chunk).
 
 The spans of utils/tracing.py mark a frame's hit test (`render.hit_test`,
 once a frame), the host's wait for the hit list (`render.hit_sync`, once a
-frame: `torch.nonzero` and the chunks' bounds in the list) and the human
-branches (`render.human_branch`, one a branch call); the counter
-`render.hit_rays` adds the hit rays and `render.branch_rays` the rows
-handed to the branches, both of which the host holds by then. The
-multi-person renderer adds the span `render.merge` and the counter
-`render.actor_rays` (its docstring).
+frame: `torch.nonzero` and the chunks' bounds in the list), the human
+branches (`render.human_branch`, one a branch call) and, in the hybrid
+frame, a hit chunk's merge and integration (`render.merge`). The counter
+`render.hit_rays` adds the hit rays; in the hybrid frame
+`render.branch_rays` adds the rows handed to each actor's branch, and
+`render.actor_rays` (while a profiler records: a device sum) the rows of
+them that the actor's own hit test hits.
 
 With a data `mesh` (parallel/mesh.py, the JAX renderers' `mesh=`) each
 chunk's rays are split over the ranks (`ChunkRows`): every rank runs its
@@ -159,42 +166,6 @@ def _human_branch(human_spec, human_net, topology, origins, dirs, near, far, pos
     return z, sigma * interval_comp, rgb_c
 
 
-def _merge_human(bkg, hit, h_z, h_sigma, h_rgb_c, bkg_far, white_bkg):
-    """Background samples `bkg` (from _bkg_branch) and human samples merged
-    along each ray: (rgb [R, 3], depth [R], acc [R]); rays that miss the
-    body (hit False) get the background pixel and acc 0."""
-    f_z, f_sigma, f_rgb_c, dir_norm = bkg
-    # misses: dummy samples beyond the far plane with zero density
-    t = torch.linspace(1.0, 2.0, h_z.shape[1], device=h_z.device)
-    h_z = torch.where(hit[:, None], h_z, t[None] * bkg_far.reshape(-1, 1) * 2.0)
-    h_sigma = torch.where(hit[:, None], h_sigma, -1e9)
-    z, sigma, rgb_c = volume.sort_merge_planar([f_z, h_z], [f_sigma, h_sigma], [f_rgb_c, h_rgb_c])
-    merged_rgb, _, _, _, merged_depth = volume.integrate_planar(sigma, rgb_c, z, dir_norm, white_bkg)
-    bkg_rgb, _, _, _, bkg_depth = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
-    h_acc = volume.integrate_planar(h_sigma, h_rgb_c, h_z, dir_norm, white_bkg)[2]
-    rgb = torch.where(hit[:, None], merged_rgb, bkg_rgb)
-    depth = torch.where(hit, merged_depth, bkg_depth)
-    return rgb, depth, torch.where(hit, h_acc, 0.0)
-
-
-def _hybrid_chunk(spec, model, topology, origins, dirs, bkg_near, bkg_far, posed_verts,
-                  Ts, geo_threshold, samples_per_ray, importance_samples_per_ray,
-                  white_bkg, knn_k, compute_dtype, knn_stride=1, use_kernels=True):
-    """Background and human samples merged along each ray of a chunk:
-    (rgb [R, 3], depth [R], acc [R])."""
-    bkg = _bkg_branch(
-        spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, origins, dirs,
-        bkg_near, bkg_far, samples_per_ray, importance_samples_per_ray, white_bkg,
-        compute_dtype, use_kernels, dir_chunk=(dirs, slice(None)),
-    )
-    near, far = _near_far(use_kernels)(origins, dirs, posed_verts, geo_threshold)
-    human = _human_branch(
-        spec.human, model.coarse_human_net.nerf, topology, origins, dirs, near, far,
-        posed_verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels,
-    )
-    return _merge_human(bkg, near < far, *human, bkg_far, white_bkg)
-
-
 def _frame_hit_test(origins, dirs, verts_list, rows, geo_threshold, use_kernels):
     """(this rank's rows of the frame: a slice or an index tensor, and for
     each actor of `verts_list` the geometry-guided (near, far) [rows.local]
@@ -233,13 +204,6 @@ def _hit_list(hit, rows):
     return hits, list(zip(ends[:-1], ends[1:]))
 
 
-def _hit_chunks(hits, rays_per_batch):
-    """The hit list in chunks of `rays_per_batch` rows, the human branches'
-    calls: (the chunk's place in the list, a slice; its rows)."""
-    return [(slice(h, h + rays_per_batch), hits[h:h + rays_per_batch])
-            for h in range(0, hits.numel(), rays_per_batch)]
-
-
 def _joined(parts):
     """Per-row outputs of consecutive slices of the hit list (tuples of
     tensors and lists of tensors) joined into one over the list."""
@@ -252,15 +216,17 @@ def _rows(out, at):
     return tuple([c[at] for c in x] if isinstance(x, list) else x[at] for x in out)
 
 
-def _bkg_frame(bkg_spec, coarse_net, fine_net, cap, origins, dirs, rows, hits, bounds,
+def _bkg_frame(bkg_spec, coarse_net, fine_net, cap, origins, dirs, rows, hit_list,
                samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
-               use_kernels):
+               use_kernels, time_val=None):
     """The background on every ray of this rank's rows, chunk by chunk
     (near and far from `cap`'s "bkg" entries): (rgb [rows.local, 3], depth
     [rows.local] of the background alone, and the hit rays' background
     samples (f_z, f_sigma, f_rgb_c, dir_norm, as `_bkg_branch` gives them)
-    in the order of the hit list; None without hits). hits, bounds: as
-    `_hit_list` gives them."""
+    in the order of the hit list; None without hits). hit_list: (hits,
+    bounds) as `_hit_list` gives them, or None to keep no samples.
+    time_val: NeRF-T nets, as `_bkg_branch` takes it."""
+    hits, bounds = (None, itertools.repeat((0, 0))) if hit_list is None else hit_list
     device = origins.device
     rgb = torch.empty(rows.local, 3, device=device)
     depth = torch.empty(rows.local, device=device)
@@ -272,7 +238,7 @@ def _bkg_frame(bkg_spec, coarse_net, fine_net, cap, origins, dirs, rows, hits, b
         bkg_far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
         f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
             bkg_spec, coarse_net, fine_net, o, d, bkg_near, bkg_far, samples_per_ray,
-            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels,
+            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels, time_val,
             dir_chunk=(dirs[whole], local))
         rgb[dst], _, _, _, depth[dst] = volume.integrate_planar(
             f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)
@@ -280,6 +246,83 @@ def _bkg_frame(bkg_spec, coarse_net, fine_net, cap, origins, dirs, rows, hits, b
             sel = hits[b0:b1] - dst.start
             kept.append((f_z[sel], f_sigma[sel], [c[sel] for c in f_rgb_c], dir_norm[sel]))
     return rgb, depth, (_joined(kept) if kept else None)
+
+
+def _actor(spec, model, posed_verts, faces, Ts, topology, device):
+    """One actor of a frame: (its human spec, canonical net,
+    topology (`topology`, or built from `faces`), vertices [V, 3] and
+    transforms [V, 4, 4] in f32 on `device`)."""
+    verts = torch.as_tensor(posed_verts, dtype=torch.float32, device=device)
+    if topology is None:
+        topology = mesh_ops.MeshTopology.build(faces, len(verts), device)
+    Ts = torch.as_tensor(Ts, dtype=torch.float32, device=device)[: len(verts)]
+    return spec.human, model.coarse_human_net.nerf, topology, verts, Ts
+
+
+def _hybrid_frame(bkg_spec, bkg_model, cap, actors, device, rays_per_batch, samples_per_ray,
+                  importance_samples_per_ray, white_bkg, geo_threshold, knn_k, knn_stride,
+                  compute_dtype, use_kernels, mesh, *, with_acc=False):
+    """The hybrid frame of `actors` (`_actor`s) in the scene of `bkg_model`'s
+    background nets; the other arguments as `render_hybrid_nerf`'s.
+
+    Each actor's branch runs on every row of the union of the actors'
+    hits. On the rows that miss that actor (none with one actor), its
+    samples are then replaced by placeholders at z = linspace(1, 2) x 1e8
+    with sigma -1e9: relu(sigma) = 0 gives them alpha 0 and weight 0, and
+    behind every real sample they leave the real samples' transmittance as
+    it is. They do shorten the last real sample's interval from 1e10 to
+    ~1e8 (the distance to the first placeholder); its alpha, 1 -
+    exp(-relu(sigma) |d| interval), rounds to 1 in f32 at both lengths
+    once relu(sigma) |d| x 1e8 passes ~17, and is 0 at both for a zero
+    density, so the RGB is that of the real samples alone unless the last
+    real sample's density lies between 0 and ~2e-7.
+
+    Returns (rgb [H, W, 3], depth [H, W]) on `device`, and with `with_acc`
+    (one actor) its acc [H, W]: its samples integrated alone."""
+    origins, dirs = cap_rays(cap, device)
+    rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
+                     device)
+    mine, bounds_h = _frame_hit_test(origins, dirs, [a[3] for a in actors], rows,
+                                     geo_threshold, use_kernels)
+    hit_h = [near < far for near, far in bounds_h]
+    any_hit = torch.zeros(rows.local, dtype=torch.bool, device=device)
+    for hit in hit_h:
+        any_hit |= hit
+    hits, bounds = _hit_list(any_hit, rows)
+    rgb, depth, kept = _bkg_frame(
+        bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, cap, origins,
+        dirs, rows, (hits, bounds), samples_per_ray, importance_samples_per_ray, white_bkg,
+        compute_dtype, use_kernels)
+    acc = torch.zeros(rows.local, device=device) if with_acc else None
+    o_mine, d_mine = origins[mine], dirs[mine]
+    dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
+    for first in range(0, hits.numel(), rays_per_batch):  # the branches' calls
+        at = slice(first, first + rays_per_batch)
+        sel = hits[at]
+        f_z, f_sigma, f_rgb_c, dir_norm = _rows(kept, at)
+        zs, sigmas, rgbs = [f_z], [f_sigma], [f_rgb_c]
+        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far), hit in zip(
+                actors, bounds_h, hit_h):
+            with tracing.span("render.human_branch"):
+                h_z, h_sigma, h_rgb_c = _human_branch(
+                    spec_h, net_h, topo_h, o_mine[sel], d_mine[sel], near[sel], far[sel],
+                    verts_h, ts_h, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
+            actor_hit = hit[sel, None]
+            tracing.count("render.branch_rays", sel.numel())
+            if tracing.enabled():  # the sum is a launch: only while a profiler records
+                tracing.count("render.actor_rays", actor_hit.sum())
+            zs.append(torch.where(actor_hit, h_z, dummy_z))
+            sigmas.append(torch.where(actor_hit, h_sigma, -1e9))
+            rgbs.append(h_rgb_c)
+        with tracing.span("render.merge"):
+            z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
+            rgb[sel], _, _, _, depth[sel] = volume.integrate_planar(
+                sigma, rgb_c, z, dir_norm, white_bkg)
+            if with_acc:
+                acc[sel] = volume.integrate_planar(h_sigma, h_rgb_c, h_z, dir_norm, white_bkg)[2]
+    out = (rgb, depth, acc) if with_acc else (rgb, depth)
+    h, w = cap.shape
+    return tuple(x.reshape(h, w, *x.shape[1:]) for x in rows.gather(*out))
 
 
 def cap_rays(cap, device):
@@ -309,18 +352,10 @@ def render_vanilla(spec, coarse_net, cap, fine_net, device, rays_per_batch=32768
     origins, dirs = cap_rays(cap, device)
     rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
                      device)
-    rgb = torch.empty(rows.local, 3, device=device)
     time_val = cap.frame_id["frame_id"] / cap.frame_id["total_frames"] if ablate_nerft else None
-    for src, dst, whole, local in rows:
-        o, d = origins[src], dirs[src]
-        n = o.shape[0]
-        near = torch.full((n, 1), float(cap.near["bkg"]), device=device)
-        far = torch.full((n, 1), float(cap.far["bkg"]), device=device)
-        f_z, f_sigma, f_rgb_c, dir_norm = _bkg_branch(
-            spec, coarse_net, fine_net, o, d, near, far, samples_per_ray,
-            importance_samples_per_ray, white_bkg, compute_dtype, use_kernels, time_val,
-            dir_chunk=(dirs[whole], local))
-        rgb[dst] = volume.integrate_planar(f_sigma, f_rgb_c, f_z, dir_norm, white_bkg)[0]
+    rgb, _, _ = _bkg_frame(spec, coarse_net, fine_net, cap, origins, dirs, rows, None,
+                           samples_per_ray, importance_samples_per_ray, white_bkg,
+                           compute_dtype, use_kernels, time_val)
     (rgb,) = rows.gather(rgb)
     h, w = cap.shape
     return rgb.reshape(h, w, 3)
@@ -333,13 +368,10 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
                        geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
                        compute_dtype=torch.bfloat16, use_kernels=True,
                        topology=None, mesh=None):
-    """Hybrid human + scene frame, compact dispatch: one hit test over the
-    frame and one host wait for its hit list; the background chunk by
-    chunk, the samples of each chunk's hit rays kept; then the human branch
-    over the hit list in chunks of `rays_per_batch` rows, each merged by z
-    with its rays' kept background samples. The MLPs run in
-    `compute_dtype` (bf16 storage and products with f32 accumulation by
-    default, as the JAX renderer's default; float32 for exact f32).
+    """Hybrid human + scene frame: the frame path of one actor
+    (`_hybrid_frame`). The MLPs run in `compute_dtype` (bf16 storage and
+    products with f32 accumulation by default, as the JAX renderer's
+    default; float32 for exact f32).
 
     spec: HumanNeRFSpec; model: HumanNeRF on `device`; cap: a capture with
     .shape (H, W), .intrinsic_matrix, .cam_pose.camera_to_world and the
@@ -350,35 +382,10 @@ def render_hybrid_nerf(spec, model, cap, posed_verts, faces, Ts, device,
     own rows and branches over their hit list).
     Returns (rgb [H, W, 3], depth [H, W], acc [H, W]) on `device`.
     """
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    if topology is None:
-        topology = mesh_ops.MeshTopology.build(faces, len(posed_verts), device)
-    verts, Ts = f32(posed_verts), f32(Ts)[: len(posed_verts)]
-    origins, dirs = cap_rays(cap, device)
-    rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
-                     device)
-    mine, ((near, far),) = _frame_hit_test(origins, dirs, [verts], rows, geo_threshold,
-                                           use_kernels)
-    hits, bounds = _hit_list(near < far, rows)
-    rgb, depth, kept = _bkg_frame(
-        spec.bkg, model.coarse_bkg_net.nerf, model.fine_bkg_net.nerf, cap, origins, dirs, rows,
-        hits, bounds, samples_per_ray, importance_samples_per_ray, white_bkg, compute_dtype,
-        use_kernels)
-    acc = torch.zeros(rows.local, device=device)
-    o_mine, d_mine = origins[mine], dirs[mine]
-    for at, sel in _hit_chunks(hits, rays_per_batch):
-        with tracing.span("render.human_branch"):
-            human = _human_branch(
-                spec.human, model.coarse_human_net.nerf, topology, o_mine[sel], d_mine[sel],
-                near[sel], far[sel], verts, Ts, samples_per_ray, knn_k, compute_dtype,
-                knn_stride, use_kernels)
-        tracing.count("render.branch_rays", sel.numel())
-        bkg_far = torch.full((sel.numel(), 1), float(cap.far["bkg"]), device=device)
-        rgb[sel], depth[sel], acc[sel] = _merge_human(
-            _rows(kept, at), torch.ones_like(sel, dtype=torch.bool), *human, bkg_far, white_bkg)
-    rgb, depth, acc = rows.gather(rgb, depth, acc)
-    h, w = cap.shape
-    return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)
+    actor = _actor(spec, model, posed_verts, faces, Ts, topology, device)
+    return _hybrid_frame(spec, model, cap, [actor], device, rays_per_batch, samples_per_ray,
+                         importance_samples_per_ray, white_bkg, geo_threshold, knn_k,
+                         knn_stride, compute_dtype, use_kernels, mesh, with_acc=True)
 
 
 @torch.no_grad()
@@ -396,12 +403,10 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     hit list for the human branch. Arguments otherwise as
     `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth
     [H, W], acc [H, W]) on `device`."""
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    verts = f32(posed_verts)
-    if topology is None:
-        topology = mesh_ops.MeshTopology.build(faces, len(verts), device)
-    Ts = (torch.eye(4, device=device).repeat(len(verts), 1, 1) if Ts is None
-          else f32(Ts)[: len(verts)])
+    if Ts is None:
+        Ts = torch.eye(4, device=device).repeat(len(posed_verts), 1, 1)
+    human_spec, net, topology, verts, Ts = _actor(spec, model, posed_verts, faces, Ts, topology,
+                                                  device)
     origins, dirs = cap_rays(cap, device)
     total = origins.shape[0]
     rgb = torch.full((total, 3), 1.0 if white_bkg else 0.0, device=device)
@@ -409,20 +414,8 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
     acc = torch.zeros(total, device=device)
     mesh = _shard_mesh(mesh, rays_per_batch)
     rows = ChunkRows(total, rays_per_batch, mesh, device)
-    with tracing.span("render.hit_test"):  # one span over the loop: nothing else runs in it
-        if use_kernels and origins.is_cuda:
-            # the kernel holds no [rays, V] distances: this rank's rows at once
-            mine = (slice(None) if mesh is None
-                    else torch.cat([src for src, _, _, _ in rows]))
-            near, far = ray_ops.geometry_guided_near_far(origins[mine], dirs[mine], verts,
-                                                         geo_threshold)
-        else:
-            # the plain version holds [rays, V] distances: chunk by chunk
-            near = torch.empty(rows.local, device=device)
-            far = torch.empty(rows.local, device=device)
-            for src, dst, _, _ in rows:
-                near[dst], far[dst] = _near_far(use_kernels)(origins[src], dirs[src], verts,
-                                                             geo_threshold)
+    _, ((near, far),) = _frame_hit_test(origins, dirs, [verts], rows, geo_threshold,
+                                        use_kernels)
     near, far = rows.gather(near, far)
     with tracing.span("render.hit_sync"):  # the host waits for the hit test
         hits = torch.nonzero(near < far).squeeze(1)
@@ -437,9 +430,9 @@ def render_smpl_nerf(spec, model, cap, posed_verts, faces, Ts, device, rays_per_
         o, d = origins[sel], dirs[sel]
         with tracing.span("render.human_branch"):
             z, sigma, rgb_c = _human_branch(
-                spec.human, model.coarse_human_net.nerf, topology, o, d, near[sel], far[sel],
-                verts, Ts, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels,
-                render_can, interval_comp, (dirs[hits[whole]], local))
+                human_spec, net, topology, o, d, near[sel], far[sel], verts, Ts, samples_per_ray,
+                knn_k, compute_dtype, knn_stride, use_kernels, render_can, interval_comp,
+                (dirs[hits[whole]], local))
         h_rgb[dst], _, h_acc[dst], _, h_depth[dst] = volume.integrate_planar(
             sigma, rgb_c, z, torch.linalg.norm(d, dim=-1), white_bkg)
     rgb[hits], depth[hits], acc[hits] = rows.gather(h_rgb, h_depth, h_acc)
@@ -455,81 +448,18 @@ def render_hybrid_nerf_multi_persons(bkg_spec, bkg_model, cap, human_specs, huma
                                      geo_threshold=DEFAULT_GEO_THRESH, knn_k=4, knn_stride=1,
                                      compute_dtype=torch.bfloat16, use_kernels=True,
                                      topologies=None, mesh=None):
-    """Several actors composited into one scene, compact dispatch as
-    `render_hybrid_nerf`'s: one hit test an actor over the frame, and one
-    host wait for the hit list of the rays within geo_threshold of any
-    actor (the union of the actors' hits); the background (the nets of
-    `bkg_model`) on every ray, chunk by chunk, the samples of the hit rays
-    kept; then, for each chunk of `rays_per_batch` rows of the hit list,
-    every actor's human branch (the canonical net of its HumanNeRF in
-    `human_models`, its vertices, faces and transforms) and one merge by z
-    over the background and all actors.
-
-    Each actor's branch runs on every row of the union. On the rows that
-    miss that actor, its samples are then replaced by placeholders at z =
-    linspace(1, 2) x 1e8 with sigma -1e9: relu(sigma) = 0 gives them alpha 0
-    and weight 0, and behind every real sample they leave the real samples'
-    transmittance as it is. They do shorten the last real sample's interval
-    from 1e10 to ~1e8 (the distance to the first placeholder); its alpha,
-    1 - exp(-relu(sigma) |d| interval), rounds to 1 in f32 at both lengths
-    once relu(sigma) |d| x 1e8 passes ~17, and is 0 at both for a zero
-    density, so the RGB is that of the real samples alone unless the last
-    real sample's density lies between 0 and ~2e-7.
-
-    topologies: one prebuilt MeshTopology per actor, of its faces (as
-    `render_hybrid_nerf`'s `topology=`); None builds them from `faces_list`.
-    mesh: as `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth [H, W]) on
-    `device`.
-
-    Besides the spans and the counters of `render_hybrid_nerf`, a hit
-    chunk's merge and integration are the span `render.merge`; the counter
-    `render.branch_rays` adds the rows handed to each actor's branch, and
-    `render.actor_rays` (while a profiler records: a device sum) the rows of
-    them that the actor's own hit test hits."""
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    """Several actors composited into one scene: the frame path
+    (`_hybrid_frame`) of one actor a HumanNeRF of `human_models` (its
+    canonical net) with its spec, vertices, faces and transforms; the
+    background from the nets of `bkg_model`. topologies: one prebuilt
+    MeshTopology per actor, of its faces (as `render_hybrid_nerf`'s
+    `topology=`); None builds them from `faces_list`. mesh: as
+    `render_hybrid_nerf`. Returns (rgb [H, W, 3], depth [H, W]) on
+    `device`."""
     if topologies is None:
-        topologies = [mesh_ops.MeshTopology.build(faces_h, len(verts_h), device)
-                      for verts_h, faces_h in zip(posed_verts_list, faces_list)]
-    actors = []
-    for spec_h, model_h, verts_h, topo_h, ts_h in zip(human_specs, human_models,
-                                                      posed_verts_list, topologies, Ts_list):
-        verts_h = f32(verts_h)
-        actors.append((spec_h.human, model_h.coarse_human_net.nerf, topo_h, verts_h,
-                       f32(ts_h)[: len(verts_h)]))
-    origins, dirs = cap_rays(cap, device)
-    rows = ChunkRows(origins.shape[0], rays_per_batch, _shard_mesh(mesh, rays_per_batch),
-                     device)
-    mine, bounds_h = _frame_hit_test(origins, dirs, [a[3] for a in actors], rows,
-                                     geo_threshold, use_kernels)
-    any_hit = torch.zeros(rows.local, dtype=torch.bool, device=device)
-    for near, far in bounds_h:
-        any_hit |= near < far
-    hits, bounds = _hit_list(any_hit, rows)
-    rgb, depth, kept = _bkg_frame(
-        bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, cap, origins,
-        dirs, rows, hits, bounds, samples_per_ray, importance_samples_per_ray, white_bkg,
-        compute_dtype, use_kernels)
-    o_mine, d_mine = origins[mine], dirs[mine]
-    dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
-    for at, sel in _hit_chunks(hits, rays_per_batch):
-        f_z, f_sigma, f_rgb_c, dir_norm = _rows(kept, at)
-        zs, sigmas, rgbs = [f_z], [f_sigma], [f_rgb_c]
-        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far) in zip(actors, bounds_h):
-            with tracing.span("render.human_branch"):
-                h_z, h_sigma, h_rgb_c = _human_branch(
-                    spec_h, net_h, topo_h, o_mine[sel], d_mine[sel], near[sel], far[sel],
-                    verts_h, ts_h, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
-            hit = (near < far)[sel, None]
-            tracing.count("render.branch_rays", sel.numel())
-            if tracing.enabled():  # the sum is a launch: only while a profiler records
-                tracing.count("render.actor_rays", hit.sum())
-            zs.append(torch.where(hit, h_z, dummy_z))
-            sigmas.append(torch.where(hit, h_sigma, -1e9))
-            rgbs.append(h_rgb_c)
-        with tracing.span("render.merge"):
-            z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
-            rgb[sel], _, _, _, depth[sel] = volume.integrate_planar(
-                sigma, rgb_c, z, dir_norm, white_bkg)
-    rgb, depth = rows.gather(rgb, depth)
-    h, w = cap.shape
-    return rgb.reshape(h, w, 3), depth.reshape(h, w)
+        topologies = [None] * len(posed_verts_list)
+    actors = [_actor(*a, device) for a in zip(human_specs, human_models, posed_verts_list,
+                                              faces_list, Ts_list, topologies)]
+    return _hybrid_frame(bkg_spec, bkg_model, cap, actors, device, rays_per_batch,
+                         samples_per_ray, importance_samples_per_ray, white_bkg, geo_threshold,
+                         knn_k, knn_stride, compute_dtype, use_kernels, mesh)

@@ -1,4 +1,4 @@
-"""The port's ray ops, volume ops, hybrid chunk and frame vs neuman_tpu."""
+"""The port's ray ops, volume ops and renderers vs neuman_tpu."""
 
 import math
 
@@ -12,11 +12,9 @@ from neuman_tpu.cameras.pinhole import PinholeCamera
 from neuman_tpu.cameras.pose import CameraPose
 from neuman_tpu.geometry.rotation import Rotation, Translation
 from neuman_tpu.ops import fused as jfused
-from neuman_tpu.ops import mesh as jmesh
 from neuman_tpu.ops import rays as jrays
 from neuman_tpu.render import renderer as jrenderer
 from neuman_tpu_torch.models import smpl as tsmpl
-from neuman_tpu_torch.ops import mesh as tmesh
 from neuman_tpu_torch.ops import rays as trays
 from neuman_tpu_torch.ops import volume as tvolume
 from neuman_tpu_torch.render import renderer as trenderer
@@ -122,28 +120,6 @@ def test_geometry_guided_near_far_matches_jax(scene):
     # CPU tensors take the plain version (the kernel's twin on the card)
     pn, pf = trays.geometry_guided_near_far_plain(t(o), t(d), t(verts), 0.2)
     assert torch.equal(tn, pn) and torch.equal(tf, pf)
-
-
-def test_hybrid_chunk_matches_jax(scene):
-    jspec, params, tspec, model, faces, verts, ts = scene
-    o, d = _aimed_rays(verts)
-    near, far = np.full((16, 1), 0.5, np.float32), np.full((16, 1), 6.0, np.float32)
-    ref = jrenderer._hybrid_chunk_planar(
-        jspec, params, jmesh.MeshTopology.build(faces, len(verts)), jnp.asarray(o),
-        jnp.asarray(d), jnp.asarray(near), jnp.asarray(far), jnp.asarray(verts),
-        jnp.asarray(ts), jnp.float32(0.2), samples_per_ray=S,
-        importance_samples_per_ray=I, white_bkg=True, knn_k=4,
-        compute_dtype_name="float32", use_pallas=False, knn_stride=4,
-    )
-    with torch.no_grad():
-        out = trenderer._hybrid_chunk(
-            tspec, model, tmesh.MeshTopology.build(faces, len(verts)), t(o), t(d),
-            t(near), t(far), t(verts), t(ts), 0.2, S, I, True, 4, torch.float32, knn_stride=4,
-        )
-    acc = np.asarray(ref[2])
-    assert (acc > 0.5).any() and (acc == 0).any()  # some rays hit, some miss
-    for a, b in zip(out, ref):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
 def _capture(h=24, w=16):
@@ -275,18 +251,19 @@ def _traced(render):
         tracing.reset()
 
 
-@pytest.mark.parametrize("actors", [1, 2], ids=["hybrid", "two_actors"])
+@pytest.mark.parametrize("renderer", ["hybrid", "two_actors", "smpl"])
 @pytest.mark.parametrize("frame", list(HIT_LIST_FRAMES))
-def test_frame_hit_list_dispatch(scene, frame, actors):
-    """The hybrid renderers' frame-level hit list (`render_hybrid_nerf` for
-    one actor, `render_hybrid_nerf_multi_persons` for two, the second 0.6
-    to the side) at the JAX frame's bars in f32, on a frame whose hit list
-    spans several branch calls, one with chunks without hits between
-    chunks with hits, and one with no hit; traced: one hit test and one
-    host wait a frame, each actor's branch over the union of the hits in
-    calls of rays_per_batch rows."""
+def test_frame_hit_list_dispatch(scene, frame, renderer):
+    """The renderers' frame-level hit list (`render_hybrid_nerf` for one
+    actor, `render_hybrid_nerf_multi_persons` for two, the second 0.6 to
+    the side, and the posed `render_smpl_nerf`) at the JAX frame's bars in
+    f32, on a frame whose hit list spans several branch calls, one with
+    chunks without hits between chunks with hits, and one with no hit;
+    traced: one hit test and one host wait a frame, each actor's branch
+    over the union of the hits in calls of rays_per_batch rows."""
     jspec, params, tspec, model, faces, verts, ts = scene
     rays_per_batch, away = HIT_LIST_FRAMES[frame]
+    actors = 2 if renderer == "two_actors" else 1
     cap = _capture()
     vs, tss = [], []
     for k in range(actors):
@@ -306,24 +283,36 @@ def test_frame_hit_list_dispatch(scene, frame, actors):
             if not chunk_hit[i] and any(chunk_hit[:i]) and any(chunk_hit[i + 1:])]
     assert {"several_calls": hits > 2 * rays_per_batch, "chunk_gap": len(gaps) > 0,
             "no_hit": hits == 0}[frame]
-    kw = dict(samples_per_ray=S, importance_samples_per_ray=I, geo_threshold=0.2, knn_k=4,
-              knn_stride=4)
-    if actors == 1:
-        ref_rgb, ref_depth, ref_acc = jrenderer.render_hybrid_nerf(
-            jspec, params, cap, vs[0], faces, tss[0], return_acc=True, dispatch="compact",
-            compute_dtype_name="float32", use_pallas=False, rays_per_batch=128, **kw)
-        (rgb, depth, acc), snap = _traced(lambda: trenderer.render_hybrid_nerf(
+    kw = dict(samples_per_ray=S, geo_threshold=0.2, knn_k=4, knn_stride=4)
+    if renderer == "smpl":
+        ref_rgb, ref_depth, ref_acc = jrenderer.render_smpl_nerf(
+            jspec, params, cap, vs[0], faces, tss[0], return_depth=True, return_mask=True,
+            compute_dtype_name="float32", dispatch="compact", rays_per_batch=128, **kw)
+        (rgb, depth, acc), snap = _traced(lambda: trenderer.render_smpl_nerf(
             tspec, model, cap, vs[0], faces, tss[0], device="cpu", compute_dtype=torch.float32,
             rays_per_batch=rays_per_batch, **kw))
+        hit = ref_acc > 0
+        np.testing.assert_array_equal(acc.numpy() > 0, hit)
+        assert (rgb.numpy()[~hit] == 1.0).all() and (depth.numpy()[~hit] == 0.0).all()
+        np.testing.assert_allclose(acc.numpy(), ref_acc, atol=1e-3)
+    elif actors == 1:
+        ref_rgb, ref_depth, ref_acc = jrenderer.render_hybrid_nerf(
+            jspec, params, cap, vs[0], faces, tss[0], return_acc=True, dispatch="compact",
+            compute_dtype_name="float32", use_pallas=False, rays_per_batch=128,
+            importance_samples_per_ray=I, **kw)
+        (rgb, depth, acc), snap = _traced(lambda: trenderer.render_hybrid_nerf(
+            tspec, model, cap, vs[0], faces, tss[0], device="cpu", compute_dtype=torch.float32,
+            rays_per_batch=rays_per_batch, importance_samples_per_ray=I, **kw))
         np.testing.assert_array_equal(acc.numpy() > 0, ref_acc > 0)
     else:
         ref_rgb, ref_depth = jrenderer.render_hybrid_nerf_multi_persons(
             jspec, params, cap, [jspec] * actors, [params] * actors, vs, [faces] * actors, tss,
             return_depth=True, compute_dtype_name="float32", dispatch="compact",
-            rays_per_batch=128, **kw)
+            rays_per_batch=128, importance_samples_per_ray=I, **kw)
         (rgb, depth), snap = _traced(lambda: trenderer.render_hybrid_nerf_multi_persons(
             tspec, model, cap, [tspec] * actors, [model] * actors, vs, [faces] * actors, tss,
-            device="cpu", compute_dtype=torch.float32, rays_per_batch=rays_per_batch, **kw))
+            device="cpu", compute_dtype=torch.float32, rays_per_batch=rays_per_batch,
+            importance_samples_per_ray=I, **kw))
     assert _psnr(rgb, ref_rgb) >= 40.0
     np.testing.assert_allclose(depth.numpy(), ref_depth, rtol=1e-3, atol=1e-3)
     calls = lambda name: snap["spans"].get(name, {}).get("calls", 0)
@@ -331,4 +320,5 @@ def test_frame_hit_list_dispatch(scene, frame, actors):
     assert counters["render.hit_rays"] == hits
     assert calls("render.hit_test") == calls("render.hit_sync") == 1
     assert calls("render.human_branch") == actors * math.ceil(hits / rays_per_batch)
-    assert counters.get("render.branch_rays", 0) == actors * hits
+    if renderer != "smpl":  # the hybrid frame's counter
+        assert counters.get("render.branch_rays", 0) == actors * hits
