@@ -5,22 +5,26 @@
 
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc builds the seven kernel libraries (eight kernels) from
+  2. build: nvcc builds the eight kernel libraries (nine kernels) from
      neuman_tpu_torch/csrc/ (sm_90a), all started together; then each
      kernel of the nerf_mlp and offset_mlp pairs (all on mlp_hopper.cuh),
-     of bucketed_knn and of ericson_select with its registers, spill bytes,
-     stack and static shared memory (ptxas -v) and the dynamic shared
-     memory it launches with;
+     of bucketed_knn, ericson_select and exact_knn with its registers,
+     spill bytes, stack and static shared memory (ptxas -v) and the
+     dynamic shared memory it launches with;
   3. mlp: nerf_mlp kernel vs its plain PyTorch version at full width (8x256,
      PE 10 + 4 bands), R=1024 x S=64: per-ray posenc and per-sample
      rotate, f32 and bf16;
   4. mesh: ericson_select kernel vs its plain version, N=65,536 ray samples
      on the body-proxy mesh (V=10,242), k=4, stride 1 and 4, and the human
-     step's N=196,608, stride 4 and 1;
+     step's N=196,608, stride 4 and 1; the exact_knn kernel vs its plain
+     version (`torch.equal`) at a render branch call's shape, Nq=65,536
+     groups of 4 samples on V=6,890, k=4: its ms against the bound (4
+     instructions a pair) and the GEMM + torch.topk it replaced;
   5. slice: the render slice at full width: one 4096-ray hybrid chunk in
      f32, kernels vs plain, then a 270x480 frame through render_hybrid_nerf
      at its default bf16 (the render path; launch counts reset just before
-     it) against the plain bf16 frame;
+     it) against the plain bf16 frame; exact_knn launched once a branch
+     call (as many as ericson_select);
   6. bwd: nerf_mlp_bwd and nerf_mlp kernels vs their plain versions at full
      width at the background train step's shapes, R=4096 x S=128 and S=256
      per-ray posenc, S=128 per-sample rotate, f32 and bf16; two backward
@@ -376,6 +380,12 @@ HIT_GEO = 0.06
 # settle the test (a ray grazing a sphere): at most this share of the rays
 HIT_GAP = 1e-3
 HIT_FLIP_SHARE = 1e-4
+# exact_knn at a render branch call's shape: 2,048 rays x 128 samples in
+# groups of 4 on SMPL's vertex count; the fewest instructions a pair (3
+# FFMA for the score, 1 compare)
+EXACT_RAYS, EXACT_SAMPLES, EXACT_STRIDE = 2048, 128, 4
+EXACT_VERTS = 6890
+EXACT_INSTR_PER_PAIR = 4
 
 
 def log(phase, **fields):
@@ -518,7 +528,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = (nerf_mlp_vjp._lib, offset_mlp._lib_bwd, nerf_mlp._lib, offset_mlp._lib_fwd,
-            meshquery._lib, knn._lib, hit_test._lib)
+            meshquery._lib, knn._lib, hit_test._lib, knn._lib_exact)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -554,7 +564,7 @@ def phase_build():
     # for k <= 4, else 2; its dynamic shared memory the resident table of the
     # main path's body)
     knn_smem = knn.knn_plan(KNN_QUERIES[0], 10 * 4 ** BODY_SUBDIVISIONS + 2, KNN_K, 132)
-    for lib in ("bucketed_knn", "ericson_select"):
+    for lib in ("bucketed_knn", "ericson_select", "exact_knn"):
         for fn, res in sorted(_build.kernel_resources(lib).items()):
             kernel, args = _mesh_kernel_name(fn)
             if kernel is None or "registers" not in res:
@@ -562,7 +572,8 @@ def phase_build():
             if res.get("spill_stores", 0) or res.get("spill_loads", 0):
                 spills.append(f"{lib}:{kernel}<{','.join(map(str, args))}>")
             names = {"bucketed_knn_kernel": ("queries", "k"), "ericson_select_kernel": ("members",),
-                     "ericson_signed_select_kernel": ("members", "knn_idx")}
+                     "ericson_signed_select_kernel": ("members", "knn_idx"),
+                     "exact_knn_kernel": ("queries", "k"), "exact_knn_combine_kernel": ("k",)}
             log("ptxas", library=lib, kernel=kernel,
                 **dict(zip(names.get(kernel, ()), args)), registers=res["registers"],
                 spill_stores=res.get("spill_stores", 0), spill_loads=res.get("spill_loads", 0),
@@ -591,7 +602,8 @@ def _mesh_kernel_name(mangled):
     another function."""
     import re
 
-    m = re.search(r"(bucketed_knn_kernel|ericson_signed_select_kernel|ericson_select_kernel)"
+    m = re.search(r"(bucketed_knn_kernel|ericson_signed_select_kernel|ericson_select_kernel"
+                  r"|exact_knn_kernel|exact_knn_combine_kernel)"
                   r"(I((?:Li\d+E)*)([ix]?)E)?", mangled)
     if m is None:
         return None, ()
@@ -732,13 +744,74 @@ def hold_closest(got, want, gap):
             "bit_equal_plain": bit_equal}, ok
 
 
+def library_knn(verts, q, k):
+    """The render warp's exact KNN before the exact_knn kernel, timed as
+    its yardstick only: an f32 GEMM score (TF32 off) and torch.topk over
+    8,192-query chunks."""
+    import torch
+    from neuman_tpu_torch.ops.precision import no_tf32
+
+    v2 = (verts * verts).sum(-1)[None]
+    with no_tf32():
+        return torch.cat([torch.topk(-(((c * c).sum(-1)[:, None] + v2) - 2.0 * (c @ verts.T)), k,
+                                     dim=-1).indices for c in q.split(8192)])
+
+
+def exact_knn_inputs(mesh_verts, gen):
+    """(verts, queries) at a render branch call's shape: EXACT_VERTS of the
+    mesh's vertices taken evenly; EXACT_RAYS x EXACT_SAMPLES ray samples,
+    each group of EXACT_STRIDE read in place at its middle, as `_query_knn`
+    reads it (Nq=65,536)."""
+    import torch
+
+    v = mesh_verts
+    verts = v[torch.linspace(0, v.shape[0] - 1, EXACT_VERTS, device=v.device).round().long()]
+    pts = _ray_samples(verts, EXACT_RAYS, EXACT_SAMPLES, gen)
+    return verts, pts.reshape(-1, EXACT_STRIDE, 3)[:, EXACT_STRIDE // 2]
+
+
+def exact_knn_case(mesh_verts, gen):
+    """exact_knn against exact_knn_plain (`torch.equal`: the same f32
+    scores and tie rule) on `exact_knn_inputs`, k=4. Returns (0, kernel ms
+    by cuda_ms_min, plain ms, bound ms, "operations", kernel device ms,
+    library ms)."""
+    import torch
+    from neuman_tpu_torch.ops.kernels import knn as kknn
+
+    verts, q = exact_knn_inputs(mesh_verts, gen)
+    nq = q.shape[0]
+    run_k = lambda: kknn.exact_knn(q, verts, KNN_K)
+    run_p = lambda: kknn.exact_knn_plain(q, verts, KNN_K)
+    run_lib = lambda: library_knn(verts, q, KNN_K)
+    got, want, lib = run_k(), run_p(), run_lib()
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    k_ms = cuda_ms_min(run_k)
+    k_dev = device_ms(run_k, ("exact_knn_kernel", "exact_knn_combine_kernel"))
+    p_ms = cuda_ms(run_p, iters=2, warmup=1)
+    lib_ms = cuda_ms_min(run_lib, repeats=3, iters=5, warmup=3)
+    b_ms, b_by = bound_ms(2 * EXACT_INSTR_PER_PAIR * nq * EXACT_VERTS,
+                          12 * nq + 12 * EXACT_VERTS + 8 * KNN_K * nq, "f32")
+    plan = kknn.exact_plan(nq, EXACT_VERTS, KNN_K,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    log("exact_knn", Nq=nq, V=EXACT_VERTS, k=KNN_K, plan=json.dumps(plan, separators=(",", ":")),
+        equal_plain=equal, library_pick_share=f"{(lib == want).float().mean().item():.6f}",
+        kernel_ms=f"{k_ms:.4f}", kernel_device_ms=f"{k_dev:.4f}", plain_ms=f"{p_ms:.3f}",
+        library_ms=f"{lib_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        bound_share=f"{b_ms / k_dev:.3f}", ok=equal)
+    if not equal:
+        raise RuntimeError(f"exact_knn Nq={nq} V={EXACT_VERTS}: kernel differs from plain")
+    return 0.0, k_ms, p_ms, b_ms, b_by, k_dev, lib_ms
+
+
 def phase_mesh(verts, topo, seed):
     """Built with --fmad=false the kernel runs the same IEEE operations as
     the plain version, so d2 and cp agree to 1e-6 (expected: exactly); the
     face id may differ only where another face ties within 1e-6. Shapes:
     the hybrid frame's N=65,536 (stride 1 and 4) and the human step's
     N=196,608 (stride 4, and 1), C=24; each with its plan (points a thread,
-    candidate slices)."""
+    candidate slices). Then `exact_knn_case`. Returns {"ericson": {(N,
+    stride): timings}, "exact_knn": its timings}."""
     import torch
     from neuman_tpu_torch.ops import mesh as mesh_ops
     from neuman_tpu_torch.ops.kernels import meshquery as kmq
@@ -768,7 +841,7 @@ def phase_mesh(verts, topo, seed):
             if not ok:
                 raise RuntimeError(f"ericson_select N={n} stride {stride}: kernel disagrees")
             results[(n, stride)] = (err, k_ms, p_ms, b_ms, b_by, k_dev)
-    return results
+    return {"ericson": results, "exact_knn": exact_knn_case(verts, gen)}
 
 
 class Capture:
@@ -845,7 +918,7 @@ def phase_slice(model, spec, body, device, seed):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = _launches(counted_from)
-    launches = {k: counts[k] for k in ("nerf_mlp", "ericson_select", "hit_test")}
+    launches = {k: counts[k] for k in ("nerf_mlp", "ericson_select", "hit_test", "exact_knn")}
 
     t0 = time.perf_counter()
     p_rgb, _, _ = render(False)
@@ -857,13 +930,15 @@ def phase_slice(model, spec, body, device, seed):
     human_frac = (acc > 0.5).float().mean().item()
     ok = (tuple(rgb.shape) == (h, w, 3) and bool(torch.isfinite(rgb).all())
           and bool(torch.isfinite(depth).all()) and psnr >= FRAME_MIN_PSNR
-          and all(v > 0 for v in launches.values()) and human_frac > 0)
+          and all(v > 0 for v in launches.values()) and human_frac > 0
+          and launches["exact_knn"] == launches["ericson_select"])
     log("frame", H=h, W=w, dtype="bf16", sec_per_frame=f"{sec:.3f}",
         plain_sec_per_frame=f"{plain_sec:.3f}", hit_fraction=f"{hit_frac:.4f}",
         human_fraction=f"{human_frac:.4f}", psnr_vs_plain=f"{psnr:.2f}",
         launches=json.dumps(launches, separators=(",", ":")), ok=ok)
     if not ok:
-        raise RuntimeError("frame: not finite, under the PSNR bar, or a kernel was not launched")
+        raise RuntimeError("frame: not finite, under the PSNR bar, a kernel not launched, or "
+                           "exact_knn not once a branch call")
     return launches
 
 
@@ -1203,11 +1278,10 @@ def phase_offset(model, spec, device, seed):
 
 def knn_exact(verts, pts, k):
     """The exact k nearest of all V vertices of each point, [Nq, k] int64
-    (a top-k over every vertex, in chunks)."""
-    import torch
+    (the exact_knn kernel)."""
     from neuman_tpu_torch.ops import mesh as mesh_ops
 
-    return torch.cat([mesh_ops._query_knn(c, verts, k)[0] for c in pts.split(16384)])
+    return mesh_ops._query_knn(pts, verts, k)[0]
 
 
 def hold_knn(verts, pts, got, want, exact=None):
@@ -2050,7 +2124,7 @@ def phase_renders(model, spec, body, device, seed):
         else:
             shown = (out[2] > 0.5).float().mean().item()
         expect = (("nerf_mlp", "hit_test") if name == "smpl_canonical"
-                  else ("nerf_mlp", "ericson_select", "hit_test"))
+                  else ("nerf_mlp", "ericson_select", "hit_test", "exact_knn"))
         ok = (tuple(out[0].shape) == (h, w, 3) and all(bool(torch.isfinite(t).all()) for t in out)
               and psnr >= FRAME_MIN_PSNR and shown > 0.01
               and all(launches[name].get(k, 0) > 0 for k in expect))
@@ -2281,7 +2355,7 @@ def _render_cli_runs(root, scene_dir, seed, work, trajectory, mocap_frames, gath
                                     gather_mocap_frames, seed + 1)
     common = ["--scene_dir", scene_dir, "--weights_path", weights, *RENDER_CLI_FLAGS]
     orbit = ["--trajectory_resolution", str(trajectory)]
-    warp = ("nerf_mlp", "ericson_select", "hit_test")
+    warp = ("nerf_mlp", "ericson_select", "hit_test", "exact_knn")
     return common, (
         ("test_views", "render_test_views", ["--lpips_weights", lpips_path], warp, 1,
          f"test_views/{name}"),
@@ -3053,7 +3127,9 @@ def main(argv=None):
     # ericson_select N=65,536 stride 4 (phase 4), nerf_mlp_bwd the fine pass of the
     # f32 background step (phase 6), offset_mlp and offset_mlp_bwd the f32
     # human step's shape and bucketed_knn its 49,152 groups (phase 8),
-    # ericson_signed_select the human step's stride-4 query (phase 11).
+    # ericson_signed_select the human step's stride-4 query (phase 11),
+    # exact_knn a render branch call's 65,536 groups (phase 4; its
+    # library_ms the GEMM + torch.topk it replaced, timed as a yardstick).
     # launches: the sum over the main paths, each counted from 0 in its own
     # run and listed in launches_by_path: one hybrid frame (phase 5), the
     # f32 background train path (phase 7) split into train_background (2
@@ -3069,15 +3145,16 @@ def main(argv=None):
     # Phase 17's launches are listed as
     # envelope_quick and left out of `launches`: they compare the kernels
     # with their plain versions.
-    # No single PyTorch call computes any of the seven functions.
+    # No single PyTorch call computes any of the other eight functions.
     def entry(name, source, replaces, by_path, max_abs_err, timing):
         ms, plain_ms, b_ms, b_by, *dev = timing
+        dev, library_ms = (dev + [None, None])[:2]
         main_paths = sum(v for k, v in by_path.items() if not k.startswith("envelope_"))
         return {"name": name, "route": "cuda", "source": f"neuman_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": main_paths,
                 "launches_by_path": by_path, "max_abs_err": max_abs_err, "ms": ms,
-                "device_ms": dev[0] if dev else None, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None}
+                "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": library_ms}
 
     def by_path(name):
         paths = {"render_frame": launches.get(name, 0)}
@@ -3099,8 +3176,8 @@ def main(argv=None):
               max(mlp[(m, "bf16")][0] for m in ("per_ray", "per_sample")),
               mlp[("per_ray", "bf16")][1:]),
         entry("ericson_select", "ericson_select", "neuman_tpu/ops/pallas/meshquery.py:314",
-              by_path("ericson_select"), max(r[0] for r in mesh.values()),
-              mesh[(MESH_RAYS * MESH_SAMPLES, 4)][1:]),
+              by_path("ericson_select"), max(r[0] for r in mesh["ericson"].values()),
+              mesh["ericson"][(MESH_RAYS * MESH_SAMPLES, 4)][1:]),
         entry("nerf_mlp_bwd", "nerf_mlp_bwd", "neuman_tpu/ops/pallas/raymarch_vjp.py:76",
               by_path("nerf_mlp_bwd"), bwd[("per_ray", 256, "f32")][0],
               bwd[("per_ray", 256, "f32")][1:]),
@@ -3114,6 +3191,8 @@ def main(argv=None):
               by_path("ericson_signed_select"), max(r[0] for r in signed.values()), signed[4][1:]),
         entry("hit_test", "hit_test", "none (plain jnp: neuman_tpu/ops/rays.py:181)",
               by_path("hit_test"), max(r[0] for r in hit.values()), hit[HIT_CHUNK][1:]),
+        entry("exact_knn", "exact_knn", "none (plain lax.top_k: neuman_tpu/ops/mesh.py:325)",
+              by_path("exact_knn"), 0.0, mesh["exact_knn"][1:]),
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise RuntimeError("a kernel was launched on no main path: "

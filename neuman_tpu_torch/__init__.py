@@ -44,7 +44,7 @@ Layer map, entry points first:
     ops/rays.py          ray generation, z sampling, inverse CDF, near/far
     ops/volume.py        importance z, merge, volume integration
     ops/mesh.py          vertex KNN, closest point, signed distance, warp
-    ops/kernels/         the eight hand-written CUDA kernels (sm_90a, sources
+    ops/kernels/         the nine hand-written CUDA kernels (sm_90a, sources
                          in csrc/) with their plain PyTorch twins: nerf_mlp and
                          nerf_mlp_bwd, offset_mlp and offset_mlp_bwd (both
                          pairs on mlp_hopper.cuh: wgmma + TMA in bf16, register
@@ -55,7 +55,8 @@ Layer map, entry points first:
                          only), bucketed_knn (the bucket table built in the
                          kernel, resident in shared memory), hit_test (each
                          ray's near and far over the vertex spheres in
-                         registers)
+                         registers), exact_knn (each query's k nearest
+                         vertices of all V in registers)
     models/              PE, NeRF / HumanNeRF / offset nn.Modules, SMPL LBS,
                          LPIPS
     convert.py           neuman_tpu param pytree <-> torch state_dict

@@ -104,8 +104,8 @@ STAGE_KERNELS = {
     "human_step": ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
                    "bucketed_knn", "hit_test"),
     "bkg_step": ("nerf_mlp", "nerf_mlp_bwd"),
-    "hybrid_render": ("nerf_mlp", "ericson_select", "hit_test"),
-    "hybrid_frame": ("nerf_mlp", "ericson_select", "hit_test"),
+    "hybrid_render": ("nerf_mlp", "ericson_select", "hit_test", "exact_knn"),
+    "hybrid_frame": ("nerf_mlp", "ericson_select", "hit_test", "exact_knn"),
 }
 
 

@@ -5,7 +5,7 @@ from neuman_tpu_torch.utils import tracing
 # each wrapper counts its kernel's launches (not the calls that run its
 # plain version) as the counter `launches.<kernel>` of utils/tracing.py
 KERNELS = ("nerf_mlp", "nerf_mlp_bwd", "offset_mlp", "offset_mlp_bwd", "ericson_select",
-           "ericson_signed_select", "bucketed_knn", "hit_test")
+           "ericson_signed_select", "bucketed_knn", "hit_test", "exact_knn")
 
 
 def launches(since=None):

@@ -10,8 +10,8 @@ distance; `signed_distance(fused=True)` takes closest point and sign in one
 kernel, `ericson_signed_select_tables`, which reads the candidates from the
 query tables by KNN index). The candidate phase is the `ericson_select`
 kernel. The KNN is
-exact for the render (one f32 matmul score and a top-k per query chunk)
-and the `bucketed_knn` kernel for training (knn_impl="bucketed").
+the `exact_knn` kernel for the render (the k nearest of all vertices) and
+the `bucketed_knn` kernel for training (knn_impl="bucketed").
 """
 
 from dataclasses import dataclass
@@ -19,14 +19,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from neuman_tpu_torch.ops.kernels.knn import bucketed_knn, bucketed_knn_plain
+from neuman_tpu_torch.ops.kernels.knn import (bucketed_knn, bucketed_knn_plain, exact_knn,
+                                               exact_knn_plain)
 from neuman_tpu_torch.ops.kernels.meshquery import (barycentric_planar, ericson_select,
                                                      ericson_select_plain,
                                                      ericson_signed_select_tables, planar_rows)
-from neuman_tpu_torch.ops.precision import matmul_f32
-
-# queries per KNN score chunk: [8192, V=10242] f32 is 336 MB
-KNN_CHUNK = 8192
 
 
 def build_vertex_face_incidence(faces, num_verts):
@@ -110,11 +107,12 @@ def angle_weighted_vertex_normals(verts, faces):
 
 def _query_knn(points, verts, k, knn_stride=1, knn_impl="exact", use_kernels=True):
     """k nearest vertices of each group of `knn_stride` consecutive points,
-    represented by its middle point. knn_impl "exact": a top-k over every
-    vertex; "bucketed": the `bucketed_knn` kernel (its plain version with
-    use_kernels=False), the k nearest of 64 per-bucket winners, which never
-    holds the [Nq, V] scores in device memory. Returns (knn_idx [Nq, k]
-    int64, stride)."""
+    represented by its middle point. knn_impl "exact": the `exact_knn`
+    kernel, the k nearest of every vertex; "bucketed": the `bucketed_knn`
+    kernel, the k nearest of 64 per-bucket winners. Each takes its plain
+    version with use_kernels=False (and on CPU tensors); neither kernel
+    holds the [Nq, V] scores in device memory. Returns (knn_idx [Nq, k] int64,
+    stride)."""
     n_pts = points.shape[0]
     stride = knn_stride if (knn_stride > 1 and n_pts % knn_stride == 0) else 1
     q = points if stride == 1 else points.reshape(-1, stride, 3)[:, stride // 2]
@@ -123,12 +121,7 @@ def _query_knn(points, verts, k, knn_stride=1, knn_impl="exact", use_kernels=Tru
         return knn(q.detach().contiguous(), verts, k)[0].long(), stride
     if knn_impl != "exact":
         raise ValueError(f"knn_impl must be 'exact' or 'bucketed', not {knn_impl!r}")
-    v2 = (verts * verts).sum(-1)[None, :]
-    out = []
-    for qc in q.split(KNN_CHUNK):
-        d2 = ((qc * qc).sum(-1)[:, None] + v2) - 2.0 * matmul_f32(qc, verts.T)
-        out.append(torch.topk(-d2, k, dim=-1, sorted=True).indices)
-    return torch.cat(out), stride
+    return (exact_knn if use_kernels else exact_knn_plain)(q.detach(), verts.detach(), k), stride
 
 
 def point_mesh_closest_planar(points, verts, topology: MeshTopology, k=4,

@@ -6,9 +6,8 @@ import torch
 
 
 def matmul_f32(a, b):
-    """a @ b with TF32 turned off: ray directions, the vertex-KNN scores and
-    the ray/vertex near-far products lose neighbours and hits at TF32's ~3
-    digits."""
+    """a @ b with TF32 turned off: ray directions and the ray/vertex
+    near-far products lose hits at TF32's ~3 digits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return a @ b
 

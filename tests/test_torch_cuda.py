@@ -395,6 +395,108 @@ def test_bucketed_knn_kernel_refuses_k_over_8(cuda, monkeypatch):
         kknn.bucketed_knn(verts[:64] * 1.1, verts, 9)
 
 
+def _exact_verts(num_verts, device):
+    """V=642 and 40,962: the body proxy at subdivisions 3 and 6 (the last
+    over what one block's shared memory holds); V=6,890: SMPL's count, the
+    hit test's body-shaped rings."""
+    if num_verts == 6890:
+        return hit_case.body_verts(6890, device=device)
+    sub = {642: 3, 40962: 6}[num_verts]
+    return body_proxy_smpl_model(subdivisions=sub, device=device).v_template
+
+
+def _exact_points(verts, nq, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, verts.shape[0], (nq,), generator=g).to(verts.device)
+    return verts[idx] + 0.05 * torch.randn(nq, 3, generator=g).to(verts.device)
+
+
+def _slice_plans(nq, num_verts, k):
+    """The default plan and 1, 2, 7 and V / 64 slices."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    default = kknn.exact_plan(nq, num_verts, k, sms)
+    plans = [default]
+    for slices in (1, 2, 7, -(-num_verts // 64)):
+        sv = -(-num_verts // slices)
+        plans.append({**default, "slices": -(-num_verts // sv), "slice_verts": sv})
+    return plans
+
+
+@pytest.mark.parametrize("num_verts", [642, 6890, 40962])
+@pytest.mark.parametrize("k", [3, 4, 6, 8])
+def test_exact_knn_kernel_equal_plain(cuda, num_verts, k, monkeypatch):
+    """The kernel's indices are `torch.equal` to `exact_knn_plain`'s (the
+    same f32 scores, the same tie rule) at a ragged Nq = 4,099, under the
+    default plan and 1, 2, 7 and V / 64 vertex slices; and at the render's
+    Nq = 65,536 on V = 6,890, k = 4, in one launch a call."""
+    verts = _exact_verts(num_verts, cuda)
+    pts = _exact_points(verts, 4099)
+    want = kknn.exact_knn_plain(pts, verts, k)
+    for plan in _slice_plans(4099, num_verts, k):
+        monkeypatch.setattr(kknn, "exact_plan", lambda *_, plan=plan: plan)
+        before = kernel_registry.launches()
+        got = kknn.exact_knn(pts, verts, k)
+        assert kernel_registry.launches(before)["exact_knn"] == 1
+        assert got.dtype == torch.int64 and torch.equal(got, want), plan
+    monkeypatch.undo()
+    if num_verts == 6890 and k == 4:
+        pts = _exact_points(verts, 65536, seed=6)
+        assert torch.equal(kknn.exact_knn(pts, verts, 4), kknn.exact_knn_plain(pts, verts, 4))
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_exact_knn_kernel_equal_on_grid_ties(cuda, k, monkeypatch):
+    """Where most scores tie exactly (an integer grid, duplicated
+    vertices), the lower index wins inside a slice and across slices: the
+    kernel equals the plain version under every plan."""
+    pts, verts = _grid_knn_case(1000, 1001, cuda)
+    want = kknn.exact_knn_plain(pts, verts, k)
+    for plan in _slice_plans(1001, 1000, k):
+        monkeypatch.setattr(kknn, "exact_plan", lambda *_, plan=plan: plan)
+        assert torch.equal(kknn.exact_knn(pts, verts, k), want), plan
+
+
+def test_query_knn_exact_launches_the_kernel_and_no_topk(cuda, monkeypatch):
+    """`_query_knn(knn_impl="exact")` on CUDA tensors (a branch call's
+    65,536 groups of 4 samples on V = 6,890): one `exact_knn` launch, whose
+    device kernels are the scan and, sliced, its merge; no top-k, sort or
+    GEMM; the plain version's picks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    verts = _exact_verts(6890, cuda)
+    pts = _exact_points(verts, 4 * 65536)
+    want = kknn.exact_knn_plain(pts.reshape(-1, 4, 3)[:, 2].contiguous(), verts, 4)
+    for name in ("topk", "sort"):
+        monkeypatch.setattr(torch, name, None)
+    before = kernel_registry.launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, stride = mesh_ops._query_knn(pts, verts, 4, 4)
+        torch.cuda.synchronize()
+    assert stride == 4 and torch.equal(got, want)
+    assert kernel_registry.launches(before)["exact_knn"] == 1
+    names = [e.key for e in prof.key_averages() if (getattr(e, "device_time_total", 0) or 0) > 0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kknn.exact_plan(65536, 6890, 4, sms)
+    assert any("exact_knn_kernel" in n for n in names), names
+    assert any("exact_knn_combine" in n for n in names) == (plan["slices"] > 1), names
+    assert not [n for n in names if "topk" in n.lower() or "gemm" in n.lower()
+                or "sort" in n.lower()], names
+
+
+def test_exact_knn_kernel_refuses_what_it_cannot_take(cuda, monkeypatch):
+    """k > 8, k > V and a non-f32 input raise a ValueError, never the plain
+    version; an empty query set gives [0, k]."""
+    verts = body_proxy_smpl_model(subdivisions=3, device=cuda).v_template
+    monkeypatch.setattr(kknn, "exact_knn_plain", None)
+    with pytest.raises(ValueError, match="k=9"):
+        kknn.exact_knn(verts[:64] * 1.1, verts, 9)
+    with pytest.raises(ValueError, match="k=4 of 3 vertices"):
+        kknn.exact_knn(verts[:64], verts[:3], 4)
+    with pytest.raises(ValueError, match="f32"):
+        kknn.exact_knn(verts[:64].double(), verts, 4)
+    assert kknn.exact_knn(verts[:0], verts, 4).shape == (0, 4)
+
+
 @pytest.mark.parametrize("stride", [1, 4])
 def test_mesh_kernels_on_a_degree9_mesh(cuda, stride):
     """SMPL's vertex degree: the proxy at subdivision 4 (V=2,562) with
