@@ -146,10 +146,11 @@ def trained_parameters(trainer):
 
 def run_steps(trainer, steps):
     """`steps` train steps: {"losses": each step's total loss, "metrics":
-    each step's losses by name, "grads": the gradients step 1 updated with
-    (the all-reduced ones under a mesh), "params": the parameters after
-    the steps, "launches": each kernel's launches in the steps}; tensors
-    on the host."""
+    each step's losses by name, "metric_bytes": the most bytes of storage
+    that a returned loss keeps alive, "grads": the gradients step 1
+    updated with (the all-reduced ones under a mesh), "params": the
+    parameters after the steps, "launches": each kernel's launches in the
+    steps}; tensors on the host."""
     from neuman_tpu_torch.ops import kernels
 
     recorded, update = [], trainer.optimizer.step
@@ -162,11 +163,13 @@ def run_steps(trainer, steps):
 
     trainer.optimizer.step = recording
     before = kernels.launches()
-    metrics = []
+    metrics, metric_bytes = [], 0
     for _ in range(steps):
         m = trainer.train_step()
         metrics.append({k: float(v) for k, v in m.items() if "loss" in k or "reg" in k})
-    return {"losses": [m["total_loss"] for m in metrics], "metrics": metrics,
+        metric_bytes = max([metric_bytes] + [v.untyped_storage().nbytes() for k, v in m.items()
+                                             if torch.is_tensor(v) and k in metrics[-1]])
+    return {"losses": [m["total_loss"] for m in metrics], "metrics": metrics, "metric_bytes": metric_bytes,
             "grads": recorded[0],
             "params": {k: p.detach().cpu().clone() for k, p in trained_parameters(trainer).items()},
             "launches": kernels.launches(before)}

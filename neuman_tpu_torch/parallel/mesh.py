@@ -34,6 +34,14 @@ Launch N processes, one GPU each, with
 `maybe_init_distributed` joins them into one NCCL group; `resolve_mesh`
 (training) and `resolve_render_mesh` (rendering) turn the config's
 `data_parallel` into a `DataMesh` or None.
+
+`DataMesh`'s collectives are traced (utils/tracing.py): the span
+`mesh.all_reduce` around each all-reduce (its device ms include the wait
+for the slowest rank), and the int counters `mesh.collectives` (the calls
+of `all_reduce`, `broadcast` and `gather_rows`) and `mesh.all_reduce_bytes`
+(the bytes handed to `all_reduce`). A stage-1 step makes 4 collectives: the
+two penalty-mask counts, the flat sum of the gradients and the losses, and
+the density maxima.
 """
 
 import dataclasses
@@ -43,11 +51,13 @@ import os
 import torch
 import torch.distributed as dist
 
+from neuman_tpu_torch.utils import tracing
+
 # a collective that waits longer than this fails the run instead of hanging it
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
 
-def maybe_init_distributed(backend="nccl"):
+def maybe_init_distributed(backend="nccl", timeout=COLLECTIVE_TIMEOUT):
     """Join the process group when the process was launched as one rank of
     several: under torchrun's contract (RANK, WORLD_SIZE, LOCAL_RANK,
     MASTER_ADDR, MASTER_PORT in the environment), or with
@@ -55,7 +65,8 @@ def maybe_init_distributed(backend="nccl"):
     With NCCL each rank takes the GPU `LOCAL_RANK`; NCCL cannot put two
     ranks of one group on one GPU, so that raises. Returns True when this
     call initialised the group (False without the variables, or when the
-    group is up already)."""
+    group is up already). `timeout` bounds the rendezvous and each
+    collective's wait."""
     env = os.environ
     want = env.get("NEUMAN_TPU_DISTRIBUTED", "") == "1" or ("RANK" in env and "WORLD_SIZE" in env)
     if not want or dist.is_initialized():
@@ -69,7 +80,7 @@ def maybe_init_distributed(backend="nccl"):
                 f"{local_world} NCCL ranks on this host but {gpus} GPUs: NCCL cannot put two "
                 "ranks of one group on one GPU; start at most one process per GPU")
         torch.cuda.set_device(local_rank)
-    dist.init_process_group(backend, init_method="env://", timeout=COLLECTIVE_TIMEOUT)
+    dist.init_process_group(backend, init_method="env://", timeout=timeout)
     return True
 
 
@@ -101,11 +112,15 @@ class DataMesh:
         """The sum (or "max") of `t` over the ranks, reduced in place;
         returns `t`."""
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(t, op=red)
+        tracing.count("mesh.collectives")
+        tracing.count("mesh.all_reduce_bytes", t.numel() * t.element_size())
+        with tracing.span("mesh.all_reduce"):
+            dist.all_reduce(t, op=red)
         return t
 
     def broadcast(self, t):
         """Rank 0's `t` on every rank, in place; returns it."""
+        tracing.count("mesh.collectives")
         dist.broadcast(t, src=0)
         return t
 
@@ -113,6 +128,7 @@ class DataMesh:
         """Every rank's rows of `t`, concatenated in rank order (the
         unsharded tensor), differentiable: the gradient of the gathered
         tensor is summed over the ranks and each rank keeps its own rows."""
+        tracing.count("mesh.collectives")
         return _GatherRows.apply(t, self)
 
     def broadcast_object(self, obj):

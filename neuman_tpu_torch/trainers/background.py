@@ -188,7 +188,9 @@ def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn, mesh=None):
             sums = [k for k in aux if "sigma" not in k]
             reduced = pmesh.all_reduce_flat(mesh, list(g) + [aux[k].detach() for k in sums])
             g = reduced[:len(g)]
-            aux.update(zip(sums, reduced[len(g):]))
+            # the losses get a buffer of their own: a view into the flat sum
+            # would keep every gradient alive while a caller keeps a loss
+            aux.update(zip(sums, torch.stack(reduced[len(g):]).unbind()))
             maxima = mesh.all_reduce(torch.stack([aux["max_sigma_coarse"], aux["max_sigma_fine"]]),
                                      op="max")
             aux["max_sigma_coarse"], aux["max_sigma_fine"] = maxima[0], maxima[1]

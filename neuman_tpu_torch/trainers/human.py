@@ -549,7 +549,8 @@ def make_human_train_step(model, opt, optimizer, ctx, parity_inject=None, ops=KE
             names = list(aux["losses"])
             reduced = pmesh.all_reduce_flat(mesh, g + [aux["losses"][k].detach() for k in names])
             g = reduced[:len(g)]
-            aux["losses"].update(zip(names, reduced[len(g):]))
+            # a buffer of their own, as in the background step
+            aux["losses"].update(zip(names, torch.stack(reduced[len(g):]).unbind()))
         for (k, n, _), gk in zip(flat, g):
             grads[k][n] = gk
         dead = aux["dead"]

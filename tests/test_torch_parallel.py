@@ -9,6 +9,13 @@ collectives. The same steps in this process without a mesh are the
 reference, held at the JAX package's bars (tests/test_parallel.py): each
 step's loss within rtol 1e-4, every parameter within atol 1e-5 after 2
 steps; the ranks' parameters equal bit for bit.
+
+Four gloo ranks, spawned once more, run the port's stage-1 step as the
+trainer builds it (`make_bkg_train_step(mesh=)`, as upstream's
+nn.DataParallel over four GPUs), held at the same bars to the benchmark's
+plain reference (`benchmark/reference/steps.bkg_step`) over each whole
+batch in this process; with and without a profiler they also record what
+the mesh's collectives trace.
 """
 
 import json
@@ -19,8 +26,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from benchmark import collectives, flops
+from benchmark.reference import steps as steps_ref
 from neuman_tpu_torch.parallel import dryrun
 from neuman_tpu_torch.parallel import mesh as pmesh
+from neuman_tpu_torch.utils import tracing
 from neuman_tpu_torch.utils.constants import PATCH_SIZE_SQUARED
 
 torch.set_num_threads(1)
@@ -28,6 +38,11 @@ torch.set_num_threads(1)
 WORLD = 2
 SPAWN_TIMEOUT_S = 300.0
 KINDS = ("bkg", "human")
+# upstream's DataParallel on a four-GPU host
+DP4 = 4
+# the configuration fields the reference's stage-1 step reads
+REF_FIELDS = ("pos_N_freqs", "dir_N_freqs", "nerf_depth", "white_bkg", "margin", "samples_per_ray",
+              "importance_samples_per_ray", "penalize_empty_space", "learning_rate", "lrate_decay")
 
 
 class _Opt:
@@ -102,6 +117,18 @@ def test_two_ranks_match_one_process(runs, kind):
     assert max(eq["grad_rel_l2"].values()) < 1e-4
     moved = [k for k, v in single[kind]["grads"].items() if float(v.abs().max()) > 0]
     assert moved
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_a_steps_losses_keep_no_gradients_alive(runs, kind):
+    """The losses a sharded step returns are summed over the ranks with its
+    gradients in one flat all-reduce, yet hold a buffer of their own, as
+    the unsharded step's do: a caller that keeps them (the benchmark keeps
+    every step's loss) keeps no gradient alive."""
+    ranks, single, _ = runs
+    assert single[kind]["metric_bytes"] <= 64
+    for r in _job(ranks, kind):
+        assert r["metric_bytes"] <= 64
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -225,3 +252,117 @@ def test_maybe_init_distributed(monkeypatch):
     with pytest.raises(RuntimeError, match="cannot put two ranks of one group on one GPU"):
         pmesh.maybe_init_distributed("nccl")
     assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------- four ranks
+
+
+def _mesh_records():
+    """The recorder's mesh spans and counters (tracing.snapshot)."""
+    snap = tracing.snapshot()
+    return {"spans": {k: v for k, v in snap["spans"].items() if k.startswith("mesh.")},
+            "counters": {k: v for k, v in snap["counters"].items() if k.startswith("mesh.")}}
+
+
+def _dp4_rank_work(out_dir, steps):
+    """On each rank: a background trainer of the tiny widths with data
+    parallelism on (its step is `make_bkg_train_step(mesh=)`); `steps` steps
+    with no profiler, then one under a profiler. Returns the first
+    parameters, each step's whole batch and global loss, the parameters and
+    Adam's moments after `steps`, and what the mesh traced: the recorder
+    and the host total of `mesh.collectives` after the plain steps, and the
+    recorder after the profiled one."""
+    cfg = dryrun.tiny_bkg_config(out_dir, DP4, name=f"dp4_{dist.get_rank()}")
+    trainer = dryrun.Job("bkg", cfg).trainer("cpu", "on")
+    first = {k: p.detach().clone() for k, p in dryrun.trained_parameters(trainer).items()}
+    tracing.reset()
+    collectives_before = tracing.total("mesh.collectives")
+    batches, losses = [], []
+    for _ in range(steps):
+        batch = trainer.draw_batch()
+        batches.append({k: v.clone() for k, v in batch.items()})
+        _, metrics = trainer.step_fn(trainer.state, batch)
+        losses.append(float(metrics["total_loss"]))
+    loss_bytes = metrics["total_loss"].untyped_storage().nbytes()
+    untraced = {"records": _mesh_records(),
+                "collectives": tracing.total("mesh.collectives") - collectives_before}
+    params = {k: p.detach().clone() for k, p in dryrun.trained_parameters(trainer).items()}
+    moments = {f"{m}.{k}.{n}": t.clone() for m in ("mu", "nu")
+               for k, ts in trainer.state["opt_state"][m].items() for n, t in ts.items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        trainer.step_fn(trainer.state, trainer.draw_batch())
+    traced = _mesh_records()
+    tracing.reset()
+    return {"first": first, "batches": batches, "losses": losses, "params": params, "moments": moments,
+            "untraced": untraced, "traced": traced, "rays": cfg.rays_per_batch, "loss_bytes": loss_bytes,
+            "ref_cfg": {k: getattr(cfg, k) for k in REF_FIELDS}}
+
+
+@pytest.fixture(scope="module")
+def dp4(tmp_path_factory):
+    """(the four ranks' results, the reference's losses and parameters over
+    the same whole batches from the same first parameters)."""
+    root = str(tmp_path_factory.mktemp("dp4"))
+    ranks = dryrun.spawn_ranks(DP4, _dp4_rank_work, (root, 2), timeout_s=SPAWN_TIMEOUT_S, workdir=root)
+    r0 = ranks[0]
+    # the reference's leaf names: the Joiner's "nerf." left out
+    w = {k.replace(".nerf.", "."): v.clone().requires_grad_(True) for k, v in r0["first"].items()}
+    adam = steps_ref.Adam({k: v.detach() for k, v in w.items()})
+    losses = [steps_ref.bkg_step(w, adam, b, r0["ref_cfg"], i) for i, b in enumerate(r0["batches"])]
+    return ranks, {"losses": losses, "params": {k: v.detach() for k, v in w.items()}}
+
+
+def test_four_ranks_match_the_unsharded_reference(dp4):
+    """Each global loss within rtol 1e-4, every parameter within atol 1e-5
+    of the plain reference's unsharded steps on the whole batches; the
+    batch is split 4 ways and the parameters moved."""
+    ranks, ref = dp4
+    assert ranks[0]["rays"] % DP4 == 0 and len(ranks[0]["batches"]) == 2
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-4)
+    moved = 0.0
+    for k, v in ranks[0]["params"].items():
+        want = ref["params"][k.replace(".nerf.", ".")]
+        assert float((v - want).abs().max()) <= 1e-5, k
+        moved = max(moved, float((v - ranks[0]["first"][k]).abs().max()))
+    assert moved > 1e-4
+    # the global loss holds the step's losses alone, not the gradients' flat sum
+    assert all(r["loss_bytes"] <= 64 for r in ranks)
+
+
+def test_four_ranks_replicas_are_bit_equal(dp4):
+    ranks, _ = dp4
+    for r in ranks[1:]:
+        assert r["losses"] == ranks[0]["losses"]
+        for what in ("first", "params", "moments"):
+            for k, v in ranks[0][what].items():
+                assert torch.equal(r[what][k], v), (what, k)
+
+
+def test_a_step_traces_its_four_collectives_under_a_profiler(dp4):
+    """Span `mesh.all_reduce` and counters `mesh.collectives` and
+    `mesh.all_reduce_bytes` on every rank: the two mask counts, the flat
+    gradient and loss sum and the maxima, whose bytes are the yardstick's
+    count from the widths (benchmark/collectives.py); no device time on the
+    CPU."""
+    ranks, _ = dp4
+    cfg = dryrun.tiny_bkg_config("unused", DP4)
+    pe = lambda n: 3 + 3 * 2 * n
+    per_net = flops.mlp_params(cfg.nerf_width, cfg.nerf_depth, (4,), pe(cfg.pos_N_freqs),
+                               pe(cfg.dir_N_freqs))
+    assert sum(v.numel() for v in ranks[0]["params"].values()) == 2 * per_net
+    for r in ranks:
+        traced = r["traced"]
+        assert traced["counters"] == {"mesh.collectives": 4,
+                                      "mesh.all_reduce_bytes": collectives.bkg_step_bytes(per_net)}
+        assert set(traced["spans"]) == {"mesh.all_reduce"}
+        assert traced["spans"]["mesh.all_reduce"]["calls"] == 4
+        assert traced["spans"]["mesh.all_reduce"]["device_ms"] is None
+
+
+def test_collectives_record_nothing_without_a_profiler(dp4):
+    """Off, the recorder holds nothing of the mesh; the int counter still
+    adds to the host total, 4 a step."""
+    ranks, _ = dp4
+    for r in ranks:
+        assert r["untraced"]["records"] == {"spans": {}, "counters": {}}
+        assert r["untraced"]["collectives"] == 4 * len(r["batches"])
