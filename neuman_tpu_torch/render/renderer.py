@@ -8,13 +8,14 @@ One frame path behind the four renderers, by the compact dispatch:
 - the hit test (`_frame_hit_test`): each actor's geometry-guided near and
   far over the frame's rays (a ray hits when it passes within
   geo_threshold of a body vertex), then one host wait for the frame's hit
-  list (`_hit_list`);
+  lists (`_hit_list`: the union of the actors' hits and each actor's own);
 - the background loop (`_bkg_frame`): every ray through the background
   path, chunk by chunk, each chunk keeping the samples of its hit rays (a
   contiguous slice of the ascending list);
-- the branches (`_hybrid_frame`): every actor's human branch (warp +
-  canonical net) over the hit list in chunks of `rays_per_batch` rows,
-  each chunk's human samples merged by z with its kept background samples.
+- the branches (`_hybrid_frame`): each actor's human branch (warp +
+  canonical net) over its own hits in calls of `rays_per_batch` rows, and
+  each chunk of the union's list merged by z with its kept background
+  samples, one block of samples an actor (placeholders where it misses).
 `render_vanilla` is the background loop without a hit list (and passes
 NeRF-T's frame time); `render_hybrid_nerf` is the frame of one actor and
 adds its acc; `render_hybrid_nerf_multi_persons` is the frame of several,
@@ -32,23 +33,24 @@ so it runs chunk by chunk).
 
 The spans of utils/tracing.py mark a frame's hit test (`render.hit_test`,
 once a frame), the host's wait for the hit list (`render.hit_sync`, once a
-frame: `torch.nonzero` and the chunks' bounds in the list), the human
+frame: `torch.nonzero` and the lists' bounds), the human
 branches (`render.human_branch`, one a branch call) and, in the hybrid
 frame, a hit chunk's merge and integration (`render.merge`). The counter
 `render.hit_rays` adds the hit rays; in the hybrid frame
-`render.branch_rays` adds the rows handed to each actor's branch, and
+`render.branch_rays` adds the rows handed to each branch call, and
 `render.actor_rays` (while a profiler records: a device sum) the rows of
-them that the actor's own hit test hits.
+them that the actor's own hit test hits: all of them, by the dispatch.
 
 With a data `mesh` (parallel/mesh.py, the JAX renderers' `mesh=`) each
 chunk's rays are split over the ranks (`ChunkRows`): every rank runs its
 contiguous block of each chunk (and in the hybrid renderers tests its own
-rows and branches over their hit list), and one all_gather at the end of
+rows and branches over their hit lists), and one all_gather at the end of
 the frame gives every rank the whole frame. A chunk size that the mesh
 size does not divide warns "UNSHARDED", and every rank renders the whole
 frame.
 """
 
+import functools
 import itertools
 import warnings
 
@@ -190,18 +192,28 @@ def _frame_hit_test(origins, dirs, verts_list, rows, geo_threshold, use_kernels)
     return mine, bounds
 
 
-def _hit_list(hit, rows):
-    """The frame's hit list, for the host's one wait a frame: (the rows of
-    this rank's buffers where `hit` [rows.local], ascending, and for each
-    chunk of `rows` the bounds (b0, b1) of its rows in that list, a
-    contiguous slice since the chunks' rows follow each other)."""
+def _hit_list(hit_h, rows):
+    """The frame's hit lists, for the host's one wait a frame. hit_h: each
+    actor's hits [rows.local] (bool). Returns (hits, bounds, own): the rows
+    of this rank's buffers that any actor hits, ascending; for each chunk of
+    `rows` the bounds (b0, b1) of its rows in that list, a contiguous slice
+    since the chunks' rows follow each other; and for each actor the rows it
+    hits, ascending (a subsequence of hits). One `nonzero` over the union's
+    and the actors' masks gives every list, and one copy the lists' ends."""
     with tracing.span("render.hit_sync"):  # the host waits for the hit test
-        stops = torch.tensor(list(itertools.accumulate(k for _, _, k in rows.spans)),
-                             device=hit.device)
-        hits = torch.nonzero(hit).squeeze(1)
-        ends = [0] + torch.searchsorted(hits, stops).tolist()
+        masks = torch.stack([functools.reduce(torch.logical_or, hit_h), *hit_h])
+        last = torch.tensor([s - 1 for s in itertools.accumulate(k for _, _, k in rows.spans)],
+                            device=masks.device)
+        # the lists' rows up to each chunk's end, counted over the lists in
+        # order by one scan of the flat masks: a scan along the rows of
+        # [lists, rows] added ~1.7 ms to a 1280x720 frame's wait on an H100
+        ends = masks.view(-1).cumsum(0).view(masks.shape)[:, last]
+        found = torch.nonzero(masks)[:, 1].contiguous()
+        ends = ends.tolist()
+    offsets = [0] + [e[-1] if e else 0 for e in ends]
+    hits, *own = [found[a:b] for a, b in zip(offsets, offsets[1:])]
     tracing.count("render.hit_rays", hits.numel())
-    return hits, list(zip(ends[:-1], ends[1:]))
+    return hits, list(zip([0] + ends[0][:-1], ends[0])), own
 
 
 def _joined(parts):
@@ -248,6 +260,25 @@ def _bkg_frame(bkg_spec, coarse_net, fine_net, cap, origins, dirs, rows, hit_lis
     return rgb, depth, (_joined(kept) if kept else None)
 
 
+def _own_rows(branch, own, hits, blank, rays_per_batch):
+    """An actor's branch over the rows it hits, `own` (ascending, a
+    subsequence of the union's `hits`), in calls of `rays_per_batch` of
+    them: (planes [len(own) + 1, 5, S], each row's z, sigma and three raw
+    colour planes in f32, the last row `blank`, the placeholder; slot
+    [len(hits)], each union row's row of planes, the last where the actor
+    misses). branch(rows) runs the actor's branch on rows of the buffers."""
+    n = own.numel()
+    planes = torch.empty(n + 1, *blank.shape, device=blank.device)
+    planes[n] = blank
+    for first in range(0, n, rays_per_batch):
+        at = slice(first, min(first + rays_per_batch, n))
+        z, sigma, rgb_c = branch(own[at])
+        torch.stack([z, sigma, *rgb_c], 1, out=planes[at])
+    slot = torch.full_like(hits, n)
+    slot[torch.searchsorted(hits, own)] = torch.arange(n, device=hits.device)
+    return planes, slot
+
+
 def _actor(spec, model, posed_verts, faces, Ts, topology, device):
     """One actor of a frame: (its human spec, canonical net,
     topology (`topology`, or built from `faces`), vertices [V, 3] and
@@ -265,13 +296,17 @@ def _hybrid_frame(bkg_spec, bkg_model, cap, actors, device, rays_per_batch, samp
     """The hybrid frame of `actors` (`_actor`s) in the scene of `bkg_model`'s
     background nets; the other arguments as `render_hybrid_nerf`'s.
 
-    Each actor's branch runs on every row of the union of the actors'
-    hits. On the rows that miss that actor (none with one actor), its
-    samples are then replaced by placeholders at z = linspace(1, 2) x 1e8
-    with sigma -1e9: relu(sigma) = 0 gives them alpha 0 and weight 0, and
-    behind every real sample they leave the real samples' transmittance as
-    it is. They do shorten the last real sample's interval from 1e10 to
-    ~1e8 (the distance to the first placeholder); its alpha, 1 -
+    The merge takes, on every row of the union of the actors' hits, one
+    block of samples an actor. An actor whose hits are the union (always
+    with one actor) runs its branch on the union's chunks inside that loop.
+    Another runs it first on its own hits only, in calls of
+    `rays_per_batch` of them, and keeps the outputs compact (`_own_rows`);
+    its block is then gathered from them, a placeholder on the rows it
+    misses: z = linspace(1, 2) x 1e8, sigma -1e9 and raw colour 0.
+    relu(sigma) = 0 gives the placeholders alpha 0 and weight 0, and behind
+    every real sample they leave the real samples' transmittance as it is.
+    They do shorten the last real sample's interval from 1e10 to ~1e8 (the
+    distance to the first placeholder); its alpha, 1 -
     exp(-relu(sigma) |d| interval), rounds to 1 in f32 at both lengths
     once relu(sigma) |d| x 1e8 passes ~17, and is 0 at both for a zero
     density, so the RGB is that of the real samples alone unless the last
@@ -285,40 +320,54 @@ def _hybrid_frame(bkg_spec, bkg_model, cap, actors, device, rays_per_batch, samp
     mine, bounds_h = _frame_hit_test(origins, dirs, [a[3] for a in actors], rows,
                                      geo_threshold, use_kernels)
     hit_h = [near < far for near, far in bounds_h]
-    any_hit = torch.zeros(rows.local, dtype=torch.bool, device=device)
-    for hit in hit_h:
-        any_hit |= hit
-    hits, bounds = _hit_list(any_hit, rows)
+    hits, bounds, own = _hit_list(hit_h, rows)
     rgb, depth, kept = _bkg_frame(
         bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, cap, origins,
         dirs, rows, (hits, bounds), samples_per_ray, importance_samples_per_ray, white_bkg,
         compute_dtype, use_kernels)
     acc = torch.zeros(rows.local, device=device) if with_acc else None
     o_mine, d_mine = origins[mine], dirs[mine]
-    dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
-    for first in range(0, hits.numel(), rays_per_batch):  # the branches' calls
+
+    def branch(k, sel):
+        spec_h, net_h, topo_h, verts_h, ts_h = actors[k]
+        near, far = bounds_h[k]
+        with tracing.span("render.human_branch"):
+            out = _human_branch(spec_h, net_h, topo_h, o_mine[sel], d_mine[sel], near[sel],
+                                far[sel], verts_h, ts_h, samples_per_ray, knn_k, compute_dtype,
+                                knn_stride, use_kernels)
+        tracing.count("render.branch_rays", sel.numel())
+        if tracing.enabled():  # the sum is a launch: only while a profiler records
+            tracing.count("render.actor_rays", hit_h[k][sel].sum())
+        return out
+
+    compact = [None] * len(actors)
+    if any(own_k.numel() < hits.numel() for own_k in own):
+        dummy_z = torch.linspace(1.0, 2.0, samples_per_ray, device=device)[None] * 1e8
+        blank = torch.cat([dummy_z, torch.full_like(dummy_z, -1e9),
+                           torch.zeros(3, samples_per_ray, device=device)])
+        compact = [None if own_k.numel() == hits.numel() else
+                   _own_rows(functools.partial(branch, k), own_k, hits, blank, rays_per_batch)
+                   for k, own_k in enumerate(own)]
+    for first in range(0, hits.numel(), rays_per_batch):  # the merges
         at = slice(first, first + rays_per_batch)
         sel = hits[at]
         f_z, f_sigma, f_rgb_c, dir_norm = _rows(kept, at)
-        zs, sigmas, rgbs = [f_z], [f_sigma], [f_rgb_c]
-        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far), hit in zip(
-                actors, bounds_h, hit_h):
-            with tracing.span("render.human_branch"):
-                h_z, h_sigma, h_rgb_c = _human_branch(
-                    spec_h, net_h, topo_h, o_mine[sel], d_mine[sel], near[sel], far[sel],
-                    verts_h, ts_h, samples_per_ray, knn_k, compute_dtype, knn_stride, use_kernels)
-            actor_hit = hit[sel, None]
-            tracing.count("render.branch_rays", sel.numel())
-            if tracing.enabled():  # the sum is a launch: only while a profiler records
-                tracing.count("render.actor_rays", actor_hit.sum())
-            zs.append(torch.where(actor_hit, h_z, dummy_z))
-            sigmas.append(torch.where(actor_hit, h_sigma, -1e9))
-            rgbs.append(h_rgb_c)
+        outs = [branch(k, sel) if c is None else None for k, c in enumerate(compact)]
         with tracing.span("render.merge"):
+            zs, sigmas, rgbs = [f_z], [f_sigma], [f_rgb_c]
+            for out, c in zip(outs, compact):
+                if c is None:
+                    h_z, h_sigma, h_rgb_c = out
+                else:  # the actor's block, gathered from its compact outputs
+                    planes, slot = c
+                    h_z, h_sigma, *h_rgb_c = planes[slot[at]].unbind(1)
+                zs.append(h_z)
+                sigmas.append(h_sigma)
+                rgbs.append(h_rgb_c)
             z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
             rgb[sel], _, _, _, depth[sel] = volume.integrate_planar(
                 sigma, rgb_c, z, dir_norm, white_bkg)
-            if with_acc:
+            if with_acc:  # one actor, whose hits are the union's
                 acc[sel] = volume.integrate_planar(h_sigma, h_rgb_c, h_z, dir_norm, white_bkg)[2]
     out = (rgb, depth, acc) if with_acc else (rgb, depth)
     h, w = cap.shape

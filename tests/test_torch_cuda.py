@@ -821,6 +821,80 @@ def test_render_frames_kernels_match_plain(cuda, frame):
     assert psnr >= 40.0, psnr
 
 
+def test_gathering_own_hits_dispatch_is_bit_equal_on_card(cuda):
+    """The gathering frame through the kernels in bf16, each actor's branch
+    over its own hits, equals the union dispatch (every actor over every
+    row of the union, placeholders where it misses) bit for bit: every
+    value on the branch is computed row by row. Three actors, some rays
+    passing two of them; one actor alone (`render_hybrid_nerf`) gives the
+    union dispatch's frame and kernel launches."""
+    import math
+    import types
+
+    from neuman_tpu_torch.models import human_nerf, smpl
+    from neuman_tpu_torch.options.config import NeuManConfig
+    from neuman_tpu_torch.ops import rays as ray_ops
+    from neuman_tpu_torch.render import renderer
+
+    import test_torch_gathering as gathering_case
+
+    cfg = NeuManConfig(nerf_width=64, nerf_depth=6)
+    spec = human_nerf.build_human_nerf_spec(cfg)
+    model = human_nerf.HumanNeRF(spec, device=cuda, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    model.coarse_bkg_net.nerf.alpha_linear.bias.fill_(0.5)
+    model.fine_bkg_net.nerf.alpha_linear.bias.fill_(0.5)
+    model.coarse_human_net.nerf.alpha_linear.bias.fill_(5.0)
+    body = body_proxy_smpl_model(subdivisions=3, device=cuda)
+    verts, ts = smpl.da_pose_to_scene(body, torch.zeros(1, 72, device=cuda),
+                                      torch.zeros(1, 10, device=cuda))
+    h, w = 36, 48
+    cap = types.SimpleNamespace(
+        shape=(h, w), near={"bkg": 0.5}, far={"bkg": 6.0},
+        intrinsic_matrix=[[40.0, 0.0, w / 2], [0.0, 40.0, h / 2], [0.0, 0.0, 1.0]],
+        cam_pose=types.SimpleNamespace(
+            camera_to_world=[[1.0, 0, 0, 0], [0, -1.0, 0, 0], [0, 0, -1.0, 3.0], [0, 0, 0, 1.0]]))
+    chunk, samples, geo, stride = 128, 16, 0.2, 4
+    vs, tss = [], []
+    for shift in ((-0.9, 0.0, 0.0), (0.0, 0.0, 0.0), (0.25, 0.0, -0.6)):
+        shift = torch.tensor(shift, device=cuda)
+        ts_k = ts.clone()
+        ts_k[:, :3, 3] += shift
+        vs.append(verts + shift)
+        tss.append(ts_k)
+    o, d = renderer.cap_rays(cap, cuda)
+    hit = [torch.lt(*ray_ops.geometry_guided_near_far(o, d, v, geo)) for v in vs]
+    own = [int(x.sum()) for x in hit]
+    union = int(torch.stack(hit).any(0).sum())
+    assert sum(own) > union > max(own) and union < o.shape[0]  # overlaps, and misses
+    kw = dict(rays_per_batch=chunk, samples_per_ray=samples, importance_samples_per_ray=samples,
+              geo_threshold=geo, knn_k=4, knn_stride=stride, compute_dtype=torch.bfloat16)
+
+    def union_frame(n):
+        actors = [renderer._actor(spec, model, v, body.faces, t, None, cuda)
+                  for v, t in zip(vs[:n], tss[:n])]
+        return gathering_case.union_dispatch(spec, model, cap, actors, cuda, chunk, samples, samples,
+                                             geo, stride, torch.bfloat16, True)
+
+    before = kernel_registry.launches()
+    rgb = renderer.render_hybrid_nerf_multi_persons(
+        spec, model, cap, [spec] * 3, [model] * 3, vs, [body.faces] * 3, tss, cuda, **kw)[0]
+    counts = kernel_registry.launches(before)
+    assert torch.equal(rgb.reshape(-1, 3), union_frame(3))
+    branch_calls = sum(math.ceil(n / chunk) for n in own)
+    assert branch_calls < 3 * math.ceil(union / chunk)
+    assert counts["ericson_select"] == branch_calls
+    assert counts["nerf_mlp"] == 2 * math.ceil(h * w / chunk) + branch_calls
+
+    before = kernel_registry.launches()
+    one = renderer.render_hybrid_nerf(spec, model, cap, vs[0], body.faces, tss[0], cuda, **kw)[0]
+    counts = kernel_registry.launches(before)
+    before = kernel_registry.launches()
+    ref = union_frame(1)
+    assert kernel_registry.launches(before) == counts
+    assert torch.equal(one.reshape(-1, 3), ref)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_human_is_deterministic_without_outside_flags(cuda, dtype, tmp_path):
     """Two train_human runs of 2 steps (and their validations) from one seed

@@ -24,6 +24,8 @@ from neuman_tpu_torch.models import human_nerf as hn
 from neuman_tpu_torch.models import smpl as tsmpl
 from neuman_tpu_torch.ops import mesh as mesh_ops
 from neuman_tpu_torch.ops import rays as ray_ops
+from neuman_tpu_torch.ops import volume
+from neuman_tpu_torch.parallel.mesh import ChunkRows
 from neuman_tpu_torch.render import renderer
 from neuman_tpu_torch.utils import tracing
 
@@ -136,33 +138,129 @@ def test_prebuilt_topologies_give_the_same_frame(scene, frame):
     assert torch.equal(_render(scene, topologies=False), frame)
 
 
-def test_counters_and_the_merge_span(scene):
-    """The frame-level dispatch, counted exactly: one hit test and one host
-    wait a frame; each actor's branch over the union's hit list in calls of
-    CHUNK rows, and one merge a call."""
+def _traced(render):
     tracing.reset()
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-            _render(scene)
-        snap = tracing.snapshot()
+            out = render()
+        return out, tracing.snapshot()
     finally:
         tracing.reset()
-    n = len(scene.actors)
+
+
+def _own_hits(s, verts_list):
+    """Each actor's hit rays and their union, by the plain hit test."""
+    hits = [ray_ops.geometry_guided_near_far_plain(s.o, s.d, v, GEO) for v in verts_list]
+    hits = [near < far for near, far in hits]
+    union = torch.zeros(s.o.shape[0], dtype=torch.bool)
+    for h in hits:
+        union |= h
+    return [int(h.sum()) for h in hits], int(union.sum())
+
+
+def test_counters_and_the_merge_span(scene):
+    """The frame-level dispatch, counted exactly: one hit test and one host
+    wait a frame; each actor's branch over its own hits in calls of CHUNK
+    rows, all of them rows it hits; one merge a CHUNK of the union's list."""
+    _, snap = _traced(lambda: _render(scene))
     counters, spans = snap["counters"], snap["spans"]
-    own = 0
-    union = torch.zeros(scene.o.shape[0], dtype=torch.bool)
-    for a in scene.actors:
-        near, far = ray_ops.geometry_guided_near_far_plain(scene.o, scene.d, a["verts"], GEO)
-        own += int((near < far).sum())
-        union |= near < far
-    hit_rays = int(union.sum())
+    own, hit_rays = _own_hits(scene, [a["verts"] for a in scene.actors])
     assert counters["render.hit_rays"] == hit_rays > CHUNK
-    assert counters["render.branch_rays"] == n * hit_rays
-    assert counters["render.actor_rays"] == own < counters["render.branch_rays"]
+    assert counters["render.branch_rays"] == sum(own) == counters["render.actor_rays"]
+    assert sum(own) > hit_rays  # some rays pass two actors
     assert spans["render.hit_test"]["calls"] == spans["render.hit_sync"]["calls"] == 1
-    calls = math.ceil(hit_rays / CHUNK)
-    assert spans["render.human_branch"]["calls"] == n * calls
-    assert spans["render.merge"]["calls"] == calls
+    assert spans["render.human_branch"]["calls"] == sum(math.ceil(n / CHUNK) for n in own)
+    assert spans["render.merge"]["calls"] == math.ceil(hit_rays / CHUNK)
+
+
+def union_dispatch(bkg_spec, bkg_model, cap, actors, device, rays_per_batch, samples, importance,
+                   geo, knn_stride, dtype, use_kernels):
+    """rgb [H*W, 3] of the frame as the union dispatch renders it: every
+    actor's branch (`actors`: `renderer._actor`s) over every row of the
+    union's hit list, chunk by chunk, then its samples on the rows it misses
+    replaced by placeholders (z = linspace(1, 2) x 1e8, sigma -1e9), merged
+    with the background's. The arguments as `_hybrid_frame`'s, k = 4."""
+    origins, dirs = renderer.cap_rays(cap, device)
+    rows = ChunkRows(origins.shape[0], rays_per_batch, None, device)
+    _, bounds_h = renderer._frame_hit_test(origins, dirs, [a[3] for a in actors], rows, geo,
+                                           use_kernels)
+    hit_h = [near < far for near, far in bounds_h]
+    hits, bounds, _ = renderer._hit_list(hit_h, rows)
+    rgb, _, kept = renderer._bkg_frame(
+        bkg_spec.bkg, bkg_model.coarse_bkg_net.nerf, bkg_model.fine_bkg_net.nerf, cap, origins, dirs,
+        rows, (hits, bounds), samples, importance, True, dtype, use_kernels)
+    dummy_z = torch.linspace(1.0, 2.0, samples, device=device)[None] * 1e8
+    for first in range(0, hits.numel(), rays_per_batch):
+        at = slice(first, first + rays_per_batch)
+        sel = hits[at]
+        f_z, f_sigma, f_rgb_c, dir_norm = renderer._rows(kept, at)
+        zs, sigmas, rgbs = [f_z], [f_sigma], [f_rgb_c]
+        for (spec_h, net_h, topo_h, verts_h, ts_h), (near, far), hit in zip(actors, bounds_h, hit_h):
+            h_z, h_sigma, h_rgb_c = renderer._human_branch(
+                spec_h, net_h, topo_h, origins[sel], dirs[sel], near[sel], far[sel], verts_h, ts_h,
+                samples, 4, dtype, knn_stride, use_kernels)
+            zs.append(torch.where(hit[sel, None], h_z, dummy_z))
+            sigmas.append(torch.where(hit[sel, None], h_sigma, -1e9))
+            rgbs.append(h_rgb_c)
+        z, sigma, rgb_c = volume.sort_merge_planar(zs, sigmas, rgbs)
+        rgb[sel] = volume.integrate_planar(sigma, rgb_c, z, dir_norm, True)[0]
+    return rgb
+
+
+# which actors of the scene, and how far the second of them is moved aside
+DISPATCH_FRAMES = {
+    "three": ((0, 1, 2), 0.0),  # rays that pass none, one and two actors
+    "one_out_of_view": ((0, 1, 2), 50.0),  # an actor without hits: no branch call
+    "one_alone": ((0,), 0.0),  # its hits are the union's: render_hybrid_nerf's path
+}
+
+
+@pytest.mark.parametrize("frame", list(DISPATCH_FRAMES))
+def test_own_hits_dispatch_equals_the_union_dispatch(scene, frame):
+    """Each actor's branch over its own hits gives the frame that the union
+    dispatch gives, in f32 on the plain path; the branch calls are each
+    actor's own hits in CHUNK rows, none for an actor out of view, and one
+    actor alone runs as `render_hybrid_nerf` does."""
+    picked, away = DISPATCH_FRAMES[frame]
+    actors = []
+    for i, k in enumerate(picked):
+        a, shift = scene.actors[k], torch.tensor([away if i == 1 else 0.0, 0.0, 0.0])
+        ts = a["ts"].clone()
+        ts[:, :3, 3] += shift
+        actors.append((scene.models[k], a["verts"] + shift, ts))
+    n = len(actors)
+    kw = dict(rays_per_batch=CHUNK, samples_per_ray=scene.cfg["samples_per_ray"],
+              importance_samples_per_ray=scene.cfg["importance_samples_per_ray"], geo_threshold=GEO,
+              knn_stride=scene.cfg["knn_stride"], compute_dtype=torch.float32, use_kernels=False)
+    (rgb, depth), snap = _traced(lambda: renderer.render_hybrid_nerf_multi_persons(
+        scene.spec, scene.bkg, scene.cap, [scene.spec] * n, [m for m, _, _ in actors],
+        [v for _, v, _ in actors], [scene.faces] * n, [ts for _, _, ts in actors], "cpu",
+        topologies=[scene.topo] * n, **kw))
+    own, hit_rays = _own_hits(scene, [v for _, v, _ in actors])
+    assert {"three": sum(own) > hit_rays > max(own), "one_out_of_view": 0 in own and hit_rays > 0,
+            "one_alone": n == 1}[frame]
+    calls = snap["spans"]["render.human_branch"]["calls"]
+    assert calls == sum(math.ceil(k / CHUNK) for k in own)
+    assert snap["counters"]["render.branch_rays"] == sum(own)
+    # each row's values are computed row by row on both sides (the plain
+    # nets' GEMMs over fewer rows round alike on the CPU), the placeholders
+    # are the same, and a placeholder's colour has weight 0 exactly
+    union = union_dispatch(
+        scene.spec, scene.bkg, scene.cap,
+        [renderer._actor(scene.spec, m, v, scene.faces, ts, scene.topo, "cpu") for m, v, ts in actors],
+        "cpu", CHUNK, kw["samples_per_ray"], kw["importance_samples_per_ray"], GEO, kw["knn_stride"],
+        torch.float32, False)
+    assert torch.equal(rgb.reshape(-1, 3), union)
+    if frame == "one_alone":
+        model, verts, ts = actors[0]
+        one = types.SimpleNamespace(coarse_bkg_net=scene.bkg.coarse_bkg_net,
+                                    fine_bkg_net=scene.bkg.fine_bkg_net,
+                                    coarse_human_net=model.coarse_human_net)
+        (rgb1, depth1, _), snap1 = _traced(lambda: renderer.render_hybrid_nerf(
+            scene.spec, one, scene.cap, verts, scene.faces, ts, "cpu", topology=scene.topo, **kw))
+        assert torch.equal(rgb1, rgb) and torch.equal(depth1, depth)
+        assert snap1["spans"]["render.human_branch"]["calls"] == calls
+        assert snap1["counters"]["render.branch_rays"] == snap["counters"]["render.branch_rays"]
 
 
 def test_render_gathering_builds_one_topology(scene, frame_bf16, monkeypatch):
