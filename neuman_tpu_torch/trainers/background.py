@@ -13,10 +13,10 @@ the device. Both MLP applications of a step run the `nerf_mlp` kernel
 forward and the `nerf_mlp_bwd` kernel backward (`nerf_mlp_fn`) on the card,
 or, given `mlp=nerf_mlp_plain`, autograd of the plain forward.
 The step reads one scalar back (whether a net died); the skip itself is
-decided on the device. Its backward, Adam update and read-back are the
-spans `step.backward`, `step.optimizer` and `step.readback` of
-utils/tracing.py; `--profile_dir` traces `--profile_steps` steps from
-iteration 1 (`tracing.StepProfile`).
+decided on the device. Its forward (`bkg_loss_fn`), backward, Adam update
+and read-back are the spans `step.forward`, `step.backward`,
+`step.optimizer` and `step.readback` of utils/tracing.py; `--profile_dir`
+traces `--profile_steps` steps from iteration 1 (`tracing.StepProfile`).
 """
 
 import os
@@ -176,9 +176,10 @@ def make_bkg_train_step(spec, opt, optimizer, mlp=nerf_mlp_fn, mesh=None):
         penalty_weight = opt.penalize_empty_space * max(0.0, 1.0 - it / 60000.0)
         lr = opt.learning_rate * 0.1 ** (it / (opt.lrate_decay * 1000.0))
         named = named_params(state["params"])
-        c_rgb, c_emp, f_rgb, f_emp, aux = bkg_loss_fn(
-            state["params"], spec, batch, opt, penalty_weight, state["generator"], mlp=mlp,
-            mesh=mesh)
+        with tracing.span("step.forward"):
+            c_rgb, c_emp, f_rgb, f_emp, aux = bkg_loss_fn(
+                state["params"], spec, batch, opt, penalty_weight, state["generator"], mlp=mlp,
+                mesh=mesh)
         total = c_rgb + f_rgb + (c_emp + f_emp if it >= opt.delay_iters else 0.0)
         aux["total_loss"] = total.detach()
         flat = [(k, n, p) for k, ps in named.items() for n, p in ps.items()]

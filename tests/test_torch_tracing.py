@@ -13,7 +13,9 @@ import torch
 from benchmark import cells
 from benchmark import trace as btrace
 from benchmark.tests import tiny
+from neuman_tpu_torch.models import nerf as nerf_module
 from neuman_tpu_torch.ops import kernels
+from neuman_tpu_torch.trainers.background import make_bkg_train_step, make_optimizer, named_params
 from neuman_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -90,10 +92,43 @@ def test_program_span_names_are_dotted_and_not_the_harness_s():
             if f.endswith(".py"):
                 with open(os.path.join(base, f)) as fh:
                     names |= set(re.findall(r'tracing\.(?:span|count)\("([^"]+)"', fh.read()))
-    assert {"step.backward", "step.optimizer", "step.readback", "human.warp", "human.lpips",
-            "warp.face_pileup", "render.hit_test", "render.hit_sync", "render.human_branch",
-            "render.hit_rays"} <= names
+    assert {"step.forward", "step.backward", "step.optimizer", "step.readback", "human.warp",
+            "human.lpips", "warp.face_pileup", "render.hit_test", "render.hit_sync",
+            "render.human_branch", "render.hit_rays"} <= names
     assert all("." in n for n in names) and not names & HARNESS
+
+
+def _tiny_bkg_step():
+    """(step, state, batch) of a stage-1 step at narrow widths on the CPU."""
+    with open(os.path.join(REPO, "benchmark", "configs", "neuman-bkg.json")) as f:
+        cfg = json.load(f)
+    cfg["config"].update(nerf_width=32, rays_per_batch=8, samples_per_ray=4,
+                         importance_samples_per_ray=4)
+    ncfg = cells.port_config(cfg)
+    spec = nerf_module.build_nerf_specs(ncfg)
+    params = {k: nerf_module.Joiner(spec, device="cpu") for k in ("coarse", "fine")}
+    optimizer = make_optimizer()
+    state = {"params": params, "opt_state": optimizer.init(named_params(params)), "iteration": 0,
+             "generator": torch.Generator().manual_seed(0),
+             "init_generator": torch.Generator().manual_seed(1)}
+    gen = torch.Generator().manual_seed(2)
+    n = ncfg.rays_per_batch
+    batch = {"origin": torch.zeros(n, 3), "direction": torch.nn.functional.normalize(
+                 torch.rand(n, 3, generator=gen) + torch.tensor([0.0, 0.0, 1.0]), dim=-1),
+             "color": torch.rand(n, 3, generator=gen), "depth": 1.0 + torch.rand(n, generator=gen),
+             "near": torch.full((n, 1), 0.5), "far": torch.full((n, 1), 4.0)}
+    return make_bkg_train_step(spec, ncfg, optimizer), state, batch
+
+
+def test_a_bkg_step_records_its_forward_once_under_the_profiler(fresh):
+    step, state, batch = _tiny_bkg_step()
+    step(state, batch)
+    assert tracing.snapshot() == {"spans": {}, "counters": {}}
+    with _profiled():
+        step(state, batch)
+    spans = tracing.snapshot()["spans"]
+    assert spans["step.forward"]["calls"] == 1 and spans["step.forward"]["host_ms"] > 0
+    assert {"step.backward", "step.optimizer", "step.readback"} <= set(spans)
 
 
 @pytest.fixture(scope="module")
